@@ -1,0 +1,60 @@
+"""repro_torch.ir — the stencil dataflow-graph IR and its PyTorch/CUDA lowerings.
+
+The port of ``repro.ir`` (see README "PyTorch/CUDA port"):
+
+    graph (StencilOp DAG) --> analysis (halo / op counts, derived; a copy of
+                              the JAX package's, fingerprints equal)
+        --> lower_reference   (eager PyTorch, fused or stage-at-a-time)
+        --> lower_cuda        (one generated fused CUDA kernel per program:
+                               K2, the port of lower_pallas)
+
+Temporal blocking rides the same pipeline: ``repeat(p, k)`` fuses k sweeps
+into one program whose chain both backends execute per sweep, with the
+boundary ring re-applied at absolute indices between sweeps. Multi-field
+and multi-output programs take and return ``{field: tensor}`` mappings.
+The sharded, batched and adjoint layers follow (ROADMAP M8-M10).
+"""
+
+from repro_torch.ir.graph import (
+    Offset,
+    OpCost,
+    ProgramSpec,
+    Read,
+    StencilOp,
+    StencilProgram,
+    repeat,
+)
+from repro_torch.ir.ops import affine, flux, product, scaled_residual, weighted_residual
+from repro_torch.ir.programs import (
+    ELEMENTARY_PROGRAMS,
+    MULTIFIELD_PROGRAMS,
+    MULTIOUTPUT_PROGRAMS,
+    advection_diffusion_program,
+    hdiff_coupled_program,
+    hdiff_multistep_program,
+    hdiff_program,
+    jacobi1d_program,
+    jacobi2d_3pt_program,
+    jacobi2d_5pt_program,
+    jacobi2d_9pt_program,
+    laplacian_program,
+    seidel2d_program,
+    shallow_water_program,
+    smagorinsky_coeff,
+    vadvc_program,
+)
+from repro_torch.ir.evaluate import (
+    apply_program,
+    embed_interior,
+    interior_eval,
+    interior_eval_multi,
+    interior_region,
+    resolve_field_arrays,
+    ring_crop,
+    slab_step,
+    slab_sweep,
+    thread_chain,
+)
+from repro_torch.ir.plan import SMEM_BLOCK_LIMIT, TilePlan, plan_tile
+from repro_torch.ir.lower_reference import lower_reference
+from repro_torch.ir.lower_cuda import lower_cuda, stencil_program_cuda, stencil_program_plain

@@ -1,0 +1,79 @@
+"""Shared-memory tile planning for the hand-written and generated kernels.
+
+The counterpart of ``repro/ir/plan.py``'s VMEM planner. On the TPU a
+Pallas block is a full-width row slab sized against a VMEM budget; on
+Hopper a thread block owns a (rows x cols) output tile and holds it in
+shared memory together with its halo, so the planner sizes a 2-D tile
+against the per-block shared-memory limit of ``sm_90``: 227 KB (232,448
+bytes) of dynamic shared memory, of which only 48 KB come without
+``cudaFuncAttributeMaxDynamicSharedMemorySize`` (the kernels' launchers set
+that attribute when a plan needs more).
+
+Every kernel stores its tiles as float32 *frames* of
+``(rows + 2 * halo) x (cols + 2 * halo)`` words: the hdiff kernels keep two
+(the input tile and its Laplacian), the generated program kernel one per
+live field of its op DAG. The 2-D mesh planner (``plan_partition``) needs
+the halo wire model of the distributed layer and is ported with it
+(ROADMAP M9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+SMEM_BLOCK_LIMIT = 232_448  # bytes of dynamic shared memory one block may use
+DEFAULT_TILE = (32, 64)  # output rows x cols per block before shrinking
+FRAME_ITEMSIZE = 4  # frames hold float32 (or int32) words
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """One block's output tile and the shared memory it needs."""
+
+    rows: int
+    cols: int
+    halo: int
+    buffers: int
+
+
+def frame_bytes(rows: int, cols: int, halo: int) -> int:
+    """Bytes of one float32 frame: the tile plus its halo on every side."""
+    return (rows + 2 * halo) * (cols + 2 * halo) * FRAME_ITEMSIZE
+
+
+def plan_tile(
+    rows: int,
+    cols: int,
+    *,
+    halo: int,
+    buffers: int,
+    block_rows: int | None = None,
+) -> TilePlan:
+    """Picks a (rows x cols) output tile whose ``buffers`` frames fit the
+    per-block shared-memory limit.
+
+    Starts from :data:`DEFAULT_TILE` clipped to the grid and halves the tile
+    rows, then the tile columns, until the frames fit. An explicit
+    ``block_rows`` fixes the tile rows and only the columns shrink. Tiles
+    need not divide the grid: the kernels mask ragged edges. Raises when
+    not even an 8-column tile fits.
+    """
+    if rows < 1 or cols < 1:
+        raise ValueError(f"grid ({rows}, {cols}) has no points")
+    if buffers < 1:
+        raise ValueError(f"buffers must be >= 1, got {buffers}")
+    tr = block_rows if block_rows is not None else min(DEFAULT_TILE[0], rows)
+    tc = min(DEFAULT_TILE[1], cols)
+    while frame_bytes(tr, tc, halo) * buffers > SMEM_BLOCK_LIMIT:
+        if block_rows is None and tr > 8:
+            tr //= 2
+        elif tc > 8:
+            tc //= 2
+        else:
+            raise ValueError(
+                f"a {tr}x{tc} tile with a {halo}-cell halo needs "
+                f"{frame_bytes(tr, tc, halo) * buffers} bytes of shared memory "
+                f"for {buffers} frames, over the {SMEM_BLOCK_LIMIT}-byte "
+                "per-block limit; use fewer block rows"
+            )
+    return TilePlan(tr, tc, halo, buffers)

@@ -1,0 +1,83 @@
+"""The kernel build cache and launch counters, without a card: ``nvcc`` is
+replaced by a stand-in script that copies its source to its output, so the
+bookkeeping (content-addressed names, one compile per source, parallel
+jobs, failures reported with the compiler's output) runs on the CPU."""
+
+import stat
+
+import pytest
+
+from repro_torch.kernels import _build
+
+FAKE_NVCC = """#!/bin/sh
+out=""; src=""
+while [ $# -gt 0 ]; do
+  case "$1" in -o) out="$2"; shift 2;; *.cu) src="$1"; shift;; *) shift;; esac
+done
+echo "$src" >> "$(dirname "$0")/calls"
+if grep -q BROKEN "$src"; then echo "error: cannot compile"; exit 1; fi
+cp "$src" "$out"
+"""
+
+
+@pytest.fixture
+def fake_toolkit(tmp_path, monkeypatch):
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True)
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    return bin_dir / "calls"
+
+
+def _calls(log):
+    return log.read_text().splitlines() if log.exists() else []
+
+
+def test_sources_compile_once_each_and_are_content_addressed(fake_toolkit):
+    paths = _build.build([("a", "int a;"), ("b", "int b;"), ("a", "int a;")])
+    assert paths[0] == paths[2] != paths[1]
+    assert all(p.exists() and p.read_text().startswith("int") for p in paths)
+    assert len(_calls(fake_toolkit)) == 2
+    _build.build([("a", "int a;")])
+    assert len(_calls(fake_toolkit)) == 2  # cached: no second compile
+    assert _build.library_path("a", "int a; ") != paths[0]
+    assert sorted(p.suffix for p in _build.BUILD_DIR.iterdir()) == [".cu", ".cu", ".so", ".so"]
+
+
+def test_failed_build_raises_with_compiler_output(fake_toolkit):
+    with pytest.raises(RuntimeError, match="cannot compile"):
+        _build.build([("ok", "int ok;"), ("bad", "BROKEN")])
+    assert _build.library_path("ok", "int ok;").exists()
+    assert not _build.library_path("bad", "BROKEN").exists()
+
+
+def test_missing_toolkit_is_reported(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "nowhere"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_library_name_covers_headers_and_flags(tmp_path, monkeypatch):
+    """A changed shared header or flag set must not load a stale library."""
+    header = tmp_path / "stencil_common.cuh"
+    header.write_text("// v1")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    v1 = _build.library_path("x", "int x;")
+    header.write_text("// v2")
+    v2 = _build.library_path("x", "int x;")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS[:-1])
+    assert len({v1, v2, _build.library_path("x", "int x;")}) == 3
+    assert v1.name.startswith("x-") and v1.suffix == ".so"
+
+
+def test_launch_counters():
+    _build.reset_launches()
+    _build.check_launch("k", 0)
+    _build.check_launch("k", 0)
+    _build.count_launch("j")
+    assert _build.LAUNCHES == {"k": 2, "j": 1}
+    _build.reset_launches()
+    assert _build.LAUNCHES == {}

@@ -1,0 +1,105 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU with the CUDA toolkit (the kernels have no
+CPU mode): they carry the ``gpu`` marker and skip without a card. Run them
+on the card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+They import neither JAX nor the JAX package, so they run where only the
+port is installed. Ragged grids (tiles that do not divide the grid) and
+explicit tile rows are covered here; ``chip_smoke.py`` covers the paper
+grid and the main path.
+"""
+
+import pytest
+import torch
+
+import repro_torch.ir as ir
+from repro_torch.kernels import _build
+from repro_torch.kernels.hdiff import hdiff_fixed, hdiff_fixed_point_ref, hdiff_fused, hdiff_twostep
+from repro_torch.kernels.hdiff import kernel as k13
+
+pytestmark = pytest.mark.gpu
+SHAPES = [(1, 8, 8), (2, 37, 70), (3, 65, 129)]
+K2_PROGRAMS = {
+    "hdiff_x3": lambda: ir.repeat(ir.hdiff_program(), 3),
+    "jacobi2d_3pt": ir.jacobi2d_3pt_program,
+    "seidel2d_x2": lambda: ir.repeat(ir.seidel2d_program(), 2),
+    "vadvc_x2": lambda: ir.repeat(ir.vadvc_program(), 2),
+    "hdiff_coupled_x3": lambda: ir.repeat(ir.hdiff_coupled_program(), 3),
+    "advection_diffusion_x3": lambda: ir.repeat(ir.advection_diffusion_program(), 3),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rand(shape, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device)
+
+
+def _equal(a, b):
+    torch.cuda.synchronize()
+    if isinstance(a, dict):
+        assert set(a) == set(b)
+        for f in a:
+            assert torch.equal(a[f], b[f]), f
+    else:
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k1_bit_equal_to_plain(cuda, shape, dtype):
+    x = _rand(shape, cuda).to(dtype)
+    for limit in (True, False):
+        _equal(k13.hdiff_cuda(x, 0.025, limit=limit), k13.hdiff_plain(x, 0.025, limit=limit))
+
+
+@pytest.mark.parametrize("block_rows", [4, 16, 64])
+def test_k1_explicit_tile_rows(cuda, block_rows):
+    x = _rand((2, 64, 96), cuda, seed=1)
+    _equal(hdiff_fused(x, 0.05, block_rows=block_rows), k13.hdiff_plain(x, 0.05))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k3_bit_equal_to_plain_with_wraparound(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randint(-(2**30), 2**30, shape, generator=g, device=cuda, dtype=torch.int32)
+    _equal(hdiff_fixed(x), hdiff_fixed_point_ref(x, 26, 10))
+    _equal(hdiff_fixed(x, coeff_num=3, coeff_shift=2), hdiff_fixed_point_ref(x, 3, 2))
+
+
+@pytest.mark.parametrize("name", sorted(K2_PROGRAMS))
+@pytest.mark.parametrize("shape", SHAPES[1:])
+def test_k2_bit_equal_to_plain(cuda, name, shape):
+    prog = K2_PROGRAMS[name]()
+    arrays = tuple(_rand(shape, cuda, seed=i) for i in range(len(prog.inputs)))
+    _equal(ir.stencil_program_cuda(prog, arrays), ir.stencil_program_plain(prog, arrays))
+
+
+def test_k2_bf16_and_twostep(cuda):
+    x = _rand((2, 64, 48), cuda, seed=5)
+    _equal(hdiff_twostep(x, 0.05, block_rows=16), hdiff_fused(hdiff_fused(x, 0.05), 0.05))
+    xb = x.to(torch.bfloat16)
+    prog = ir.repeat(ir.hdiff_program(0.05), 2)
+    _equal(ir.stencil_program_cuda(prog, (xb,)), ir.stencil_program_plain(prog, (xb,)))
+
+
+def test_wrappers_count_launches_and_reject_bad_input(cuda):
+    x = _rand((1, 16, 16), cuda)
+    _build.reset_launches()
+    hdiff_fused(x)
+    hdiff_twostep(x)
+    assert _build.LAUNCHES == {"hdiff_cuda": 1, "stencil_program_cuda": 1}
+    with pytest.raises(TypeError):
+        k13.hdiff_cuda(x.double(), 0.025)
+    with pytest.raises(ValueError, match="contiguous"):
+        k13.hdiff_cuda(x.transpose(1, 2), 0.025)
+    assert _build.LAUNCHES == {"hdiff_cuda": 1, "stencil_program_cuda": 1}

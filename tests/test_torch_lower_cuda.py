@@ -1,0 +1,158 @@
+"""K2, the generated fused CUDA kernel: its plain version (the CPU path of
+``lower_cuda``) against the JAX ``lower_pallas`` in interpret mode, and
+text-level checks of the generated CUDA source, which need no nvcc.
+
+Tolerance ``TOL`` (1e-6, rtol and atol) per output field.
+"""
+
+import re
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import repro.ir as jir
+import repro_torch.ir as tir
+from conformance import GRID, PROGRAMS, TOL, assert_close, make_fields, to_host
+from repro_torch.interop import fields_from_numpy, to_numpy
+from repro_torch.ir.codegen_cuda import frame_plan, kernel_name
+from repro_torch.ir.lower_cuda import kernel_source, tile_for
+from repro_torch.ir.ops import f32_literal
+from test_torch_ir_graph import TORCH_PROGRAMS
+
+CASES = [("hdiff", 1), ("hdiff", 2), ("hdiff", 3), ("hdiff_coupled", 1),
+         ("hdiff_coupled", 2), ("vadvc", 1), ("vadvc", 2), ("shallow_water", 1),
+         ("shallow_water", 2), ("advection_diffusion", 1), ("advection_diffusion", 2)]
+
+
+def _port(name, k):
+    return tir.repeat(TORCH_PROGRAMS[name](), k)
+
+
+@pytest.mark.parametrize("name,k", CASES)
+def test_plain_path_matches_pallas(name, k):
+    x = to_host(make_fields(name))
+    want = to_host(jir.lower_pallas(jir.repeat(PROGRAMS[name](), k), interpret=True)(
+        make_fields(name)))
+    prog = _port(name, k)
+    got = to_numpy(tir.lower_cuda(prog)(fields_from_numpy(prog, x, device="cpu")))
+    assert_close(got, want, err_msg=f"{name}/k={k}")
+
+
+def test_plain_path_bf16_matches_pallas():
+    """Both sides run every sweep in float32 and round to bfloat16 once."""
+    x = to_host(make_fields("hdiff"))
+    want = jir.lower_pallas(jir.repeat(jir.hdiff_program(), 2), interpret=True)(
+        jnp.asarray(x).astype(jnp.bfloat16))
+    prog = _port("hdiff", 2)
+    got = tir.lower_cuda(prog)(torch.tensor(x).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.to(torch.float32).numpy(), np.asarray(want.astype(jnp.float32)),
+        rtol=TOL, atol=TOL,
+    )
+
+
+def test_plain_path_equals_apply_program_on_float32():
+    prog = _port("advection_diffusion", 3)
+    x = fields_from_numpy(prog, to_host(make_fields("advection_diffusion")), device="cpu")
+    fused = tir.lower_cuda(prog)(x)
+    eager = tir.apply_program(prog, x)
+    for f in fused:
+        torch.testing.assert_close(fused[f], eager[f], rtol=0, atol=0)
+
+
+def test_block_rows_validation_matches_lower_pallas():
+    prog = _port("hdiff", 2)
+    x = torch.zeros(GRID)
+    with pytest.raises(ValueError, match="not divisible"):
+        tir.lower_cuda(prog, block_rows=7)(x)
+    with pytest.raises(ValueError, match="halo"):
+        tir.lower_cuda(prog, block_rows=2)(x)
+
+
+def test_one_dimensional_programs_name_k5():
+    with pytest.raises(NotImplementedError, match="K5"):
+        tir.lower_cuda(tir.jacobi1d_program())
+
+
+# -- the generated source ------------------------------------------------------
+
+
+def _source(prog, dtype="float32", grid=GRID):
+    return kernel_source(prog, (dtype,) * len(prog.inputs), tile_for(prog, *grid[1:]))
+
+
+def test_source_is_deterministic_and_keyed_by_fingerprint():
+    a = _source(_port("hdiff", 2))
+    assert a == _source(_port("hdiff", 2))
+    renamed = tir.StencilProgram("other_name", ["psi"], tir.hdiff_program().ops)
+    assert _source(renamed) == _source(tir.hdiff_program())
+    assert renamed.fingerprint() == tir.hdiff_program().fingerprint()
+    other = _source(tir.hdiff_program(0.05))
+    assert other[0] != a[0] and other[1] != a[1]
+    assert a[0] == kernel_name(_port("hdiff", 2))
+    assert _port("hdiff", 2).fingerprint() in a[1]
+    assert _source(_port("hdiff", 2), "bfloat16")[1] != a[1]
+
+
+@pytest.mark.parametrize("name", ["hdiff", "vadvc", "shallow_water", "advection_diffusion"])
+def test_one_store_per_output(name):
+    prog = _port(name, 2)
+    src = _source(prog)[1]
+    stores = re.findall(r"^\s*O(\d+)\[g\] = from_f32<\w+>\(F\d+\[p\]\);", src, re.M)
+    assert sorted(int(s) for s in stores) == list(range(len(prog.outputs)))
+    assert len(re.findall(r"\bO\d+\[", src)) == len(prog.outputs)
+
+
+def test_coefficients_are_exact_float32_literals():
+    src = _source(_port("hdiff", 1))[1]
+    lits = {int(h, 16) for h in re.findall(r"__int_as_float\(0x([0-9a-f]{8})\)", src)}
+    want = {np.array(v, np.float32).view(np.uint32).item() for v in (4.0, -1.0, 0.025)}
+    assert lits == want
+    code = re.sub(r"//[^\n]*", "", src)  # op tags in comments spell the decimals
+    assert not re.search(r"\b0\.025", code)
+    ninth = re.sub(r"//[^\n]*", "", _source(tir.jacobi2d_9pt_program())[1])
+    assert f32_literal(1.0 / 9.0) in ninth and "0.111" not in ninth
+    assert f32_literal(1.0 / 9.0) == "__int_as_float(0x3de38e39)"
+
+
+def test_frames_are_reused_across_ops_and_sweeps():
+    """hdiff needs its input, the Laplacian and four fluxes live at once;
+    the output op reuses the Laplacian's frame, and a second sweep reuses
+    the first sweep's frames."""
+    assert frame_plan(tir.hdiff_program()).n_frames == 6
+    assert frame_plan(_port("hdiff", 3)).n_frames == 6
+    sw = frame_plan(_port("shallow_water", 2))
+    assert sw.input_frames == {"u": 0, "v": 1, "h": 2}
+    assert all(len(s.updates) == 3 for s in sw.sweeps)
+
+
+def test_radius_zero_field_fetches_no_halo():
+    prog = _port("hdiff_coupled", 1)
+    src = _source(prog)[1]
+    assert "// load 'coeff': halo 0" in src and "// load 'u': halo 2" in src
+
+
+@pytest.mark.parametrize("name,k", [("hdiff", 2), ("hdiff_coupled", 2), ("shallow_water", 2),
+                                    ("advection_diffusion", 3)])
+def test_column_slab_ring_equals_full_width_ring(name, k):
+    """The generated kernel applies the ring by ABSOLUTE row and column
+    index (``slab_sweep``'s column-slab form); over a whole grid, zero-padded
+    by the chain radius on every side, that equals the full-width form the
+    plain version uses, bit for bit."""
+    prog = _port(name, k)
+    h = prog.radius
+    arrays = tir.resolve_field_arrays(
+        prog, fields_from_numpy(prog, to_host(make_fields(name)), device="cpu"))
+    _, rows, cols = arrays[0].shape
+    padded = {f: torch.nn.functional.pad(a, (h, h, h, h)) for f, a in zip(prog.inputs, arrays)}
+    states = {f: padded.pop(f) for f in prog.outputs}
+    state = states[prog.passthrough] if len(states) == 1 else states
+    slab = tir.slab_sweep(prog, state, -h, rows, -h, cols, extras=padded or None)
+    plain = tir.stencil_program_plain(prog, arrays)
+    if not isinstance(plain, dict):
+        slab, plain = {"": slab}, {"": plain}
+    for f in plain:
+        torch.testing.assert_close(slab[f], plain[f], rtol=0, atol=0)
