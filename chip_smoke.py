@@ -4,39 +4,67 @@ NVIDIA H100.
 
     python3 chip_smoke.py
 
-Drives the port's main path — the paper's COSMO hdiff on the full
-64x256x256 float32 domain through the IR compiler on one device — and holds
-every hand-written kernel against its plain PyTorch version on the card.
-Each phase prints one JSON line:
+Drives the port's two paths on one device — the paper's COSMO hdiff on
+the full 64x256x256 float32 domain through the IR compiler, and the §3.5
+elementary-stencil suite (fig11's domain) through the hand-written and the
+generated kernels — and holds every hand-written kernel against its plain
+PyTorch version on the card. Each phase prints one JSON line:
 
-  env      torch / CUDA versions, the card, ``nvidia-smi`` name and power limit
-  build    seconds to compile K1/K3 and every K2 program below (one nvcc each,
-           all at once, into build/repro_torch/)
-  parity   each kernel against its plain version on the same inputs, at
-           64x256x256 and at a ragged 3x250x190: max abs error and bit
-           equality, asserted <= 1e-6 (int32: exact); plus a 20-step run on
-           the card against the same run on the CPU
-  main     the main path with the launch counters reset just before it:
-           CompoundStencil(hdiff) under its three policies, a 100-step
-           run_simulation with hdiff_fused (K1), 50 hdiff_twostep calls (K2)
-           and a 100-step int32 fixed-point run (K3); the counters must read
-           exactly 100 / 51 / 100 afterwards
-  timing   per kernel, at 64x256x256 and at 80x1024x1024 (which exceeds the
-           50 MB L2): device time per launch (median of 25 CUDA-graph
-           replays of 10 launches, after warm-up), the plain version's time
-           (median of 20 event-timed calls), the least time the card could
-           take (bytes over 3.35 TB/s or operations over the peak rate,
-           whichever is larger) and the achieved bytes/s
+  env         torch / CUDA versions, the card, ``nvidia-smi`` name and power
+              limit
+  build       seconds to compile K1/K3, K4/K5 and every K2 and K5' program
+              below (one nvcc each, all at once, into build/repro_torch/)
+  parity      each kernel against its plain version on the same inputs, at
+              64x256x256 and a ragged 3x250x190 (K4 with every named mask
+              and a random one, f32 and bf16; K2 also on the five 2-D
+              elementary programs), at (16384, 256) and a long
+              ragged row (4, 4194307) (K5, K5' k=1..3): max abs error and bit
+              equality, asserted <= 1e-6 (int32: exact); plus a 20-step run
+              on the card against the same run on the CPU
+  main        the hdiff path with the launch counters reset just before it:
+              CompoundStencil(hdiff) under its three policies, a 100-step
+              run_simulation with hdiff_fused (K1), 50 hdiff_twostep calls
+              (K2) and a 100-step int32 fixed-point run (K3); the counters
+              must read exactly 100 / 51 / 100 afterwards
+  elementary  the §3.5 path (fig11 on the card) with the counters reset
+              just before it: 10 sweeps (laplacian: 1) of each 2-D stencil
+              through stencil2d (K4) and lower_cuda (K2), 10 jacobi1d sweeps
+              through jacobi1d (K5) and lower_cuda (K5'), 5 calls of
+              lower_cuda(repeat(jacobi1d, 2)); the counters must read exactly
+              41 / 41 / 10 / 15; every leg equal to the same sweeps of its
+              plain version, the three routes (hand-written kernel,
+              lower_reference, IR kernel) within 1e-5 after one sweep, the
+              derived op counts equal to ELEMENTARY_SPECS
+  obs         the port's metrics registry, enabled around the elementary
+              phase's lower_cuda calls: call counters against the calls made
+              and the launch counters, each timer's mean beside the device
+              time per launch, CUDA-graph capture stepping aside, and
+              runtime_metadata()
+  trace       one torch.profiler trace (build/repro_torch/trace/) of 10 K1
+              steps, 5 hdiff_twostep calls and 10 K4 sweeps: calls and device
+              time per kernel name and the device's busy share; fails unless
+              K1, K2 and K4 each show device time
+  timing      per kernel, at 64x256x256 / (16384, 256) and at 80x1024x1024 /
+              (81920, 1024) (which exceed the 50 MB L2): device time per
+              launch (median of 25 CUDA-graph replays of 10 launches, after
+              warm-up), the plain version's time (median of 20 event-timed
+              calls), the least time the card could take (bytes over
+              3.35 TB/s or operations over the peak rate, whichever is
+              larger), the achieved bytes/s and, for K4/K5/K5', one library
+              call computing the same interior (conv2d / conv1d, TF32 off)
 
-Then the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
+Then the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (each
+kernel's launches from the path that runs it), and last
+``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero and prints no result; it also exits non-zero, before
 anything else, without a CUDA device or without the repository's ``src/``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -47,9 +75,16 @@ ROOT = Path(__file__).resolve().parent
 PAPER_GRID = (64, 256, 256)
 RAGGED_GRID = (3, 250, 190)
 BIG_GRID = (80, 1024, 1024)
+# fig11's 1-D layout of the same domain: (depth * rows, cols).
+PAPER_ROWS = (PAPER_GRID[0] * PAPER_GRID[1], PAPER_GRID[2])
+BIG_ROWS = (BIG_GRID[0] * BIG_GRID[1], BIG_GRID[2])
+LONG_ROW = (4, 4_194_307)
+ELEMENTARY_2D = ("jacobi2d_3pt", "laplacian", "jacobi2d_5pt", "jacobi2d_9pt", "seidel2d")
 COEFF = 0.025
 TOL = 1e-6
+ROUTE_TOL = 1e-5  # two summation orders meet (tests/test_kernels_stencil2d.py's bound)
 SEED = 2024
+TRACE_DIR = ROOT / "build" / "repro_torch" / "trace"
 
 
 def emit(obj) -> None:
@@ -59,6 +94,48 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def graph_ms(fn, launches_per_graph=10, replays=25):
+    """Device ms per launch of ``fn``: median over ``replays`` of a CUDA
+    graph of ``launches_per_graph`` launches, timed with CUDA events."""
+    import torch
+
+    fn()  # warm-up (and the one-time shared-memory opt-in) outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches_per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches_per_graph)
+    del graph
+    return statistics.median(times)
+
+
+def event_ms(fn, reps=20):
+    """Median ms of ``reps`` event-timed calls of ``fn`` after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 def main() -> int:
@@ -76,6 +153,7 @@ def main() -> int:
 
     import repro_torch.ir as ir
     from repro_torch.core import (
+        ELEMENTARY_SPECS,
         H100_SXM,
         H100_SXM_INT32_OPS,
         make_hdiff_compound,
@@ -86,7 +164,10 @@ def main() -> int:
     from repro_torch.kernels.hdiff import hdiff_fixed, hdiff_fused, hdiff_twostep
     from repro_torch.kernels.hdiff import hdiff_fixed_point_ref
     from repro_torch.kernels.hdiff import kernel as k13
+    from repro_torch.kernels.stencil2d import jacobi1d, stencil2d, weights_for
+    from repro_torch.kernels.stencil2d import kernel as k45
     from repro_torch.ir.lower_cuda import kernel_source, tile_for
+    from repro_torch.obs import MetricsRegistry, metrics, profiler_trace, runtime_metadata
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -138,6 +219,15 @@ def main() -> int:
                                          tile_for(prog, *shape[1:])))
     hdiff2 = ir.repeat(ir.hdiff_program(), 2)
     sources.append(kernel_source(hdiff2, ("bfloat16",), tile_for(hdiff2, *PAPER_GRID[1:])))
+    sources.append(k45.source())
+    elementary = {name: ir.ELEMENTARY_PROGRAMS[name]() for name in ELEMENTARY_2D}
+    for prog in elementary.values():
+        sources.append(kernel_source(prog, ("float32",), tile_for(prog, *PAPER_GRID[1:])))
+    jac = {k: ir.repeat(ir.jacobi1d_program(), k) for k in (1, 2, 3)}
+    for prog in jac.values():
+        for shape in (PAPER_ROWS, LONG_ROW, BIG_ROWS):
+            sources.append(kernel_source(prog, ("float32",), tile_for(prog, *shape)))
+    sources.append(kernel_source(jac[2], ("bfloat16",), tile_for(jac[2], *PAPER_ROWS)))
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
     _build.build(sources)
@@ -146,7 +236,8 @@ def main() -> int:
 
     # -- parity: every kernel against its plain version --------------------------
     worst: dict[str, float] = {"hdiff_cuda": 0.0, "hdiff_fixed_cuda": 0.0,
-                               "stencil_program_cuda": 0.0}
+                               "stencil_program_cuda": 0.0, "stencil2d_cuda": 0.0,
+                               "jacobi1d_cuda": 0.0, "stencil_program_1d_cuda": 0.0}
     results = []
 
     def compare(kernel, label, got, want, exact=False):
@@ -186,6 +277,36 @@ def main() -> int:
             xb = (randn(shape, torch.bfloat16),)
             compare("stencil_program_cuda", f"{tag}/hdiff/k=2/bf16",
                     ir.stencil_program_cuda(hdiff2, xb), ir.stencil_program_plain(hdiff2, xb))
+    # K2 on the five elementary programs (this also loads their kernels, so
+    # the counted elementary path pays no first-use cost).
+    x = randn(PAPER_GRID)
+    for name, prog in elementary.items():
+        compare("stencil_program_cuda", f"64x256x256/{name}/k=1",
+                ir.stencil_program_cuda(prog, (x,)), ir.stencil_program_plain(prog, (x,)))
+    masks = {name: weights_for(name) for name in ELEMENTARY_2D}
+    masks["random"] = torch.randn((3, 3), generator=torch.Generator().manual_seed(SEED)).numpy()
+    for shape in (PAPER_GRID, RAGGED_GRID):
+        tag = "x".join(map(str, shape))
+        x = randn(shape)
+        for mname, w in masks.items():
+            compare("stencil2d_cuda", f"{tag}/{mname}", k45.stencil2d_cuda(x, w),
+                    k45.stencil2d_plain(x, w))
+    xb = randn(PAPER_GRID, torch.bfloat16)
+    for mname, w in masks.items():
+        compare("stencil2d_cuda", f"64x256x256/{mname}/bf16", k45.stencil2d_cuda(xb, w),
+                k45.stencil2d_plain(xb, w))
+    for shape in (PAPER_ROWS, LONG_ROW):
+        tag = "x".join(map(str, shape))
+        y = randn(shape)
+        compare("jacobi1d_cuda", f"{tag}/f32", k45.jacobi1d_cuda(y), k45.jacobi1d_plain(y))
+        for k, prog in jac.items():
+            compare("stencil_program_1d_cuda", f"{tag}/jacobi1d/k={k}",
+                    ir.stencil_program_1d_cuda(prog, y), ir.stencil_program_1d_plain(prog, y))
+    yb = randn(PAPER_ROWS, torch.bfloat16)
+    compare("jacobi1d_cuda", "16384x256/bf16", k45.jacobi1d_cuda(yb), k45.jacobi1d_plain(yb))
+    compare("stencil_program_1d_cuda", "16384x256/jacobi1d/k=2/bf16",
+            ir.stencil_program_1d_cuda(jac[2], yb), ir.stencil_program_1d_plain(jac[2], yb))
+    del x, xb, y, yb
     # The card against the CPU path, whose float32 steps the CPU tests hold
     # bit-identical to the JAX package's eager steps.
     # (Its diagnostics also load the reduction kernels the main path's
@@ -281,40 +402,181 @@ def main() -> int:
           "seconds": {"compound_3_policies": t_compound, "run_simulation_100_k1": t_k1,
                       "twostep_50_k2": t_k2, "fixed_100_k3": t_k3}})
 
+    # -- elementary path (fig11 on the card), counted ------------------------------
+    # The paper's 64x256x256 f32 domain and fig11's (depth*rows, cols) layout
+    # of it for jacobi1d. laplacian amplifies the field ~8x per sweep, so it
+    # runs one sweep; every other stencil runs ten.
+    x3, x1 = randn(PAPER_GRID), randn(PAPER_ROWS)
+    sweeps = {name: 1 if name == "laplacian" else 10 for name in ELEMENTARY_2D}
+    reg = MetricsRegistry()
+    lowered = {name: ir.lower_cuda(prog) for name, prog in elementary.items()}
+    lowered["jacobi1d"] = ir.lower_cuda(jac[1])
+    lowered["jacobi1d_x2"] = ir.lower_cuda(jac[2])
+    calls = {f"{fn.metric_name}.calls": 0 for fn in lowered.values()}
+    legs: dict[str, dict] = {}
+
+    def leg(label, fn, x, n, *, instrumented=False):
+        """``n`` chained calls of ``fn`` from ``x``; returns (result, result
+        of the first call) and records the synchronised host seconds."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with metrics.using(reg) if instrumented else contextlib.nullcontext():
+            y = first = fn(x)
+            for _ in range(n - 1):
+                y = fn(y)
+        torch.cuda.synchronize()
+        legs[label] = {"calls": n, "seconds": time.perf_counter() - t0}
+        return y, first
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out, firsts = {}, {}
+    for name in ELEMENTARY_2D:
+        out[("k4", name)], firsts[("k4", name)] = leg(
+            f"{name}/stencil2d", lambda a, m=name: stencil2d(a, m), x3, sweeps[name])
+        out[("k2", name)], firsts[("k2", name)] = leg(
+            f"{name}/lower_cuda", lowered[name], x3, sweeps[name], instrumented=True)
+        calls[f"{lowered[name].metric_name}.calls"] += sweeps[name]
+    out[("k5", "jacobi1d")], firsts[("k5", "jacobi1d")] = leg(
+        "jacobi1d/jacobi1d", jacobi1d, x1, 10)
+    out[("k5p", "jacobi1d")], firsts[("k5p", "jacobi1d")] = leg(
+        "jacobi1d/lower_cuda", lowered["jacobi1d"], x1, 10, instrumented=True)
+    out[("k5p2", "jacobi1d")], _ = leg(
+        "jacobi1d_x2/lower_cuda", lowered["jacobi1d_x2"], x1, 5, instrumented=True)
+    calls[f"{lowered['jacobi1d'].metric_name}.calls"] += 10
+    calls[f"{lowered['jacobi1d_x2'].metric_name}.calls"] += 5
+    elem_launches = dict(_build.LAUNCHES)
+    want = {"stencil2d_cuda": 41, "stencil_program_cuda": 41, "jacobi1d_cuda": 10,
+            "stencil_program_1d_cuda": 15}
+    check(elem_launches == want, f"elementary launches {elem_launches} != {want}")
+
+    def repeated(fn, x, n):
+        for _ in range(n):
+            x = fn(x)
+        return x
+
+    leg_checks = []
+
+    def leg_check(label, got, want_, tol=TOL):
+        torch.cuda.synchronize()
+        err = (got.to(torch.float64) - want_.to(torch.float64)).abs().max().item()
+        check(got.shape == want_.shape and err <= tol, f"{label}: max abs error {err}")
+        leg_checks.append({"case": label, "max_abs_err": err,
+                           "bit_equal": torch.equal(got, want_)})
+
+    def within_routes(label, a, b):
+        torch.cuda.synchronize()
+        excess = ((a - b).abs() - ROUTE_TOL * (1 + b.abs())).max().item()
+        err = (a - b).abs().max().item()
+        check(excess <= 0, f"{label}: routes differ by {err} (rtol = atol = {ROUTE_TOL})")
+        leg_checks.append({"case": label, "max_abs_err": err, "bit_equal": torch.equal(a, b)})
+
+    for name in ELEMENTARY_2D:
+        n, prog, w = sweeps[name], elementary[name], masks[name]
+        leg_check(f"{name}/K4 x{n} vs plain",
+                  out[("k4", name)], repeated(lambda a: k45.stencil2d_plain(a, w), x3, n))
+        leg_check(f"{name}/K2 x{n} vs plain", out[("k2", name)],
+                  repeated(lambda a: ir.stencil_program_plain(prog, (a,)), x3, n))
+        ref1 = ir.lower_reference(prog)(x3)
+        within_routes(f"{name}/1 sweep: K4 vs lower_reference", firsts[("k4", name)], ref1)
+        within_routes(f"{name}/1 sweep: K2 vs lower_reference", firsts[("k2", name)], ref1)
+    plain1 = lambda a: ir.stencil_program_1d_plain(jac[1], a)  # noqa: E731
+    leg_check("jacobi1d/K5 x10 vs plain", out[("k5", "jacobi1d")],
+              repeated(k45.jacobi1d_plain, x1, 10))
+    leg_check("jacobi1d/K5' x10 vs plain", out[("k5p", "jacobi1d")], repeated(plain1, x1, 10))
+    leg_check("jacobi1d/K5' k=2 x5 vs plain", out[("k5p2", "jacobi1d")],
+              repeated(lambda a: ir.stencil_program_1d_plain(jac[2], a), x1, 5))
+    check(torch.equal(out[("k5p2", "jacobi1d")], out[("k5p", "jacobi1d")]),
+          "K5' k=2 x5 is not bit-equal to K5' x10")
+    ref1 = ir.lower_reference(jac[1])(x1)
+    within_routes("jacobi1d/1 sweep: K5 vs lower_reference", firsts[("k5", "jacobi1d")], ref1)
+    within_routes("jacobi1d/1 sweep: K5' vs lower_reference", firsts[("k5p", "jacobi1d")], ref1)
+    specs = {}
+    for name in ("jacobi1d",) + ELEMENTARY_2D:
+        derived, hand = ir.ELEMENTARY_PROGRAMS[name]().spec(), ELEMENTARY_SPECS[name]
+        pair = [(s.macs, s.other_ops, s.reads, s.radius) for s in (derived, hand)]
+        check(pair[0] == pair[1], f"{name}: derived op counts {pair[0]} != {pair[1]}")
+        specs[name] = {"macs": derived.macs, "other_ops": derived.other_ops,
+                       "reads": derived.reads, "radius": derived.radius}
+    for name, t in out.items():
+        check(bool(torch.isfinite(t).all()), f"non-finite values after {name}")
+    emit({"phase": "elementary", "grid": list(PAPER_GRID), "rows": list(PAPER_ROWS),
+          "launches": elem_launches, "legs": legs, "checks": leg_checks,
+          "derived_op_counts": specs})
+
+    # -- obs: the registry around the elementary lower_cuda calls -----------------
+    counters = {k: v for k, v in reg.counters.items() if k.endswith(".calls")}
+    check(counters == {k: float(v) for k, v in calls.items()},
+          f"lower_cuda call counters {counters} != calls made {calls}")
+    n_2d = sum(v for k, v in counters.items() if not k.startswith("ir.lower_cuda.jacobi1d"))
+    n_1d = sum(v for k, v in counters.items() if k.startswith("ir.lower_cuda.jacobi1d"))
+    check((n_2d, n_1d) == (elem_launches.get("stencil_program_cuda"),
+                           elem_launches.get("stencil_program_1d_cuda")),
+          f"counters ({n_2d}, {n_1d}) != launch-counter increments")
+    timers = []
+    with metrics.using(reg):
+        for name, fn in lowered.items():
+            key = fn.metric_name
+            stat = reg.timers[key].as_dict()
+            arg = x1 if name.startswith("jacobi1d") else x3
+            device_ms = graph_ms(lambda f=fn, a=arg: f(a))
+            # graph_ms makes one warm-up call, then captures 10: capture steps aside.
+            check(reg.counters[f"{key}.calls"] == stat["count"] + 1,
+                  f"{key}: calls inside CUDA-graph capture were counted")
+            timers.append({"timer": key, "calls": stat["count"],
+                           "host_mean_ms": stat["mean_s"] * 1e3,
+                           "device_ms_per_launch": device_ms})
+    emit({"phase": "obs", "counters": counters, "timers": timers,
+          "runtime_metadata": runtime_metadata(str(ROOT))})
+
+    # -- trace: torch.profiler over a short steady window -------------------------
+    for fn in (lambda: hdiff_fused(psi, COEFF), lambda: hdiff_twostep(psi, COEFF),
+               lambda: stencil2d(x3, "jacobi2d_9pt")):
+        fn()  # warm-up outside the window
+    torch.cuda.synchronize()
+    with profiler_trace(TRACE_DIR) as prof:
+        check(prof is not None, "torch.profiler could not start a trace")
+        t0 = time.perf_counter()
+        a, b, c = psi, psi, x3
+        for _ in range(10):
+            a = hdiff_fused(a, COEFF)
+        for _ in range(5):
+            b = hdiff_twostep(b, COEFF)
+        for _ in range(10):
+            c = stencil2d(c, "jacobi2d_9pt")
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    check((TRACE_DIR / "trace.json").is_file(), "no trace.json written")
+    kernels_seen = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            kernels_seen[e.key] = {"calls": e.count, "device_us": dev_us}
+    starts, ends = [], []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            starts.append(e.time_range.start)
+            ends.append(e.time_range.end)
+    busy_us = sum(v["device_us"] for v in kernels_seen.values())
+    found = {}
+    for label, pattern in (("K1 hdiff_cuda", r"hdiff_kernel"),
+                           ("K2 stencil_program_cuda", r"stencil_program(?!_1d)"),
+                           ("K4 stencil2d_cuda", r"stencil2d_kernel")):
+        hits = [k for k in kernels_seen if re.search(pattern, k)]
+        check(bool(hits), f"trace shows no device time for {label} ({pattern}); "
+              f"kernels seen: {sorted(kernels_seen)}")
+        found[label] = {"calls": sum(kernels_seen[k]["calls"] for k in hits),
+                        "device_us": sum(kernels_seen[k]["device_us"] for k in hits)}
+    emit({"phase": "trace", "dir": str(TRACE_DIR.relative_to(ROOT)), "kernels": found,
+          "all_kernels": kernels_seen, "device_busy_us": busy_us, "window_us": window_us,
+          "busy_share_of_window": busy_us / window_us,
+          "busy_share_of_kernel_span": busy_us / (max(ends) - min(starts)) if starts else None})
+    del a, b, c, out, firsts
+    torch.cuda.empty_cache()
+
     # -- timing --------------------------------------------------------------
-    def graph_ms(fn, launches_per_graph=10, replays=25):
-        fn()  # warm-up (and the one-time shared-memory opt-in) outside capture
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(launches_per_graph):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(replays):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            graph.replay()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b) / launches_per_graph)
-        del graph
-        return statistics.median(times)
-
-    def event_ms(fn, reps=20):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     def bound(nbytes, ops, peak):
         t_bytes, t_ops = nbytes / H100_SXM.hbm_bw, ops / peak
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -324,11 +586,26 @@ def main() -> int:
         return sum(d * max(rows - 2 * r, 0) * max(cols - 2 * r, 0) for _ in range(sweeps))
 
     flops_pt = ir.hdiff_program().spec().flops  # 72: 26 MACs + 20 other ops
+    mask_flops = 18  # K4 evaluates all nine taps: 9 multiplies + 9 adds per point
+    jac_flops = 3  # coeff * ((a + b) + c) per point and sweep
+    third = float(torch.tensor(1.0 / 3.0))
+    # The library yardsticks (never called by the port) compute the interior
+    # only: conv2d of the (D, 1, R, C) view with the 3x3 mask, conv1d of the
+    # (B, 1, n) view with [c, c, c] (for three sweeps, the composed 7-tap
+    # filter c^3 [1, 3, 6, 7, 6, 3, 1]); no padding, TF32 off.
+    library_w = {name: torch.tensor(weights_for(name), device=dev).view(1, 1, 3, 3)
+                 for name in ("jacobi2d_9pt", "laplacian")}
+    library_c = {1: torch.full((1, 1, 3), third, device=dev),
+                 3: (third**3 * torch.tensor([1.0, 3, 6, 7, 6, 3, 1], device=dev)).view(1, 1, 7)}
     timing = {}
-    for shape in (PAPER_GRID, BIG_GRID):
-        tag = "x".join(map(str, shape))
+    for shape, rshape in ((PAPER_GRID, PAPER_ROWS), (BIG_GRID, BIG_ROWS)):
+        tag, rtag = "x".join(map(str, shape)), "x".join(map(str, rshape))
         n = shape[0] * shape[1] * shape[2]
         x = randn(shape)
+        y = randn(rshape)
+        x4 = x.view(shape[0], 1, shape[1], shape[2])
+        y3 = y.view(rshape[0], 1, rshape[1])
+        jac_pts = rshape[0] * max(rshape[1] - 2, 0)
         xq = (x * scale).to(torch.int32)
         coupled = ir.hdiff_coupled_program()
         xc = tuple(fields(coupled, shape).values())
@@ -347,36 +624,67 @@ def main() -> int:
              lambda: ir.stencil_program_plain(coupled, xc), 3 * n * 4,
              interior(shape, 2) * coupled.spec().flops, H100_SXM.peak_flops_vpu_f32),
         ]
-        for kernel, label, fn, plain, nbytes, ops, peak in cases:
+        cases = [(*c, tag, None) for c in cases]
+        for mname in ("jacobi2d_9pt", "laplacian"):
+            w = masks[mname]
+            cases.append((
+                "stencil2d_cuda", f"stencil2d {mname}", lambda w=w: k45.stencil2d_cuda(x, w),
+                lambda w=w: k45.stencil2d_plain(x, w), 2 * n * 4,
+                interior(shape, 1) * mask_flops, H100_SXM.peak_flops_vpu_f32, tag,
+                lambda m=mname: torch.nn.functional.conv2d(x4, library_w[m])))
+        ny = rshape[0] * rshape[1]
+        cases.append((
+            "jacobi1d_cuda", "jacobi1d", lambda: k45.jacobi1d_cuda(y),
+            lambda: k45.jacobi1d_plain(y), 2 * ny * 4, jac_pts * jac_flops,
+            H100_SXM.peak_flops_vpu_f32, rtag,
+            lambda: torch.nn.functional.conv1d(y3, library_c[1])))
+        for k in (1, 3):
+            cases.append((
+                "stencil_program_1d_cuda", f"jacobi1d x{k}",
+                lambda k=k: ir.stencil_program_1d_cuda(jac[k], y),
+                lambda k=k: ir.stencil_program_1d_plain(jac[k], y), 2 * ny * 4,
+                k * jac_pts * jac_flops, H100_SXM.peak_flops_vpu_f32, rtag,
+                lambda k=k: torch.nn.functional.conv1d(y3, library_c[k])))
+        for kernel, label, fn, plain, nbytes, ops, peak, grid, library in cases:
             ms = graph_ms(fn)
             plain_ms = event_ms(plain)
+            library_ms = event_ms(library) if library is not None else None
             bound_ms, bound_by = bound(nbytes, ops, peak)
-            row = {"kernel": kernel, "case": label, "grid": tag, "ms": ms,
+            row = {"kernel": kernel, "case": label, "grid": grid, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "achieved_gbps": nbytes / (ms * 1e-3) / 1e9, "library_ms": None}
-            timing[(kernel, label, tag)] = row
+                   "achieved_gbps": nbytes / (ms * 1e-3) / 1e9, "library_ms": library_ms}
+            timing[(kernel, label, grid)] = row
             emit({"phase": "timing", **row})
-        del x, xq, xc
+        del x, xq, xc, y, x4, y3
         torch.cuda.empty_cache()
 
     # -- result lines ----------------------------------------------------------
-    paper = "x".join(map(str, PAPER_GRID))
+    # Launches: K1-K3 from the hdiff path (K2 runs on both paths; its count
+    # here is the hdiff path's), K4/K5/K5' from the elementary path.
+    paper, paper_rows = "x".join(map(str, PAPER_GRID)), "x".join(map(str, PAPER_ROWS))
     rows = [
-        ("hdiff_cuda", "hdiff f32", "src/repro_torch/csrc/hdiff.cu",
-         "src/repro/kernels/hdiff/kernel.py:131"),
-        ("hdiff_fixed_cuda", "hdiff i32", "src/repro_torch/csrc/hdiff.cu",
-         "src/repro/kernels/hdiff/kernel.py:204"),
-        ("stencil_program_cuda", "hdiff x2", "src/repro_torch/ir/codegen_cuda.py",
-         "src/repro/ir/lower_pallas.py:263"),
+        ("hdiff_cuda", "hdiff f32", paper, "src/repro_torch/csrc/hdiff.cu",
+         "src/repro/kernels/hdiff/kernel.py:131", launches),
+        ("hdiff_fixed_cuda", "hdiff i32", paper, "src/repro_torch/csrc/hdiff.cu",
+         "src/repro/kernels/hdiff/kernel.py:204", launches),
+        ("stencil_program_cuda", "hdiff x2", paper, "src/repro_torch/ir/codegen_cuda.py",
+         "src/repro/ir/lower_pallas.py:263", launches),
+        ("stencil2d_cuda", "stencil2d jacobi2d_9pt", paper, "src/repro_torch/csrc/stencil2d.cu",
+         "src/repro/kernels/stencil2d/kernel.py:59", elem_launches),
+        ("jacobi1d_cuda", "jacobi1d", paper_rows, "src/repro_torch/csrc/stencil2d.cu",
+         "src/repro/kernels/stencil2d/kernel.py:85", elem_launches),
+        ("stencil_program_1d_cuda", "jacobi1d x1", paper_rows,
+         "src/repro_torch/ir/codegen_cuda.py", "src/repro/ir/lower_pallas.py:336",
+         elem_launches),
     ]
     kernels = []
-    for name, label, source, replaces in rows:
-        t = timing[(name, label, paper)]
+    for name, label, grid, source, replaces, counts in rows:
+        t = timing[(name, label, grid)]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": worst[name], "ms": t["ms"],
+            "launches": counts[name], "max_abs_err": worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
+            "library_ms": t["library_ms"],
         })
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -6,12 +6,15 @@ The port of ``repro.ir`` (see README "PyTorch/CUDA port"):
                               the JAX package's, fingerprints equal)
         --> lower_reference   (eager PyTorch, fused or stage-at-a-time)
         --> lower_cuda        (one generated fused CUDA kernel per program:
-                               K2, the port of lower_pallas)
+                               K2, the port of lower_pallas; K5' for 1-D
+                               programs)
 
 Temporal blocking rides the same pipeline: ``repeat(p, k)`` fuses k sweeps
 into one program whose chain both backends execute per sweep, with the
 boundary ring re-applied at absolute indices between sweeps. Multi-field
 and multi-output programs take and return ``{field: tensor}`` mappings.
+Both lowerings report per-call timers and counters through
+:mod:`repro_torch.obs.metrics` when a registry is enabled.
 The sharded, batched and adjoint layers follow (ROADMAP M8-M10).
 """
 
@@ -57,4 +60,10 @@ from repro_torch.ir.evaluate import (
 )
 from repro_torch.ir.plan import SMEM_BLOCK_LIMIT, TilePlan, plan_tile
 from repro_torch.ir.lower_reference import lower_reference
-from repro_torch.ir.lower_cuda import lower_cuda, stencil_program_cuda, stencil_program_plain
+from repro_torch.ir.lower_cuda import (
+    lower_cuda,
+    stencil_program_1d_cuda,
+    stencil_program_1d_plain,
+    stencil_program_cuda,
+    stencil_program_plain,
+)

@@ -1,7 +1,9 @@
-"""CUDA C++ code generation for one fused kernel per 2-D IR program (K2).
+"""CUDA C++ code generation for one fused kernel per IR program (K2, K5').
 
 The Hopper counterpart of the body of ``repro/ir/lower_pallas.py``
-(``_generic_kernel``): :func:`render` turns a :class:`StencilProgram` — its
+(``_generic_kernel``; for 1-D programs ``_kernel_1d``, rendered by
+:func:`render_1d` the same way over ``(batch, n)`` rows, with column
+frames in place of 2-D ones): :func:`render` turns a :class:`StencilProgram` — its
 op list, its chain of sweeps, its per-field exchange radii and its outputs
 — into the source of one kernel, ``stencil_program``, plus a C launcher
 ``launch`` that :mod:`repro_torch.ir.lower_cuda` binds with ctypes.
@@ -135,14 +137,34 @@ def _region_loop(rows: tuple[int, int], cols: tuple[int, int], body: list[str]) 
     ]
 
 
+def _span_loop(lo: int, hi: int, body: list[str]) -> list[str]:
+    """The 1-D form of :func:`_region_loop`: frame positions ``[lo, hi)``."""
+    if hi <= lo:
+        raise ValueError(f"empty frame span [{lo}, {hi})")
+    return [
+        f"  for (int q = threadIdx.x; q < {hi - lo}; q += kThreads) {{",
+        f"    const int p = {lo} + q;",
+        *[f"    {line}" for line in body],
+        "  }",
+        "  __syncthreads();",
+    ]
+
+
 def render(program: StencilProgram, dtypes, tile: TilePlan) -> str:
     """CUDA C++ source of the fused kernel for ``program`` with input
     dtypes ``dtypes`` (``"float32"`` / ``"bfloat16"``, in
     ``program.inputs`` order) and output tile ``tile``. Deterministic: the
     same arguments always give the same text, and the text depends on the
-    program only through its structure (never its display name)."""
-    if program.ndim != 2:
-        raise ValueError(f"the CUDA codegen handles 2-D programs, got ndim={program.ndim}")
+    program only through its structure (never its display name).
+
+    2-D programs give K2 (``stencil_program``); single-input 1-D programs
+    give K5' (``stencil_program_1d``, :func:`render_1d`)."""
+    if program.ndim not in (1, 2):
+        raise ValueError(f"the CUDA codegen handles 1-D and 2-D programs, got ndim={program.ndim}")
+    if program.ndim == 1 and len(program.inputs) != 1:
+        raise ValueError(
+            f"the 1-D CUDA codegen handles single-input programs only, got {program.inputs}"
+        )
     dtypes = tuple(dtypes)
     if len(dtypes) != len(program.inputs):
         raise ValueError(f"need one dtype per input {program.inputs}, got {dtypes}")
@@ -159,6 +181,8 @@ def render(program: StencilProgram, dtypes, tile: TilePlan) -> str:
             f"tile plan {tile} does not match program radius {program.radius} "
             f"and {plan.n_frames} frames"
         )
+    if program.ndim == 1:
+        return render_1d(program, dtypes[0], tile, plan)
     H = program.radius
     FR, FC = tile.rows + 2 * H, tile.cols + 2 * H
     halos = program.exchange_radii()
@@ -278,6 +302,112 @@ def render(program: StencilProgram, dtypes, tile: TilePlan) -> str:
         "  const dim3 grid((cols + TC - 1) / TC, (rows + TR - 1) / TR, depth);",
         "  stencil_program<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(",
         "      " + ", ".join(call) + ");",
+        "  return static_cast<int>(cudaGetLastError());",
+        "}",
+        "",
+    ]
+    return "\n".join(src)
+
+
+def render_1d(program: StencilProgram, dtype: str, tile: TilePlan, plan: FramePlan) -> str:
+    """K5': the fused kernel of a single-input 1-D program over ``(batch,
+    n)`` rows, the Hopper counterpart of ``lower_pallas.py::_kernel_1d``.
+
+    One block per (row, column tile of ``tile.cols``): it loads the tile
+    plus a ``k * r`` halo into a float32 frame, runs every sweep of the
+    chain there (each op over its margin-shrunk span, ``interior_eval``'s
+    region), re-applies the radius-``r`` end points at ABSOLUTE column
+    indices between sweeps — what ``_kernel_1d`` does on its whole row —
+    and stores the tile once in the input dtype."""
+    H = program.radius
+    TC = tile.cols
+    FC = TC + 2 * H
+    (field,) = program.inputs
+    halo = program.exchange_radii()[field]
+    ctype = CTYPES[dtype]
+    src = [
+        "// Generated by repro_torch.ir.codegen_cuda; do not edit.",
+        "// K5' stencil_program_1d_cuda: replaces the JAX package's",
+        "// repro/ir/lower_pallas.py::_lower_pallas_1d (_kernel_1d).",
+        "// Bound on an H100: device-memory bytes, the (batch, n) row field read",
+        "// once and written once per launch of all k sweeps; the ops' flops per",
+        "// point are far below the card's FP32 rate per byte. Design: the row is",
+        "// tiled across blocks (Pallas held a whole row per program) with a k*r",
+        "// halo read from L2, every sweep stays in shared memory, one store.",
+        f"// fingerprint: {program.fingerprint()}",
+        f"// input: {field}:{dtype}(halo {halo})",
+        f"// tile: {TC}  chain halo: {H}  frames: {plan.n_frames}  sweeps: {program.steps}",
+        '#include "stencil_common.cuh"',
+        "",
+        "namespace {",
+        "using repro_torch::from_f32;",
+        "using repro_torch::kThreads;",
+        "using repro_torch::to_f32;",
+        f"constexpr int TC = {TC}, H = {H};",
+        "constexpr int FC = TC + 2 * H;",
+        f"constexpr int NFRAMES = {plan.n_frames};",
+        "",
+        "// Rows map to blockIdx.z * gridDim.y + blockIdx.y (no 65535-row limit).",
+        "__global__ void __launch_bounds__(kThreads) stencil_program_1d(",
+        f"    const {ctype}* __restrict__ I0, {ctype}* __restrict__ O0, int batch, int n) {{",
+        "  extern __shared__ __align__(16) float smem[];",
+        "  const int b = blockIdx.z * gridDim.y + blockIdx.y;",
+        "  if (b >= batch) return;",
+        "  const long long row = static_cast<long long>(b) * n;",
+        "  const int c0 = blockIdx.x * TC;",
+        *[f"  float* const F{k} = smem + {k} * FC;" for k in range(plan.n_frames)],
+        "",
+        f"  // load {field!r}: halo {halo}, zero beyond it and outside the row",
+        "  for (int q = threadIdx.x; q < FC; q += kThreads) {",
+        "    const int gc = c0 + q - H;",
+        f"    const bool live = q >= {H - halo} && q < {FC - H + halo} && gc >= 0 && gc < n;",
+        f"    F{plan.input_frames[field]}[q] = live ? to_f32(I0[row + gc]) : 0.0f;",
+        "  }",
+        "  __syncthreads();",
+    ]
+    for s, sweep in enumerate(plan.sweeps):
+        p, e = sweep.program, sweep.inset
+        margins = p.margins()
+        for op in p.ops:
+            (lo,), (hi,) = margins[op.name]
+            views = [
+                f"F{sweep.env[r.field]}[p{r.offset[0]:+d}]" if r.offset[0]
+                else f"F{sweep.env[r.field]}[p]"
+                for r in op.reads
+            ]
+            src.append(f"  // sweep {s}, op {op.name!r}: {op.tag}")
+            src += _span_loop(e + lo, FC - e - hi,
+                              [f"F{sweep.env[op.name]}[p] = {op.emit(*views)};"])
+        r = p.radius
+        src.append(f"  // sweep {s}: end points of radius {r} kept at absolute indices")
+        body = [
+            "const int gc = c0 + p - H;",
+            f"if (!(gc < {r} || gc >= n - {r})) {{",
+            *[f"  F{state}[p] = F{new}[p];" for state, new in sweep.updates],
+            "}",
+        ]
+        src += _span_loop(e + r, FC - e - r, body)
+    out_frame = plan.input_frames[program.passthrough]
+    src += [
+        "  for (int q = threadIdx.x; q < TC; q += kThreads) {",
+        "    const int gc = c0 + q;",
+        "    if (gc >= n) break;",
+        f"    O0[row + gc] = from_f32<{ctype}>(F{out_frame}[q + H]);  // store {field!r}",
+        "  }",
+        "}",
+        "",
+        "}  // namespace",
+        "",
+        "// C launcher bound with ctypes; returns the CUDA error code (0 = ok).",
+        'extern "C" int launch(const void* I0, void* O0, int batch, int n, void* stream) {',
+        "  static size_t reserved = 0;",
+        "  const size_t smem = sizeof(float) * FC * NFRAMES;",
+        "  const int err = repro_torch::reserve_smem(stencil_program_1d, smem, reserved);",
+        "  if (err) return err;",
+        "  const unsigned gz = (batch + 65534) / 65535;",
+        "  const dim3 grid((n + TC - 1) / TC, (batch + gz - 1) / gz, gz);",
+        "  stencil_program_1d<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(",
+        f"      static_cast<const {ctype}*>(I0), static_cast<{ctype}*>(O0), batch, n);",
         "  return static_cast<int>(cudaGetLastError());",
         "}",
         "",

@@ -18,6 +18,7 @@ from typing import Mapping
 import torch
 
 from repro_torch.ir.graph import StencilProgram
+from repro_torch.obs import profile
 
 Tensor = torch.Tensor
 
@@ -137,8 +138,15 @@ def interior_eval_multi(
     margins = program.margins()
 
     env: dict[str, Tensor] = dict(arrays)
+    traced = profile.tracing()
     for op in program.ops:
-        env[op.name] = op.compute(*op_views(op, env, margins, grid, nd))
+        if traced:
+            # Per-op label, so a port trace (repro_torch.obs.profile) names
+            # stencil ops; entered only while a trace is capturing.
+            with torch.profiler.record_function(f"ir/{program.name}/{op.name}"):
+                env[op.name] = op.compute(*op_views(op, env, margins, grid, nd))
+        else:
+            env[op.name] = op.compute(*op_views(op, env, margins, grid, nd))
     return {f: env[op_name] for f, op_name in program.outputs.items()}
 
 

@@ -1,4 +1,4 @@
-"""Fused-CUDA lowering: one generated Hopper kernel per 2-D IR program (K2).
+"""Fused-CUDA lowering: one generated Hopper kernel per IR program (K2, K5').
 
 The port of ``repro/ir/lower_pallas.py::lower_pallas``: :func:`lower_cuda`
 takes the same program and ``block_rows`` and returns ``x -> program(x)``
@@ -8,15 +8,23 @@ Pallas-only knobs have no counterpart (``interpret``; ``vmem_budget``,
 which the shared-memory tile planner replaces), and the column-slab mode
 (``cols_global`` / ``col_offset``) arrives with the distributed lowering
 (ROADMAP M9): standalone calls pass ``(0, rows, 0, cols)`` to the kernel.
+A single-input 1-D program (``jacobi1d``) lowers to K5' over a ``(batch,
+n)`` tensor, the port of ``_lower_pallas_1d``.
 
-On CUDA tensors the call launches :func:`stencil_program_cuda`, the kernel
-:mod:`repro_torch.ir.codegen_cuda` renders from the op list. It is compiled
-once per ``(fingerprint(), dtypes, tile)`` and cached in memory here and on
-disk by :mod:`repro_torch.kernels._build`. On CPU tensors the call computes
-:func:`stencil_program_plain`, the kernel's plain version — what the Pallas
-kernel computes too: all k sweeps of the chain in float32 over the whole
-grid (``slab_sweep``), cast to each field's dtype at the end. For float32
-inputs that equals ``apply_program``.
+On CUDA tensors the call launches :func:`stencil_program_cuda` (2-D) or
+:func:`stencil_program_1d_cuda` (1-D), the kernels
+:mod:`repro_torch.ir.codegen_cuda` renders from the op list. Each is
+compiled once per ``(fingerprint(), dtypes, tile)`` and cached in memory
+here and on disk by :mod:`repro_torch.kernels._build`. On CPU tensors the
+call computes the kernel's plain version (:func:`stencil_program_plain`,
+:func:`stencil_program_1d_plain`) — what the Pallas kernel computes too:
+all k sweeps of the chain in float32 over the whole grid, cast to each
+field's dtype at the end. For float32 inputs that equals ``apply_program``.
+
+Every lowered callable is wrapped in
+:func:`repro_torch.obs.metrics.instrument_call` under
+``ir.lower_cuda.<program>`` (the JAX package records
+``ir.lower_pallas.<program>``).
 """
 
 from __future__ import annotations
@@ -28,13 +36,15 @@ from typing import Callable, Mapping
 import torch
 
 from repro_torch.ir.codegen_cuda import frame_plan, kernel_name, render
-from repro_torch.ir.evaluate import resolve_field_arrays, slab_sweep
+from repro_torch.ir.evaluate import interior_eval, resolve_field_arrays, ring_crop, slab_sweep
 from repro_torch.ir.graph import StencilProgram
-from repro_torch.ir.plan import TilePlan, plan_tile
+from repro_torch.ir.plan import TilePlan, plan_tile, plan_tile_1d
 from repro_torch.kernels import _build
+from repro_torch.obs import metrics
 
 Tensor = torch.Tensor
 KERNEL = "stencil_program_cuda"
+KERNEL_1D = "stencil_program_1d_cuda"
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _KERNELS: dict[tuple, object] = {}
 
@@ -64,11 +74,12 @@ def tile_for(program: StencilProgram, rows: int, cols: int,
              block_rows: int | None = None) -> TilePlan:
     """The shared-memory tile the kernel for ``program`` uses on a grid
     (cached: programs hash by fingerprint, and planning the frames walks
-    the whole chain, which would cost more host time than a launch)."""
-    return plan_tile(
-        rows, cols, halo=program.radius, buffers=frame_plan(program).n_frames,
-        block_rows=block_rows,
-    )
+    the whole chain, which would cost more host time than a launch). A 1-D
+    program's rows are ``cols`` points long; its ``rows`` is ignored."""
+    buffers = frame_plan(program).n_frames
+    if program.ndim == 1:
+        return plan_tile_1d(cols, halo=program.radius, buffers=buffers)
+    return plan_tile(rows, cols, halo=program.radius, buffers=buffers, block_rows=block_rows)
 
 
 def kernel_source(program: StencilProgram, dtypes, tile: TilePlan) -> tuple[str, str]:
@@ -83,7 +94,8 @@ def _kernel(program: StencilProgram, dtypes: tuple[str, ...], tile: TilePlan):
     if fn is None:
         fn = _build.load(*kernel_source(program, dtypes, tile)).launch
         n_ptr = len(program.inputs) + len(program.outputs)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        n_int = 2 if program.ndim == 1 else 7
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _KERNELS[key] = fn
     return fn
@@ -118,6 +130,42 @@ def stencil_program_cuda(
     return outs
 
 
+def stencil_program_1d_plain(program: StencilProgram, x: Tensor) -> Tensor:
+    """K5''s plain version, ``_kernel_1d`` in PyTorch: every sweep of the
+    chain in float32 over the whole ``(batch, n)`` row field, its interior
+    embedded at columns ``[r, n - r)``, cast to ``x``'s dtype at the end."""
+    xf = x.to(torch.float32)
+    n = xf.shape[-1]
+    for prog in program.chain:
+        vals = ring_crop(prog, interior_eval(prog, {prog.inputs[0]: xf}))
+        r = prog.radius
+        if r:
+            xf = xf.clone()
+            xf[..., r : n - r] = vals
+        else:
+            xf = vals
+    return xf.to(x.dtype)
+
+
+def stencil_program_1d_cuda(program: StencilProgram, x: Tensor) -> Tensor:
+    """K5': one launch of a 1-D program's fused kernel (all k sweeps) over a
+    contiguous ``(batch, n)`` float32 or bfloat16 CUDA tensor. CPU tensors
+    take :func:`stencil_program_1d_plain`."""
+    if x.device.type == "cpu":
+        return stencil_program_1d_plain(program, x)
+    _build.check_input(KERNEL_1D, x, tuple(_DTYPE_NAMES), ndim=2)
+    out = torch.empty_like(x)
+    if x.numel():
+        batch, n = x.shape
+        dtypes = (_DTYPE_NAMES[x.dtype],)
+        fn = _kernel(program, dtypes, tile_for(program, 1, n))
+        with torch.cuda.device(x.device):
+            code = fn(x.data_ptr(), out.data_ptr(), batch, n,
+                      torch.cuda.current_stream().cuda_stream)
+        _build.check_launch(KERNEL_1D, code)
+    return out
+
+
 def lower_cuda(
     program: StencilProgram, *, block_rows: int | None = None
 ) -> Callable[[Tensor | Mapping[str, Tensor]], Tensor | dict[str, Tensor]]:
@@ -127,12 +175,23 @@ def lower_cuda(
     must divide ``rows`` and be at least the chain halo, so the two APIs
     accept the same calls (the kernel itself masks ragged tiles, and the
     default planner's tiles need not divide the grid). A composed program
-    (``repeat(p, k)``) runs all k sweeps in one launch. 1-D programs raise
-    ``NotImplementedError``: their kernel is ROADMAP K5 (M6)."""
+    (``repeat(p, k)``) runs all k sweeps in one launch. A 1-D program must
+    have one input and takes a ``(batch, n)`` tensor (``block_rows`` does
+    not apply), as in ``lower_pallas``."""
+    name = f"ir.lower_cuda.{program.name}"
     if program.ndim == 1:
-        raise NotImplementedError(
-            f"1-D program {program.name!r}: the 1-D fused kernel is ROADMAP K5 (M6)"
-        )
+        if len(program.inputs) != 1:
+            raise ValueError(
+                "1-D CUDA lowering supports single-input programs only, "
+                f"got {program.inputs}"
+            )
+
+        def fn_1d(x):
+            if x.ndim != 2:
+                raise ValueError(f"expected (batch, n), got shape {tuple(x.shape)}")
+            return stencil_program_1d_cuda(program, x)
+
+        return metrics.instrument_call(fn_1d, name)
     if program.ndim != 2:
         raise ValueError(f"unsupported ndim {program.ndim}")
     min_block = max(program.radius, 1)
@@ -150,4 +209,4 @@ def lower_cuda(
                 )
         return stencil_program_cuda(program, arrays, block_rows=block_rows)
 
-    return fn
+    return metrics.instrument_call(fn, name)

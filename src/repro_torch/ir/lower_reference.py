@@ -11,7 +11,11 @@ The counterpart of ``repro/ir/lower_reference.py``, with the two modes of
     synchronisation after each op on the card (the single-AIE / load-store
     baseline of Fig. 9).
 
-Both run where the input tensors live.
+Both run where the input tensors live. Every lowered callable is wrapped
+in :func:`repro_torch.obs.metrics.instrument_call` under
+``ir.lower_reference.<program>.<mode>``, the JAX package's name: a
+per-call timer and ``.calls`` counter when metrics are on, a straight
+call-through when they are off.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.ir.evaluate import apply_program, embed_interior, op_views, thread_chain
 from repro_torch.ir.graph import StencilProgram
+from repro_torch.obs import metrics
 
 Tensor = torch.Tensor
 
@@ -29,13 +34,14 @@ Tensor = torch.Tensor
 def lower_reference(
     program: StencilProgram, *, mode: str = "fused"
 ) -> Callable[[Tensor | Mapping[str, Tensor]], Tensor]:
+    name = f"ir.lower_reference.{program.name}.{mode}"
     if mode == "fused":
-        return lambda x: apply_program(program, x)
+        return metrics.instrument_call(lambda x: apply_program(program, x), name)
     if mode == "staged":
         if program.steps == 1:
-            return _lower_staged(program)
+            return metrics.instrument_call(_lower_staged(program), name)
         runs = [(p, _lower_staged(p)) for p in program.chain]
-        return lambda x: thread_chain(program, x, runs)
+        return metrics.instrument_call(lambda x: thread_chain(program, x, runs), name)
     raise ValueError(f"unknown mode {mode!r} (want 'fused' or 'staged')")
 
 

@@ -11,8 +11,10 @@ that attribute when a plan needs more).
 
 Every kernel stores its tiles as float32 *frames* of
 ``(rows + 2 * halo) x (cols + 2 * halo)`` words: the hdiff kernels keep two
-(the input tile and its Laplacian), the generated program kernel one per
-live field of its op DAG. The 2-D mesh planner (``plan_partition``) needs
+(the input tile and its Laplacian), the mask kernel (K4) one, the
+generated program kernel one per
+live field of its op DAG; a 1-D program's kernel holds one row tile per
+frame (:func:`plan_tile_1d`). The 2-D mesh planner (``plan_partition``) needs
 the halo wire model of the distributed layer and is ported with it
 (ROADMAP M9).
 """
@@ -23,6 +25,7 @@ import dataclasses
 
 SMEM_BLOCK_LIMIT = 232_448  # bytes of dynamic shared memory one block may use
 DEFAULT_TILE = (32, 64)  # output rows x cols per block before shrinking
+DEFAULT_TILE_1D = 1024  # output points per block of a 1-D program's kernel
 FRAME_ITEMSIZE = 4  # frames hold float32 (or int32) words
 
 
@@ -77,3 +80,23 @@ def plan_tile(
                 "per-block limit; use fewer block rows"
             )
     return TilePlan(tr, tc, halo, buffers)
+
+
+def plan_tile_1d(n: int, *, halo: int, buffers: int) -> TilePlan:
+    """A 1-row tile of a ``(batch, n)`` row field: :data:`DEFAULT_TILE_1D`
+    columns clipped to ``n`` (one block's worth of threads, four points
+    each), halved until its ``buffers`` frames of ``cols + 2 * halo`` words
+    fit the per-block shared-memory limit."""
+    if n < 1:
+        raise ValueError(f"row of {n} points")
+    if buffers < 1:
+        raise ValueError(f"buffers must be >= 1, got {buffers}")
+    tc = min(DEFAULT_TILE_1D, n)
+    while (tc + 2 * halo) * FRAME_ITEMSIZE * buffers > SMEM_BLOCK_LIMIT:
+        if tc <= 8:
+            raise ValueError(
+                f"a {tc}-column tile with a {halo}-cell halo needs more than the "
+                f"{SMEM_BLOCK_LIMIT}-byte per-block limit for {buffers} frames"
+            )
+        tc //= 2
+    return TilePlan(1, tc, halo, buffers)

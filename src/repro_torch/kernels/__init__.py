@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels for the paper's compute hot-spots.
 
 hdiff/      fused compound stencil (K1) and its int32 datapath (K3)
+stencil2d/  the §3.5 elementary stencils: a runtime 3x3 mask (K4) and the
+            1-D Jacobi sweep (K5)
 
 Each kernel ships its CUDA source under ``repro_torch/csrc/``, a wrapper
 module that builds it at first use (``_build``), checks and launches it,

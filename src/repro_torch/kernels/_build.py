@@ -117,20 +117,24 @@ def load(name: str, source: str) -> ctypes.CDLL:
     return lib
 
 
-def check_input(kernel: str, x, dtypes, *, field: str = "input") -> None:
+def check_input(kernel: str, x, dtypes, *, field: str = "input", ndim: int = 3) -> None:
     """Raises unless ``x`` is what the stencil kernels take: a contiguous
-    ``(depth, rows, cols)`` CUDA tensor of one of ``dtypes`` whose depth
-    fits the grid's z dimension (65535 blocks)."""
+    CUDA tensor of one of ``dtypes``, shaped ``(depth, rows, cols)`` with a
+    depth that fits the grid's z dimension (65535 blocks) or, for
+    ``ndim=2``, ``(batch, n)`` with ``n`` below 2**31."""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel}: {field} must be a CUDA (or CPU) tensor, got {x.device}")
     if x.dtype not in dtypes:
         raise TypeError(f"{kernel}: {field} has dtype {x.dtype}; the kernel takes {dtypes}")
-    if x.ndim != 3:
-        raise ValueError(f"{kernel}: {field} must be (depth, rows, cols), got {tuple(x.shape)}")
+    if x.ndim != ndim:
+        want = "(depth, rows, cols)" if ndim == 3 else "(batch, n)"
+        raise ValueError(f"{kernel}: {field} must be {want}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{kernel}: {field} must be contiguous")
-    if x.shape[0] > 65535:
+    if ndim == 3 and x.shape[0] > 65535:
         raise ValueError(f"{kernel}: depth {x.shape[0]} exceeds the 65535-block grid limit")
+    if ndim == 2 and (x.shape[1] >= 2**31 or x.shape[0] >= 2**31):
+        raise ValueError(f"{kernel}: {field} shape {tuple(x.shape)} exceeds int32 indexing")
 
 
 def check_launch(kernel: str, code: int) -> None:

@@ -19,6 +19,15 @@ import repro_torch.ir as ir
 from repro_torch.kernels import _build
 from repro_torch.kernels.hdiff import hdiff_fixed, hdiff_fixed_point_ref, hdiff_fused, hdiff_twostep
 from repro_torch.kernels.hdiff import kernel as k13
+from repro_torch.kernels.stencil2d import (
+    jacobi1d,
+    jacobi1d_cuda,
+    jacobi1d_plain,
+    stencil2d,
+    stencil2d_cuda,
+    stencil2d_plain,
+    weights_for,
+)
 
 pytestmark = pytest.mark.gpu
 SHAPES = [(1, 8, 8), (2, 37, 70), (3, 65, 129)]
@@ -92,6 +101,54 @@ def test_k2_bf16_and_twostep(cuda):
     _equal(ir.stencil_program_cuda(prog, (xb,)), ir.stencil_program_plain(prog, (xb,)))
 
 
+MASKS = ["jacobi2d_3pt", "laplacian", "jacobi2d_5pt", "jacobi2d_9pt", "seidel2d"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k4_bit_equal_to_plain(cuda, shape, dtype):
+    x = _rand(shape, cuda, seed=7).to(dtype)
+    g = torch.Generator().manual_seed(8)
+    for w in [weights_for(n) for n in MASKS] + [torch.randn(3, 3, generator=g).numpy()]:
+        _equal(stencil2d_cuda(x, w), stencil2d_plain(x, w))
+
+
+@pytest.mark.parametrize("block_rows", [1, 4, 16, 64])
+def test_k4_explicit_tile_rows_and_nonfinite_input(cuda, block_rows):
+    x = _rand((2, 64, 96), cuda, seed=9)
+    x[0, 10, 10], x[1, 20, 30] = float("inf"), float("nan")
+    got = stencil2d(x, "jacobi2d_3pt", block_rows=block_rows)
+    want = stencil2d_plain(x, weights_for("jacobi2d_3pt"))
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 2), (5, 37), (70000, 3), (2, 100_003)])
+def test_k5_bit_equal_to_plain(cuda, shape, dtype):
+    x = _rand(shape, cuda, seed=10).to(dtype)
+    _equal(jacobi1d_cuda(x), jacobi1d_plain(x))
+    _equal(jacobi1d_cuda(x, 0.3), jacobi1d_plain(x, 0.3))
+    _equal(jacobi1d(x[0]), jacobi1d_plain(x[:1])[0])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(1, 5), (7, 33), (70000, 9), (3, 5000)])
+def test_k5_prime_bit_equal_to_plain(cuda, shape, k):
+    prog = ir.repeat(ir.jacobi1d_program(), k)
+    x = _rand(shape, cuda, seed=11)
+    _equal(ir.stencil_program_1d_cuda(prog, x), ir.stencil_program_1d_plain(prog, x))
+    xb = x.to(torch.bfloat16)
+    _equal(ir.stencil_program_1d_cuda(prog, xb), ir.stencil_program_1d_plain(prog, xb))
+
+
+def test_k5_prime_k_sweeps_equal_k_single_sweeps(cuda):
+    x = _rand((9, 3000), cuda, seed=12)
+    one = ir.lower_cuda(ir.jacobi1d_program())
+    _equal(ir.lower_cuda(ir.repeat(ir.jacobi1d_program(), 3))(x), one(one(one(x))))
+
+
 def test_wrappers_count_launches_and_reject_bad_input(cuda):
     x = _rand((1, 16, 16), cuda)
     _build.reset_launches()
@@ -103,3 +160,18 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         k13.hdiff_cuda(x.transpose(1, 2), 0.025)
     assert _build.LAUNCHES == {"hdiff_cuda": 1, "stencil_program_cuda": 1}
+
+
+def test_elementary_wrappers_count_launches(cuda):
+    x, y = _rand((1, 16, 16), cuda), _rand((2, 40), cuda)
+    _build.reset_launches()
+    stencil2d(x, "laplacian")
+    jacobi1d(y)
+    ir.lower_cuda(ir.jacobi1d_program())(y)
+    stencil2d_plain(x, weights_for("laplacian"))
+    assert _build.LAUNCHES == {"stencil2d_cuda": 1, "jacobi1d_cuda": 1,
+                               "stencil_program_1d_cuda": 1}
+    with pytest.raises(ValueError, match="contiguous"):
+        jacobi1d_cuda(y.t())
+    with pytest.raises(TypeError):
+        stencil2d_cuda(x.double(), weights_for("laplacian"))

@@ -1,6 +1,7 @@
-"""K2, the generated fused CUDA kernel: its plain version (the CPU path of
-``lower_cuda``) against the JAX ``lower_pallas`` in interpret mode, and
-text-level checks of the generated CUDA source, which need no nvcc.
+"""K2 and K5', the generated fused CUDA kernels: their plain versions (the
+CPU path of ``lower_cuda``) against the JAX ``lower_pallas`` in interpret
+mode, and text-level checks of the generated CUDA source, which need no
+nvcc.
 
 Tolerance ``TOL`` (1e-6, rtol and atol) per output field.
 """
@@ -14,16 +15,18 @@ import torch
 
 import repro.ir as jir
 import repro_torch.ir as tir
-from conformance import GRID, PROGRAMS, TOL, assert_close, make_fields, to_host
+from conformance import GRID, KS, PROGRAMS, SEED, TOL, assert_close, make_fields, to_host
 from repro_torch.interop import fields_from_numpy, to_numpy
 from repro_torch.ir.codegen_cuda import frame_plan, kernel_name
 from repro_torch.ir.lower_cuda import kernel_source, tile_for
 from repro_torch.ir.ops import f32_literal
 from test_torch_ir_graph import TORCH_PROGRAMS
 
+ELEMENTARY_2D = ["jacobi2d_3pt", "laplacian", "jacobi2d_5pt", "jacobi2d_9pt", "seidel2d"]
 CASES = [("hdiff", 1), ("hdiff", 2), ("hdiff", 3), ("hdiff_coupled", 1),
          ("hdiff_coupled", 2), ("vadvc", 1), ("vadvc", 2), ("shallow_water", 1),
          ("shallow_water", 2), ("advection_diffusion", 1), ("advection_diffusion", 2)]
+CASES += [(name, k) for name in ELEMENTARY_2D for k in (1, 2, 3)]
 
 
 def _port(name, k):
@@ -72,9 +75,62 @@ def test_block_rows_validation_matches_lower_pallas():
         tir.lower_cuda(prog, block_rows=2)(x)
 
 
-def test_one_dimensional_programs_name_k5():
-    with pytest.raises(NotImplementedError, match="K5"):
-        tir.lower_cuda(tir.jacobi1d_program())
+def _rows(n, seed=SEED):
+    return np.random.default_rng(seed).standard_normal((4, n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [8, 33, 256])
+@pytest.mark.parametrize("k", KS)
+def test_one_dimensional_programs_match_pallas(k, n):
+    """K5''s plain path against ``lower_pallas``'s 1-D kernel: k sweeps of
+    jacobi1d in one call."""
+    x = _rows(n)
+    want = jir.lower_pallas(jir.repeat(jir.jacobi1d_program(), k), interpret=True)(
+        jnp.asarray(x))
+    got = tir.lower_cuda(tir.repeat(tir.jacobi1d_program(), k))(torch.from_numpy(x))
+    assert_close(to_numpy(got), to_host(want), err_msg=f"jacobi1d/k={k}/n={n}")
+
+
+def test_one_dimensional_k_sweeps_equal_k_single_sweeps():
+    """The port's promise for K5': one call of ``repeat(p, k)`` equals k
+    calls of ``p``, bit for bit in float32."""
+    x = torch.from_numpy(_rows(37, seed=3))
+    one = tir.lower_cuda(tir.jacobi1d_program())
+    want = one(one(one(x)))
+    got = tir.lower_cuda(tir.repeat(tir.jacobi1d_program(), 3))(x)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_one_dimensional_bf16_matches_pallas():
+    """Both sides run the sweeps in float32 and round to bfloat16 once."""
+    x = _rows(40, seed=4)
+    want = jir.lower_pallas(jir.repeat(jir.jacobi1d_program(), 2), interpret=True)(
+        jnp.asarray(x).astype(jnp.bfloat16))
+    got = tir.lower_cuda(tir.repeat(tir.jacobi1d_program(), 2))(
+        torch.from_numpy(x).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def _two_input_1d(ir, ops):
+    return ir.StencilProgram("pair1d", ["x", "w"], [ops.product("out", "x", "w", ndim=1)],
+                             ndim=1, passthrough="x")
+
+
+def test_one_dimensional_errors_match_lower_pallas():
+    import repro.ir.ops as jops
+    import repro_torch.ir.ops as tops
+
+    with pytest.raises(ValueError, match="single-input"):
+        jir.lower_pallas(_two_input_1d(jir, jops), interpret=True)
+    with pytest.raises(ValueError, match="single-input"):
+        tir.lower_cuda(_two_input_1d(tir, tops))
+    x = _rows(8)[None]
+    with pytest.raises(ValueError, match=r"expected \(batch, n\)"):
+        jir.lower_pallas(jir.jacobi1d_program(), interpret=True)(jnp.asarray(x))
+    with pytest.raises(ValueError, match=r"expected \(batch, n\)"):
+        tir.lower_cuda(tir.jacobi1d_program())(torch.from_numpy(x))
 
 
 # -- the generated source ------------------------------------------------------
@@ -156,3 +212,32 @@ def test_column_slab_ring_equals_full_width_ring(name, k):
         slab, plain = {"": slab}, {"": plain}
     for f in plain:
         torch.testing.assert_close(slab[f], plain[f], rtol=0, atol=0)
+
+
+# -- the generated 1-D source (K5') ------------------------------------------------
+
+
+def _source_1d(k, n=256, dtype="float32"):
+    prog = tir.repeat(tir.jacobi1d_program(), k)
+    return kernel_source(prog, (dtype,), tile_for(prog, 1, n))
+
+
+@pytest.mark.parametrize("k", KS)
+def test_1d_source_has_one_store_exact_literals_and_a_k_r_halo(k):
+    name, src = _source_1d(k)
+    assert name == kernel_name(tir.repeat(tir.jacobi1d_program(), k))
+    assert "stencil_program_1d(" in src and "stencil_program(" not in src
+    code = re.sub(r"//[^\n]*", "", src)
+    assert len(re.findall(r"\bO0\[", code)) == 1
+    assert re.search(r"^\s*O0\[row \+ gc\] = from_f32<float>\(F\d+\[q \+ H\]\);", code, re.M)
+    assert f32_literal(1.0 / 3.0) in code and "0.333" not in code
+    assert re.search(rf"constexpr int TC = 256, H = {k};", code)
+    assert code.count("* ((F0[p-1] + F0[p]) + F0[p+1])") == k
+    assert len(re.findall(r"gc >= n - 1", code)) == k
+
+
+def test_1d_source_tiles_long_rows_and_keys_dtype():
+    _, src = _source_1d(2, n=4_194_307)
+    assert "constexpr int TC = 1024, H = 2;" in src
+    assert _source_1d(2, dtype="bfloat16")[1] != _source_1d(2)[1]
+    assert "from_f32<__nv_bfloat16>" in _source_1d(2, dtype="bfloat16")[1]
