@@ -4,23 +4,36 @@ NVIDIA H100.
 
     python3 chip_smoke.py
 
-Drives the port's two paths on one device — the paper's COSMO hdiff on
-the full 64x256x256 float32 domain through the IR compiler, and the §3.5
+Drives the port's three paths on one device — the paper's COSMO hdiff on
+the full 64x256x256 float32 domain through the IR compiler, the §3.5
 elementary-stencil suite (fig11's domain) through the hand-written and the
-generated kernels — and holds every hand-written kernel against its plain
-PyTorch version on the card. Each phase prints one JSON line:
+generated kernels, and the recurrent LMs (RWKV-6 3B, RecurrentGemma 2B, at
+their published shapes) served by ``BatchedServer`` through the WKV-6 and
+RG-LRU kernels — and holds every hand-written kernel against its plain
+PyTorch version on the card. Each phase prints one JSON line (``t_s``: the
+script's seconds so far when it was printed):
 
   env         torch / CUDA versions, the card, ``nvidia-smi`` name and power
               limit
-  build       seconds to compile K1/K3, K4/K5 and every K2 and K5' program
-              below (one nvcc each, all at once, into build/repro_torch/)
+  build       seconds to compile K1/K3, K4/K5, K6, K7 and every K2 and K5'
+              program below (one nvcc each, all at once, into
+              build/repro_torch/)
   parity      each kernel against its plain version on the same inputs, at
               64x256x256 and a ragged 3x250x190 (K4 with every named mask
               and a random one, f32 and bf16; K2 also on the five 2-D
               elementary programs), at (16384, 256) and a long
               ragged row (4, 4194307) (K5, K5' k=1..3): max abs error and bit
               equality, asserted <= 1e-6 (int32: exact); plus a 20-step run
-              on the card against the same run on the CPU
+              on the card against the same run on the CPU. K7 at
+              (1, 512, 40, 64) and (2, 128, 3, 16), zero and non-zero initial
+              state, within 1e-5 * max|y| + 1e-6 of its plain chunked version
+              (summation order in the four products) and 3e-4 of the
+              sequential oracle (the JAX test's bound); K6 at (1, 512, 2560),
+              (3, 64, 128) and bf16, bit-equal; and each LM at full width and
+              reduced depth (RWKV-6 2 layers, RecurrentGemma 3), float32, a
+              128-token prefill on the card against the same on the CPU (the
+              plain versions): last logits and every cache leaf within
+              1e-3 * max|.|
   main        the hdiff path with the launch counters reset just before it:
               CompoundStencil(hdiff) under its three policies, a 100-step
               run_simulation with hdiff_fused (K1), 50 hdiff_twostep calls
@@ -35,6 +48,22 @@ PyTorch version on the card. Each phase prints one JSON line:
               plain version, the three routes (hand-written kernel,
               lower_reference, IR kernel) within 1e-5 after one sweep, the
               derived op counts equal to ELEMENTARY_SPECS
+  serve       each LM in turn at its published shapes, random weights from
+              the seed, with the launch counters reset just before its
+              serving run: BatchedServer(lanes=4, max_len=1024), 8 requests
+              of 512, 256, 128, 64, 512, 256, 192 and 100 tokens, 16 new
+              tokens each; the counters must read exactly K7 = 7 x 32 = 224
+              (the 100-token prompt takes the sequential path) and
+              K6 = 8 x 18 = 144; every request finishes and every logit is
+              finite; seconds per prefill by length, per decode step and
+              per token, tokens/s and GB of parameters; then, at float32, a
+              128-token prefill plus 64 decode steps against one 192-token
+              prefill (last logits and every cache leaf within 1e-3 * max|.|);
+              then steady state: three synchronised 512-token prefills, 20
+              decode tokens, and one torch.profiler window of each (device
+              busy share, the six kernels with the most device time); the
+              bytes a decode token's operations move, casts included, and
+              their time at 3.35 TB/s, the decode token's floor
   obs         the port's metrics registry, enabled around the elementary
               phase's lower_cuda calls: call counters against the calls made
               and the launch counters, each timer's mean beside the device
@@ -51,7 +80,9 @@ PyTorch version on the card. Each phase prints one JSON line:
               calls), the least time the card could take (bytes over
               3.35 TB/s or operations over the peak rate, whichever is
               larger), the achieved bytes/s and, for K4/K5/K5', one library
-              call computing the same interior (conv2d / conv1d, TF32 off)
+              call computing the same interior (conv2d / conv1d, TF32 off);
+              K7 at (1, 512, 40, 64) and (8, 4096, 40, 64) and K6 at
+              (1, 512, 2560) and (8, 4096, 2560), with no library yardstick
 
 Then the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (each
 kernel's launches from the path that runs it), and last
@@ -63,6 +94,8 @@ anything else, without a CUDA device or without the repository's ``src/``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -85,9 +118,24 @@ TOL = 1e-6
 ROUTE_TOL = 1e-5  # two summation orders meet (tests/test_kernels_stencil2d.py's bound)
 SEED = 2024
 TRACE_DIR = ROOT / "build" / "repro_torch" / "trace"
+K7_SERVE = (1, 512, 40, 64)  # rwkv6-3b prefill of 512 tokens: (B, T, H, N)
+K7_BIG = (8, 4096, 40, 64)
+K7_CHUNK = 64  # rwkv6-3b's rwkv_chunk
+K6_SERVE = (1, 512, 2560)  # recurrentgemma-2b prefill of 512 tokens: (B, T, W)
+K6_BIG = (8, 4096, 2560)
+K7_TOL = 1e-5  # times max|y|, plus 1e-6: summation order in the four products
+ORACLE_TOL = 3e-4  # the JAX package's bound for the chunked kernel vs wkv6_ref
+SLICE_TOL = 1e-3  # times max|.|: the whole model, card vs CPU or decode vs prefill
+SERVE_ARCHS = ("rwkv6-3b", "recurrentgemma-2b")
+SLICE_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3}
+SERVE_PROMPTS = (512, 256, 128, 64, 512, 256, 192, 100)
+SERVE_NEW = 16
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -138,7 +186,62 @@ def event_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def device_kernels(prof) -> dict:
+    """``{kernel name: {"calls", "device_us"}}`` of a finished torch.profiler run."""
+    import torch
+
+    seen = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            seen[e.key] = {"calls": e.count, "device_us": dev_us}
+    return seen
+
+
+def moved_bytes(fn) -> int:
+    """Bytes that ``fn``'s PyTorch operations read and write, each reading its
+    tensor inputs once and writing its outputs once, weight casts included.
+    Views move nothing, a gather reads only the rows it returns, and a copy
+    into a buffer does not read the buffer: the least traffic of the eager
+    path as written, so over the card's memory rate a floor on its time."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    aten = torch.ops.aten
+    free = {aten._unsafe_view.default, aten.alias.default}
+    gathers = {aten.index.Tensor, aten.embedding.default, aten.index_select.default}
+
+    def size(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    class Count(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.is_view or func in free:
+                return out
+            ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+            outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+            if func in gathers:
+                read = size(ins[1:]) + size(outs)  # the table's rows that come out
+            elif func is aten.copy_.default:
+                read = size(ins[1:])
+            else:
+                read = size(ins)
+            Count.total += read + size(outs)
+            return out
+
+    with Count():
+        fn()
+    return Count.total
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -167,7 +270,14 @@ def main() -> int:
     from repro_torch.kernels.stencil2d import jacobi1d, stencil2d, weights_for
     from repro_torch.kernels.stencil2d import kernel as k45
     from repro_torch.ir.lower_cuda import kernel_source, tile_for
+    from repro_torch.kernels.rglru import kernel as k6
+    from repro_torch.kernels.rglru import rglru_seq_ref
+    from repro_torch.kernels.wkv6 import kernel as k7
+    from repro_torch.kernels.wkv6 import wkv6_plain, wkv6_ref
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_cache, build_lm, lm_decode, lm_prefill
     from repro_torch.obs import MetricsRegistry, metrics, profiler_trace, runtime_metadata
+    from repro_torch.serve import BatchedServer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -228,6 +338,7 @@ def main() -> int:
         for shape in (PAPER_ROWS, LONG_ROW, BIG_ROWS):
             sources.append(kernel_source(prog, ("float32",), tile_for(prog, *shape)))
     sources.append(kernel_source(jac[2], ("bfloat16",), tile_for(jac[2], *PAPER_ROWS)))
+    sources += [k6.source(), k7.source()]
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
     _build.build(sources)
@@ -237,7 +348,8 @@ def main() -> int:
     # -- parity: every kernel against its plain version --------------------------
     worst: dict[str, float] = {"hdiff_cuda": 0.0, "hdiff_fixed_cuda": 0.0,
                                "stencil_program_cuda": 0.0, "stencil2d_cuda": 0.0,
-                               "jacobi1d_cuda": 0.0, "stencil_program_1d_cuda": 0.0}
+                               "jacobi1d_cuda": 0.0, "stencil_program_1d_cuda": 0.0,
+                               "rglru_scan_cuda": 0.0, "wkv6_cuda": 0.0}
     results = []
 
     def compare(kernel, label, got, want, exact=False):
@@ -327,6 +439,81 @@ def main() -> int:
     check(track <= 2e-3, f"int32 step drifted from the float step: {track}")
     results.append({"kernel": "hdiff_fixed_cuda", "case": "2x32x32/i32 vs f32 step",
                     "max_abs_err": track, "bit_equal": False})
+
+    # K7 against its plain chunked version (to K7_TOL) and the sequential
+    # oracle (to ORACLE_TOL), inputs distributed as in tests/test_kernels_wkv6.py.
+    def wkv_inputs(shape):
+        b, t, h, n = shape
+        return (0.5 * randn(shape), 0.5 * randn(shape), randn(shape),
+                0.6 + 0.399 * torch.rand(shape, generator=gen, device=dev),
+                0.3 * randn((h, n)), 0.1 * randn((b, h, n, n)))
+
+    for shape in (K7_SERVE, (2, 128, 3, 16)):
+        r, k, v, w, u, s0 = wkv_inputs(shape)
+        for state in (torch.zeros_like(s0), s0):
+            tag = f"{'x'.join(map(str, shape))}/{'state' if state is s0 else 'zero state'}"
+            got = k7.wkv6_cuda(r, k, v, w, u, state, chunk=K7_CHUNK)
+            plain = wkv6_plain(r, k, v, w, u, state, chunk=K7_CHUNK)
+            oracle = wkv6_ref(r, k, v, w, u, state)
+            torch.cuda.synchronize()
+            err = max((g - p).abs().max().item() for g, p in zip(got, plain))
+            bound = K7_TOL * plain[0].abs().max().item() + 1e-6
+            oracle_err = max((g - o).abs().max().item() for g, o in zip(got, oracle))
+            check(err <= bound, f"K7 {tag}: {err} from its plain version (bound {bound})")
+            check(oracle_err <= ORACLE_TOL, f"K7 {tag}: {oracle_err} from wkv6_ref")
+            worst["wkv6_cuda"] = max(worst["wkv6_cuda"], err)
+            results.append({"kernel": "wkv6_cuda", "case": tag, "max_abs_err": err,
+                            "bound": bound, "oracle_max_abs_err": oracle_err,
+                            "bit_equal": all(torch.equal(g, p) for g, p in zip(got, plain))})
+    for shape, dtype in ((K6_SERVE, torch.float32), ((3, 64, 128), torch.float32),
+                         (K6_SERVE, torch.bfloat16)):
+        a = (0.5 + 0.499 * torch.rand(shape, generator=gen, device=dev)).to(dtype)
+        b = randn(shape, dtype)
+        h0 = randn((shape[0], shape[2]))
+        compare("rglru_scan_cuda", f"{'x'.join(map(str, shape))}/{str(dtype)[6:]}",
+                dict(zip("hl", k6.rglru_scan_cuda(a, b, h0))),
+                dict(zip("hl", rglru_seq_ref(a, b, h0))), exact=True)
+    del r, k, v, w, u, s0, a, b, h0
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    def model_err(label, got, want):
+        """Max over (logits, cache leaves) of |got - want| / max|want|;
+        integer leaves (slot positions) must be equal."""
+        worst_rel = 0.0
+        for g, w in zip(leaves(got), leaves(want)):
+            g, w = g.cpu(), w.cpu()
+            check(g.shape == w.shape and g.dtype == w.dtype, f"{label}: leaf shape/dtype")
+            if not w.is_floating_point():
+                check(torch.equal(g, w), f"{label}: integer leaf differs")
+                continue
+            check(bool(torch.isfinite(g).all()), f"{label}: non-finite values")
+            scale = w.abs().max().item()
+            rel = (g - w).abs().max().item() / scale if scale else (g - w).abs().max().item()
+            worst_rel = max(worst_rel, rel)
+        check(worst_rel <= SLICE_TOL, f"{label}: relative error {worst_rel} > {SLICE_TOL}")
+        return worst_rel
+
+    # The slice at full width and reduced depth, card against CPU.
+    slices = {}
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=SLICE_LAYERS[arch],
+                                  compute_dtype="float32")
+        model = build_lm(cfg, SEED, device="cpu")
+        toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (1, 128)))
+        want = lm_prefill(cfg, model, toks, build_cache(cfg, 1, 256, device="cpu"))
+        model.to(dev)
+        got = lm_prefill(cfg, model, toks.to(dev), build_cache(cfg, 1, 256, device=dev))
+        slices[arch] = model_err(f"{arch} x{cfg.n_layers} card vs cpu", got, want)
+        del model, got, want
+        gc.collect()
+    results.append({"case": "slice card vs cpu, max relative error", **slices})
     emit({"phase": "parity", "checks": len(results), "results": results})
 
     # -- main path, counted ----------------------------------------------------
@@ -504,6 +691,128 @@ def main() -> int:
           "launches": elem_launches, "legs": legs, "checks": leg_checks,
           "derived_op_counts": specs})
 
+    # -- serve: the recurrent LMs at their published shapes, counted ------------
+    serve_launches: dict[str, int] = {}
+    want_launches = {"rwkv6-3b": {"wkv6_cuda": 7 * 32},
+                     "recurrentgemma-2b": {"rglru_scan_cuda": 8 * 18}}
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_lm(cfg, SEED, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        params_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+        srv = BatchedServer(cfg, model, lanes=4, max_len=1024)
+        finite = []  # one device flag per prefill / decode; read after the run
+
+        def watched(fn):
+            def call(*args):
+                logits, cache = fn(*args)
+                finite.append(torch.isfinite(logits).all())
+                return logits, cache
+            return call
+
+        srv.prefill, srv.decode = watched(srv.prefill), watched(srv.decode)
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_PROMPTS]
+        serve_reg = MetricsRegistry()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with metrics.using(serve_reg):
+            for prompt in prompts:
+                srv.submit(prompt, SERVE_NEW)
+            t0 = time.perf_counter()
+            done = srv.run_until_idle()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches_here = dict(_build.LAUNCHES)
+        check(launches_here == want_launches[arch],
+              f"{arch} serve launches {launches_here} != {want_launches[arch]}")
+        serve_launches.update(launches_here)
+        check(len(done) == len(prompts) and all(len(r.out_tokens) == SERVE_NEW for r in done),
+              f"{arch}: {len(done)} of {len(prompts)} requests finished")
+        check(bool(torch.stack(finite).all()), f"{arch}: non-finite logits while serving")
+        decode_t = serve_reg.timers["serve.decode_step"].as_dict()
+        prefill_t = serve_reg.timers["serve.prefill"].as_dict()
+        tokens = srv.stats["tokens_out"]
+
+        # Decode against prefill, float32, on the card.
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 192))).to(dev)
+        last, cache = lm_prefill(cfg32, model, toks[:, :128],
+                                 build_cache(cfg32, 1, 1024, device=dev))
+        for t in range(128, 192):
+            last, cache = lm_decode(cfg32, model, toks[:, t], cache, t)
+        want = lm_prefill(cfg32, model, toks, build_cache(cfg32, 1, 1024, device=dev))
+        decode_err = model_err(f"{arch} decode vs prefill", (last, cache), want)
+
+        # Steady state, one lane, every kernel already loaded: synchronised
+        # 512-token prefills and decode tokens, then a profiled window of
+        # each for the device's busy share and the kernels that fill it.
+        prompt = torch.from_numpy(prompts[0][None]).to(dev)
+
+        def one_prefill():
+            return lm_prefill(cfg, model, prompt, build_cache(cfg, 1, 1024, device=dev))
+
+        def synced(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        warm_prefill = [synced(one_prefill)[1] for _ in range(3)]
+        (logits, cache), _ = synced(one_prefill)
+        warm_decode = []
+        for i in range(20):
+            (logits, cache), sec = synced(lambda i=i: lm_decode(
+                cfg, model, logits.argmax(-1), cache, 512 + i))
+            warm_decode.append(sec)
+        # The decode token's floor: the bytes its operations move (the
+        # weights, and every cast copy written and read again) at 3.35 TB/s.
+        tok = logits.argmax(-1)
+        decode_bytes = moved_bytes(lambda: lm_decode(cfg, model, tok, cache, 600))
+        windows = {}
+        for label, fn, n in (("prefill_512", one_prefill, 1),
+                             ("decode", lambda: lm_decode(cfg, model, logits.argmax(-1), cache,
+                                                          600), 5)):
+            fn()
+            torch.cuda.synchronize()
+            activities = [torch.profiler.ProfilerActivity.CPU,
+                          torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+            seen = device_kernels(prof)
+            busy = sum(v["device_us"] for v in seen.values())
+            top = sorted(seen.items(), key=lambda kv: -kv[1]["device_us"])[:6]
+            windows[label] = {"calls": n, "window_us": window_us, "device_busy_us": busy,
+                              "busy_share": busy / window_us,
+                              "top_kernels": {k[:60]: v for k, v in top}}
+        emit({"phase": "serve", "arch": arch, "params_gb": params_gb, "build_s": build_s,
+              "launches": launches_here, "requests": len(done), "tokens_out": tokens,
+              "prefill_s_by_len": [[len(r.prompt), r.prefill_s] for r in done],
+              "prefill_mean_s": prefill_t["mean_s"], "decode_steps": decode_t["count"],
+              "decode_step_mean_s": decode_t["mean_s"],
+              "decode_s_per_token": decode_t["total_s"] / tokens,
+              "decode_tokens_per_s": tokens / decode_t["total_s"],
+              "tokens_per_s": (tokens + len(done)) / wall, "wall_s": wall,
+              "decode_vs_prefill_rel_err": decode_err,
+              "warm_prefill_512_s": warm_prefill, "warm_decode_token_s": {
+                  "median": statistics.median(warm_decode), "min": min(warm_decode),
+                  "max": max(warm_decode)},
+              "decode_bytes_gb": decode_bytes / 1e9,
+              "decode_bound_ms": decode_bytes / H100_SXM.hbm_bw * 1e3,
+              "profiled": windows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del model, srv, cache, last, want, finite
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # -- obs: the registry around the elementary lower_cuda calls -----------------
     counters = {k: v for k, v in reg.counters.items() if k.endswith(".calls")}
     check(counters == {k: float(v) for k, v in calls.items()},
@@ -547,13 +856,7 @@ def main() -> int:
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     check((TRACE_DIR / "trace.json").is_file(), "no trace.json written")
-    kernels_seen = {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            kernels_seen[e.key] = {"calls": e.count, "device_us": dev_us}
+    kernels_seen = device_kernels(prof)
     starts, ends = [], []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -658,9 +961,46 @@ def main() -> int:
         del x, xq, xc, y, x4, y3
         torch.cuda.empty_cache()
 
+    # K7 and K6. K7's operations, per chunk of C steps and head, 2 flops a
+    # MAC: r_dec S and k_tail^T v (C N^2 MACs each), and the strictly-lower
+    # r_dec k_dec^T and att v (C (C - 1) / 2 * N MACs each); bytes: r, k, v,
+    # w, y once, the state in and out, u. K6: a multiply and an add per
+    # element; bytes: a, b (their dtype) and h once, h0, h_last.
+    def time_row(kernel, label, shape, fn, plain, nbytes, ops):
+        big = shape in (K7_BIG, K6_BIG)
+        ms = graph_ms(fn, replays=10 if big else 25)
+        bound_ms, bound_by = bound(nbytes, ops, H100_SXM.peak_flops_vpu_f32)
+        row = {"kernel": kernel, "case": label, "grid": "x".join(map(str, shape)), "ms": ms,
+               "plain_ms": event_ms(plain, reps=5 if big else 20), "bound_ms": bound_ms,
+               "bound_by": bound_by, "achieved_gbps": nbytes / (ms * 1e-3) / 1e9,
+               "achieved_tflops": ops / (ms * 1e-3) / 1e12, "library_ms": None}
+        timing[(kernel, label, row["grid"])] = row
+        emit({"phase": "timing", **row})
+
+    for shape in (K7_SERVE, K7_BIG):
+        b, t, h, n = shape
+        r, k, v, w, u, s0 = wkv_inputs(shape)
+        c = min(K7_CHUNK, t)
+        time_row("wkv6_cuda", "wkv6", shape, lambda: k7.wkv6_cuda(r, k, v, w, u, s0, chunk=c),
+                 lambda: wkv6_plain(r, k, v, w, u, s0, chunk=c),
+                 4 * (5 * r.numel() + 2 * s0.numel() + u.numel()),
+                 2 * (2 * t * n * n + t * (c - 1) * n) * b * h)
+        del r, k, v, w, u, s0
+        torch.cuda.empty_cache()
+    for shape in (K6_SERVE, K6_BIG):
+        a = 0.5 + 0.499 * torch.rand(shape, generator=gen, device=dev)
+        b = randn(shape)
+        h0 = randn((shape[0], shape[2]))
+        time_row("rglru_scan_cuda", "rglru f32", shape, lambda: k6.rglru_scan_cuda(a, b, h0),
+                 lambda: rglru_seq_ref(a, b, h0), 4 * (3 * a.numel() + 2 * h0.numel()),
+                 2 * a.numel())
+        del a, b, h0
+        torch.cuda.empty_cache()
+
     # -- result lines ----------------------------------------------------------
     # Launches: K1-K3 from the hdiff path (K2 runs on both paths; its count
-    # here is the hdiff path's), K4/K5/K5' from the elementary path.
+    # here is the hdiff path's), K4/K5/K5' from the elementary path, K6/K7
+    # from the serve path.
     paper, paper_rows = "x".join(map(str, PAPER_GRID)), "x".join(map(str, PAPER_ROWS))
     rows = [
         ("hdiff_cuda", "hdiff f32", paper, "src/repro_torch/csrc/hdiff.cu",
@@ -676,6 +1016,10 @@ def main() -> int:
         ("stencil_program_1d_cuda", "jacobi1d x1", paper_rows,
          "src/repro_torch/ir/codegen_cuda.py", "src/repro/ir/lower_pallas.py:336",
          elem_launches),
+        ("rglru_scan_cuda", "rglru f32", "x".join(map(str, K6_SERVE)),
+         "src/repro_torch/csrc/rglru.cu", "src/repro/kernels/rglru/kernel.py:49", serve_launches),
+        ("wkv6_cuda", "wkv6", "x".join(map(str, K7_SERVE)), "src/repro_torch/csrc/wkv6.cu",
+         "src/repro/kernels/wkv6/kernel.py:82", serve_launches),
     ]
     kernels = []
     for name, label, grid, source, replaces, counts in rows:

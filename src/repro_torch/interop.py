@@ -1,6 +1,6 @@
 """Moving state between the JAX package and the port.
 
-A stencil system has no weights: its "parameters" are the program (with
+Stencils. A stencil system has no weights: its "parameters" are the program (with
 its coefficients baked into the graph — identity is
 ``StencilProgram.fingerprint()``, equal in both packages for the same
 program) and the field state. The JAX package takes a bare array or a
@@ -8,6 +8,13 @@ program) and the field state. The JAX package takes a bare array or a
 arrays into the port's tensors on a device, and :func:`to_numpy` turns a
 result (bare tensor or ``{field: tensor}``) back into numpy. Nothing here
 imports JAX: arrays cross as numpy.
+
+LMs. :func:`lm_params_from_numpy` takes the JAX ``build_lm`` parameter
+pytree as numpy (``jax.tree.map(np.asarray, params)``), unstacks its
+scanned superblocks (leading axis ``n_super``) and its tail into the
+port's per-layer blocks, and returns an :class:`~repro_torch.models.LM`;
+:func:`lm_cache_to_numpy` turns the port's per-layer cache back into the
+JAX package's ``{"scan": ..., "tail": [...]}`` layout, for comparison.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.ir.evaluate import resolve_field_arrays
 from repro_torch.ir.graph import StencilProgram
@@ -43,3 +51,61 @@ def to_numpy(result):
     if result.dtype == torch.bfloat16:
         result = result.to(torch.float32)
     return result.detach().cpu().numpy()
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
+    """The JAX package's LM parameters (a numpy pytree) as the port's
+    :class:`~repro_torch.models.LM` on ``device`` (``None`` means the
+    card). Leaves keep their dtype (bfloat16 comes as float32 numpy and is
+    cast back to ``cfg.param_dtype``)."""
+    from repro_torch.models.lm import LM
+
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype)
+
+    blocks = []
+    for s in range(cfg.n_super):
+        for i in range(len(cfg.block_pattern)):
+            blocks.append(_tree_map(lambda a, s=s: a[s], tree["scan"][f"b{i}"]))
+    blocks += list(tree["tail"])
+    params = {"embed": tree["embed"], "blocks": blocks, "final_norm": tree["final_norm"]}
+    if not cfg.tied_embeddings:
+        params["head"] = tree["head"]
+    return LM(cfg, _tree_map(tensor, params))
+
+
+def lm_cache_to_numpy(cfg: ModelConfig, cache) -> dict:
+    """The port's per-layer cache in the JAX package's layout: each leaf of
+    the scanned superblocks stacked over ``n_super`` under
+    ``{"scan": {"b<i>": ...}}``, the remainder layers under ``"tail"``;
+    float leaves as float32 numpy, ``slot_pos`` as int32."""
+    def host(t):
+        return t.detach().to("cpu", torch.float32 if t.is_floating_point() else t.dtype).numpy()
+
+    layers = [_tree_map(host, c) for c in cache]
+    width, n_super = len(cfg.block_pattern), cfg.n_super
+    out: dict = {"tail": layers[n_super * width:]}
+    if n_super:
+        out["scan"] = {
+            f"b{i}": _tree_map_stack([layers[s * width + i] for s in range(n_super)])
+            for i in range(width)
+        }
+    return out
+
+
+def _tree_map_stack(trees):
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: _tree_map_stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees)

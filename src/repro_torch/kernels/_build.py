@@ -117,20 +117,31 @@ def load(name: str, source: str) -> ctypes.CDLL:
     return lib
 
 
-def check_input(kernel: str, x, dtypes, *, field: str = "input", ndim: int = 3) -> None:
-    """Raises unless ``x`` is what the stencil kernels take: a contiguous
-    CUDA tensor of one of ``dtypes``, shaped ``(depth, rows, cols)`` with a
-    depth that fits the grid's z dimension (65535 blocks) or, for
-    ``ndim=2``, ``(batch, n)`` with ``n`` below 2**31."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{kernel}: {field} must be a CUDA (or CPU) tensor, got {x.device}")
+def check_input(kernel: str, x, dtypes, *, field: str = "input", ndim: int = 3,
+                shape=None, device=None) -> None:
+    """Raises unless ``x`` is a contiguous CUDA tensor of one of ``dtypes``
+    laid out as ``kernel`` takes it. With ``shape`` (the recurrences' several
+    inputs), it must have exactly that shape and lie on ``device``, the
+    device the kernel launches on. Without, it is a stencil field:
+    ``(depth, rows, cols)`` with a depth that fits the grid's z dimension
+    (65535 blocks) or, for ``ndim=2``, ``(batch, n)`` with ``n`` below 2**31."""
+    if x.device.type != "cuda" or (device is not None and x.device != device):
+        on = f"the CUDA device {device}" if device is not None else "a CUDA device"
+        raise ValueError(f"{kernel}: {field} is on {x.device}; it must be on {on} "
+                         "(or every input on the CPU)")
     if x.dtype not in dtypes:
         raise TypeError(f"{kernel}: {field} has dtype {x.dtype}; the kernel takes {dtypes}")
-    if x.ndim != ndim:
+    if shape is not None:
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {field} has shape {tuple(x.shape)}, "
+                             f"expected {tuple(shape)}")
+    elif x.ndim != ndim:
         want = "(depth, rows, cols)" if ndim == 3 else "(batch, n)"
         raise ValueError(f"{kernel}: {field} must be {want}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{kernel}: {field} must be contiguous")
+    if shape is not None:
+        return
     if ndim == 3 and x.shape[0] > 65535:
         raise ValueError(f"{kernel}: depth {x.shape[0]} exceeds the 65535-block grid limit")
     if ndim == 2 and (x.shape[1] >= 2**31 or x.shape[0] >= 2**31):

@@ -1,0 +1,79 @@
+"""Wrapper of the hand-written WKV-6 kernel (``csrc/wkv6.cu``).
+
+K7 :func:`wkv6_cuda` replaces the JAX package's
+``kernels/wkv6/kernel.py::wkv6_pallas``: the chunked RWKV-6 WKV recurrence
+over ``(B, T, H, N)`` float32 r/k/v/w with an ``(H, N)`` bonus and a
+``(B, H, N, N)`` initial state, returning ``(y, final state)`` in float32.
+
+A CPU tensor gets the plain version (:func:`~repro_torch.kernels.wkv6.ref.wkv6_plain`);
+a CUDA tensor launches the kernel on the current stream or raises — it
+never falls back. The kernel source's header says what bounds it on the
+card and what its design does about that.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.wkv6.ref import wkv6_plain
+
+SOURCE = _build.CSRC / "wkv6.cu"
+LIBRARY = "wkv6"
+MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+
+
+def source() -> tuple[str, str]:
+    """``(name, text)`` of the K7 source, for :func:`_build.build`."""
+    return LIBRARY, SOURCE.read_text()
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built and bound K7 library, loaded once per process."""
+    lib = _build.load(*source())
+    lib.wkv6_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.wkv6_f32.restype = ctypes.c_int
+    lib.wkv6_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.wkv6_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+              u: torch.Tensor, state0: torch.Tensor, *, chunk: int = 64
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7: ``(y (B,T,H,N), state (B,H,N,N))`` of the chunked WKV-6
+    recurrence. ``chunk`` is clamped to T, which it must divide."""
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u, state0, chunk=chunk)
+    if r.ndim != 4:
+        raise ValueError(f"wkv6_cuda: r must be (B, T, H, N), got {tuple(r.shape)}")
+    b, t, h, n = r.shape
+    for field, x, shape in (("r", r, r.shape), ("k", k, r.shape), ("v", v, r.shape),
+                            ("w", w, r.shape), ("u", u, (h, n)), ("state0", state0, (b, h, n, n))):
+        _build.check_input("wkv6_cuda", x, (torch.float32,), field=field, shape=shape,
+                           device=r.device)
+    c = min(chunk, t)
+    if c < 1 or t % c:
+        raise ValueError(f"wkv6_cuda: sequence length {t} is not a positive multiple of "
+                         f"chunk {c}")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"wkv6_cuda: batch {b} or heads {h} exceeds the 65535-block grid")
+    lib = _library()
+    smem = lib.wkv6_smem_bytes(n, c)
+    if smem > MAX_SMEM:
+        raise ValueError(f"wkv6_cuda: head size {n} with chunk {c} needs {smem} bytes of "
+                         f"shared memory per block, more than {MAX_SMEM}")
+    y = torch.empty((b, t, h, n), dtype=torch.float32, device=r.device)
+    s_out = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
+    if y.numel() == 0:
+        return y, state0.clone()
+    with torch.cuda.device(r.device):
+        code = lib.wkv6_f32(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                            u.data_ptr(), state0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+                            b, t, h, n, c, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch("wkv6_cuda", code)
+    return y, s_out

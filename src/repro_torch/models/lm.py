@@ -1,0 +1,213 @@
+"""The recurrent LMs: RWKV-6 and RecurrentGemma as one composable decoder.
+
+The port of ``repro/models/lm.py`` for the block kinds ported so far
+(``rglru``, ``rwkv6``, ``local_attn``). :func:`build_lm` returns an
+:class:`LM` module whose blocks stand in layer order, the block pattern
+cycled to ``n_layers``; the JAX package's scan over stacked superblocks
+becomes a plain loop over an ``nn.ModuleList``, and its sharding
+constraints (no-ops on one device) are dropped.
+
+Entry points (functions of ``(cfg, model, ...)``, as in the JAX package;
+``cfg`` may differ from ``model.cfg`` in its compute dtype):
+
+  * :func:`lm_forward` — tokens -> (logits (B, S, V), aux)
+  * :func:`lm_prefill` — runs the prompt, fills the cache -> (last logits, cache)
+  * :func:`lm_decode`  — one token with the cache at position ``pos``
+
+A cache (:func:`build_cache`) is a list with one entry per layer.
+``lm_loss`` and training wait for a later slice (ROADMAP M13).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
+
+Tensor = torch.Tensor
+PORTED_KINDS = ("rglru", "rwkv6", "local_attn")
+
+
+def _check_kinds(cfg: ModelConfig) -> None:
+    missing = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
+    if missing or cfg.n_experts or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {missing or cfg.block_pattern}, MoE and media frontends "
+            f"are not ported yet (ROADMAP M13); ported kinds: {PORTED_KINDS}")
+
+
+class Block(nn.Module):
+    """One layer: norm1, the token mixer, norm2, the FFN (channel mix)."""
+
+    def __init__(self, kind: str, params: dict[str, dict[str, Tensor]]):
+        super().__init__()
+        self.kind = kind
+        for part in ("norm1", "mixer", "norm2", "ffn"):
+            setattr(self, part, L.Params(params[part]))
+
+
+class LM(nn.Module):
+    """Embedding, blocks in layer order, final norm and (untied) head."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        _check_kinds(cfg)
+        if len(params["blocks"]) != cfg.n_layers:
+            raise ValueError(f"{len(params['blocks'])} blocks for {cfg.n_layers} layers")
+        self.cfg = cfg
+        self.embed = nn.Parameter(params["embed"], requires_grad=False)
+        self.blocks = nn.ModuleList(
+            Block(kind, p) for kind, p in zip(cfg.layer_kinds, params["blocks"]))
+        self.final_norm = L.Params(params["final_norm"])
+        self.head = (None if cfg.tied_embeddings
+                     else nn.Parameter(params["head"], requires_grad=False))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def _init_block(cfg: ModelConfig, kind: str, ini: L.Init) -> dict:
+    mixer = {"local_attn": L.init_attention, "rglru": R.init_rglru,
+             "rwkv6": R.init_rwkv_tmix}[kind]
+    ffn = R.init_rwkv_cmix if kind == "rwkv6" else L.init_ffn
+    return {"norm1": L.init_norm(cfg, ini), "mixer": mixer(cfg, ini),
+            "norm2": L.init_norm(cfg, ini), "ffn": ffn(cfg, ini)}
+
+
+def build_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
+    """A model of ``cfg``'s published shapes with random weights drawn from
+    ``seed`` (fan-in init, as the JAX package's ``build_lm``), made
+    directly on ``device`` (``None`` means the card)."""
+    _check_kinds(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ini = L.Init(gen, L.dt(cfg), dev)
+    params = {"embed": ini.fan_in((cfg.vocab_size, cfg.d_model), fan_axes=(1,))}
+    params["blocks"] = [_init_block(cfg, kind, ini) for kind in cfg.layer_kinds]
+    params["final_norm"] = L.init_norm(cfg, ini)
+    if not cfg.tied_embeddings:
+        params["head"] = ini.fan_in((cfg.d_model, cfg.vocab_size))
+    return LM(cfg, params)
+
+
+# ---------------------------------------------------------------------------
+# Cache init (serving).
+# ---------------------------------------------------------------------------
+
+
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, length: int, device):
+    if kind == "local_attn":
+        return L.init_cache(cfg, batch, min(length, cfg.window or length), device=device)
+    if kind == "rglru":
+        return R.rglru_cache_init(cfg, batch, device=device)
+    if kind == "rwkv6":
+        return R.rwkv_cache_init(cfg, batch, device=device)
+    raise ValueError(kind)
+
+
+def build_cache(cfg: ModelConfig, batch: int, length: int, *, device=None) -> list:
+    """Empty serving caches, one per layer. ``length`` is the max context;
+    local attention clamps its ring to the window."""
+    dev = resolve_device(device)
+    return [_block_cache(cfg, kind, batch, length, dev) for kind in cfg.layer_kinds]
+
+
+# ---------------------------------------------------------------------------
+# Apply.
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(cfg, block: Block, x: Tensor, *, cache, pos, prefill):
+    """One block. Returns ``(x, new cache)``."""
+    kind = block.kind
+    h = L.apply_norm(cfg, block.norm1, x)
+    new_cache = cache
+    if kind == "local_attn":
+        if cache is not None and not prefill:
+            y, new_cache = L.attention_apply(cfg, block.mixer, h, window=cfg.window,
+                                             cache=cache, pos=pos)
+        else:
+            y, _ = L.attention_apply(cfg, block.mixer, h, window=cfg.window)
+            if prefill:
+                _, k, v = L._project_qkv(cfg, block.mixer, h)
+                if cfg.rope:
+                    k = L.rope_rotate(k, torch.arange(h.shape[1], device=h.device),
+                                      cfg.rope_theta)
+                new_cache = L.cache_fill_from_prefill(cfg, cache, k, v)
+    elif kind == "rglru":
+        y, c2 = R.apply_rglru(cfg, block.mixer, h, cache=None if prefill else cache)
+        if cache is not None:
+            new_cache = c2
+    else:  # rwkv6
+        y, c2 = R.apply_rwkv_tmix(cfg, block.mixer, h,
+                                  cache=None if (prefill or cache is None) else cache["tmix"])
+        if cache is not None:
+            new_cache = {**cache, "tmix": c2}
+    x = x + y
+
+    h = L.apply_norm(cfg, block.norm2, x)
+    if kind == "rwkv6":
+        y, c3 = R.apply_rwkv_cmix(cfg, block.ffn, h,
+                                  cache=None if (prefill or cache is None) else cache["cmix"])
+        if cache is not None:
+            new_cache = {**new_cache, "cmix": c3}
+    else:
+        y = L.apply_ffn(cfg, block.ffn, h)
+    return x + y, new_cache
+
+
+def _run_blocks(cfg, model: LM, x: Tensor, *, cache=None, pos=None, prefill=False):
+    new_cache = [] if cache is not None else None
+    for i, block in enumerate(model.blocks):
+        x, c = _apply_block(cfg, block, x, cache=None if cache is None else cache[i],
+                            pos=pos, prefill=prefill)
+        if cache is not None:
+            new_cache.append(c)
+    return x, new_cache
+
+
+def _embed(cfg, model: LM, tokens: Tensor) -> Tensor:
+    # Gather, then cast: the same values as casting the table first.
+    return model.embed[tokens.to(torch.long)].to(L.dt(cfg, "compute"))
+
+
+def _logits(cfg, model: LM, x: Tensor) -> Tensor:
+    cdt = L.dt(cfg, "compute")
+    if cfg.tied_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, model.embed.to(cdt))
+    return torch.einsum("bsd,dv->bsv", x, model.head.to(cdt))
+
+
+@torch.no_grad()
+def lm_forward(cfg: ModelConfig, model: LM, tokens: Tensor):
+    """Plain forward (no cache): ``(logits (B, S, V), aux)``; ``aux`` (the
+    MoE loss of the JAX package) is zero for every ported kind."""
+    x = _embed(cfg, model, tokens)
+    x, _ = _run_blocks(cfg, model, x)
+    x = L.apply_norm(cfg, model.final_norm, x)
+    return _logits(cfg, model, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+@torch.no_grad()
+def lm_prefill(cfg: ModelConfig, model: LM, tokens: Tensor, cache: list):
+    """Runs the full prompt ``tokens (B, S)`` and fills the cache. Returns
+    ``(last logits (B, V), cache)``."""
+    x = _embed(cfg, model, tokens)
+    x, cache = _run_blocks(cfg, model, x, cache=cache, prefill=True)
+    x = L.apply_norm(cfg, model.final_norm, x)
+    return _logits(cfg, model, x[:, -1:, :])[:, 0], cache
+
+
+@torch.no_grad()
+def lm_decode(cfg: ModelConfig, model: LM, token: Tensor, cache: list, pos: int):
+    """One decode step. ``token`` (B,), ``pos`` the scalar absolute
+    position. Returns ``(logits (B, V), new cache)``."""
+    x = _embed(cfg, model, token[:, None])
+    x, cache = _run_blocks(cfg, model, x, cache=cache, pos=int(pos))
+    x = L.apply_norm(cfg, model.final_norm, x)
+    return _logits(cfg, model, x)[:, 0], cache

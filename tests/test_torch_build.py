@@ -6,6 +6,7 @@ jobs, failures reported with the compiler's output) runs on the CPU."""
 import stat
 
 import pytest
+import torch
 
 from repro_torch.kernels import _build
 
@@ -81,3 +82,43 @@ def test_launch_counters():
     assert _build.LAUNCHES == {"k": 2, "j": 1}
     _build.reset_launches()
     assert _build.LAUNCHES == {}
+
+
+class _Tensor:
+    """Stands in for a CUDA tensor: what ``check_input`` reads, no card."""
+
+    def __init__(self, shape, dtype=torch.float32, device="cuda:0", contiguous=True):
+        self.shape, self.dtype, self.device = tuple(shape), dtype, torch.device(device)
+        self.ndim, self._contiguous = len(self.shape), contiguous
+
+    def is_contiguous(self):
+        return self._contiguous
+
+
+F32 = (torch.float32,)
+
+
+@pytest.mark.parametrize("x, kwargs, error, match", [
+    (_Tensor((2, 8, 8)), {}, None, None),
+    (_Tensor((16, 256), torch.bfloat16), {"ndim": 2}, TypeError, "dtype"),
+    (_Tensor((8, 8)), {}, ValueError, r"\(depth, rows, cols\)"),
+    (_Tensor((70000, 8, 8)), {}, ValueError, "65535"),
+    (_Tensor((2, 8, 8), device="cpu"), {}, ValueError, "a CUDA device"),
+    (_Tensor((2, 8, 8), contiguous=False), {}, ValueError, "contiguous"),
+    (_Tensor((1, 4, 2, 8)), {"shape": (1, 4, 2, 8), "device": torch.device("cuda:0")},
+     None, None),
+    (_Tensor((1, 4, 2, 8)), {"shape": (1, 4, 2, 4), "device": torch.device("cuda:0")},
+     ValueError, r"expected \(1, 4, 2, 4\)"),
+    (_Tensor((1, 4, 2, 8), device="cuda:1"),
+     {"shape": (1, 4, 2, 8), "device": torch.device("cuda:0")}, ValueError, "cuda:0"),
+    (_Tensor((70000, 8, 8)), {"shape": (70000, 8, 8), "device": torch.device("cuda:0")},
+     None, None),
+])
+def test_check_input(x, kwargs, error, match):
+    """One validator: the stencil layouts by rank and grid limit, the
+    recurrences' inputs by exact shape and launch device."""
+    if error is None:
+        _build.check_input("k", x, F32, **kwargs)
+    else:
+        with pytest.raises(error, match=match):
+            _build.check_input("k", x, F32, **kwargs)

@@ -19,6 +19,7 @@ import repro_torch.ir as ir
 from repro_torch.kernels import _build
 from repro_torch.kernels.hdiff import hdiff_fixed, hdiff_fixed_point_ref, hdiff_fused, hdiff_twostep
 from repro_torch.kernels.hdiff import kernel as k13
+from repro_torch.kernels.rglru import rglru_scan, rglru_scan_cuda, rglru_seq_ref
 from repro_torch.kernels.stencil2d import (
     jacobi1d,
     jacobi1d_cuda,
@@ -28,6 +29,7 @@ from repro_torch.kernels.stencil2d import (
     stencil2d_plain,
     weights_for,
 )
+from repro_torch.kernels.wkv6 import wkv6, wkv6_cuda, wkv6_plain, wkv6_ref
 
 pytestmark = pytest.mark.gpu
 SHAPES = [(1, 8, 8), (2, 37, 70), (3, 65, 129)]
@@ -175,3 +177,90 @@ def test_elementary_wrappers_count_launches(cuda):
         jacobi1d_cuda(y.t())
     with pytest.raises(TypeError):
         stencil2d_cuda(x.double(), weights_for("laplacian"))
+
+
+def _wkv_inputs(shape, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, t, h, n = shape
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=device)
+
+    r, k, v = 0.5 * randn(b, t, h, n), 0.5 * randn(b, t, h, n), randn(b, t, h, n)
+    w = 0.6 + 0.399 * torch.rand((b, t, h, n), generator=g, device=device)
+    return r, k, v, w, 0.3 * randn(h, n), 0.1 * randn(b, h, n, n)
+
+
+# Head sizes that are not a multiple of the 16-column value tile (24, 8),
+# B > 1, and chunks from 8 to 64.
+K7_CASES = [((1, 128, 3, 64), 64), ((2, 128, 3, 16), 32), ((1, 96, 2, 24), 32),
+            ((3, 40, 2, 8), 8), ((2, 64, 5, 32), 16)]
+
+
+@pytest.mark.parametrize("shape,chunk", K7_CASES)
+def test_k7_matches_plain_and_sequential(cuda, shape, chunk):
+    r, k, v, w, u, s0 = _wkv_inputs(shape, cuda, seed=sum(shape))
+    for state in (s0, torch.zeros_like(s0)):
+        y, s = wkv6_cuda(r, k, v, w, u, state, chunk=chunk)
+        y_p, s_p = wkv6_plain(r, k, v, w, u, state, chunk=chunk)
+        y_o, s_o = wkv6_ref(r, k, v, w, u, state)
+        torch.cuda.synchronize()
+        for got, plain, oracle in ((y, y_p, y_o), (s, s_p, s_o)):
+            # Summation order differs in the four products of a chunk.
+            bound = 1e-5 * plain.abs().max().item() + 1e-6
+            assert (got - plain).abs().max().item() <= bound
+            torch.testing.assert_close(got, oracle, rtol=3e-4, atol=3e-4)
+
+
+def test_k7_entry_clamps_chunk_and_rejects_bad_input(cuda):
+    r, k, v, w, u, s0 = _wkv_inputs((1, 16, 2, 16), cuda, seed=1)
+    y, s = wkv6(r, k, v, w, u, chunk=64)  # chunk clamped to T = 16; zero state
+    torch.testing.assert_close(y, wkv6_ref(r, k, v, w, u)[0], rtol=3e-4, atol=3e-4)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        wkv6_cuda(r, k, v, w, u, s0, chunk=6)
+    with pytest.raises(TypeError):
+        wkv6_cuda(r.double(), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6_cuda(r, k, v.transpose(2, 3).contiguous().transpose(2, 3), w, u, s0)
+    with pytest.raises(ValueError, match="shape"):
+        wkv6_cuda(r, k, v, w, u[:1], s0)
+    with pytest.raises(ValueError, match="device"):
+        wkv6_cuda(r, k, v, w, u.cpu(), s0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 512, 2560), (3, 64, 128), (2, 37, 100), (4, 1, 7)])
+def test_k6_bit_equal_to_plain(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(shape[1])
+    a = (0.5 + 0.499 * torch.rand(shape, generator=g, device=cuda)).to(dtype)
+    b = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    h0 = torch.randn((shape[0], shape[2]), generator=g, device=cuda)
+    h, last = rglru_scan_cuda(a, b, h0)
+    h_p, last_p = rglru_seq_ref(a, b, h0)
+    _equal(h, h_p)
+    _equal(last, last_p)
+
+
+def test_k6_entry_and_bad_input(cuda):
+    a = torch.rand((2, 9, 33), device=cuda)
+    b = torch.randn((2, 9, 33), device=cuda)
+    h, last = rglru_scan(a, b)
+    _equal(h, rglru_seq_ref(a, b, torch.zeros((2, 33), device=cuda))[0])
+    with pytest.raises(TypeError):
+        rglru_scan_cuda(a, b.to(torch.bfloat16), torch.zeros((2, 33), device=cuda))
+    with pytest.raises(TypeError):
+        rglru_scan_cuda(a, b, torch.zeros((2, 33), device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan_cuda(a, b.transpose(0, 1).contiguous().transpose(0, 1),
+                        torch.zeros((2, 33), device=cuda))
+
+
+def test_recurrent_wrappers_count_launches(cuda):
+    r, k, v, w, u, s0 = _wkv_inputs((1, 16, 1, 8), cuda, seed=2)
+    a, b = torch.rand((1, 4, 8), device=cuda), torch.randn((1, 4, 8), device=cuda)
+    _build.reset_launches()
+    wkv6(r, k, v, w, u, s0, chunk=8)
+    rglru_scan(a, b)
+    wkv6_plain(r, k, v, w, u, s0)
+    rglru_seq_ref(a, b, torch.zeros((1, 8), device=cuda))
+    assert _build.LAUNCHES == {"wkv6_cuda": 1, "rglru_scan_cuda": 1}
