@@ -20,11 +20,16 @@ script's seconds so far when it was printed):
               build/repro_torch/)
   parity      each kernel against its plain version on the same inputs, at
               64x256x256 and a ragged 3x250x190 (K4 with every named mask
-              and a random one, f32 and bf16; K2 also on the five 2-D
-              elementary programs), at (16384, 256) and a long
+              and a random one, f32 and bf16; K2 — the generated kernel,
+              single-reader offset-0 ops inlined, taps slid through
+              registers down runs of rows, 64x64 tiles loaded by cp.async —
+              on all 11 2-D conformance programs x k = 1..3, f32 and bf16,
+              bit-equal), at (16384, 256) and a long
               ragged row (4, 4194307) (K5, K5' k=1..3): max abs error and bit
-              equality, asserted <= 1e-6 (int32: exact); plus a 20-step run
-              on the card against the same run on the CPU. K7 at
+              equality, asserted <= 1e-6 (int32, K2: exact); plus a 20-step run
+              on the card against the same run on the CPU. K7 (three launches:
+              chunk-local k_tail^T v, the scan over chunks, the chunk outputs,
+              products in 3xTF32 on the tensor cores) at
               (1, 512, 40, 64) and (2, 128, 3, 16), zero and non-zero initial
               state, within 1e-5 * max|y| + 1e-6 of its plain chunked version
               (summation order in the four products) and 3e-4 of the
@@ -48,6 +53,12 @@ script's seconds so far when it was printed):
               plain version, the three routes (hand-written kernel,
               lower_reference, IR kernel) within 1e-5 after one sweep, the
               derived op counts equal to ELEMENTARY_SPECS
+  trace       one torch.profiler trace (build/repro_torch/trace/) of one
+              synchronised launch each of K1, K2 and K4, then 10 K1 steps,
+              5 hdiff_twostep calls and 10 K4 sweeps: calls and device time
+              per kernel name and the device's busy share; fails unless K1,
+              K2 and K4 each show device time (it runs before serve: behind
+              serve's profiled windows a trace once recorded no device time)
   serve       each LM in turn at its published shapes, random weights from
               the seed, with the launch counters reset just before its
               serving run: BatchedServer(lanes=4, max_len=1024), 8 requests
@@ -69,10 +80,6 @@ script's seconds so far when it was printed):
               and the launch counters, each timer's mean beside the device
               time per launch, CUDA-graph capture stepping aside, and
               runtime_metadata()
-  trace       one torch.profiler trace (build/repro_torch/trace/) of 10 K1
-              steps, 5 hdiff_twostep calls and 10 K4 sweeps: calls and device
-              time per kernel name and the device's busy share; fails unless
-              K1, K2 and K4 each show device time
   timing      per kernel, at 64x256x256 / (16384, 256) and at 80x1024x1024 /
               (81920, 1024) (which exceed the 50 MB L2): device time per
               launch (median of 25 CUDA-graph replays of 10 launches, after
@@ -291,18 +298,17 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     # -- programs and inputs -----------------------------------------------------
-    k2_cases = [
-        ("hdiff", 1, ir.hdiff_program()), ("hdiff", 2, ir.hdiff_program()),
-        ("hdiff", 3, ir.hdiff_program()), ("hdiff_simple", 1, ir.hdiff_program(limit=False)),
-        ("laplacian", 1, ir.laplacian_program()),
-        ("jacobi2d_9pt", 1, ir.jacobi2d_9pt_program()), ("vadvc", 1, ir.vadvc_program()),
-        ("hdiff_coupled", 1, ir.hdiff_coupled_program()),
-        ("hdiff_coupled", 2, ir.hdiff_coupled_program()),
-        ("shallow_water", 1, ir.shallow_water_program()),
-        ("shallow_water", 2, ir.shallow_water_program()),
-        ("advection_diffusion", 1, ir.advection_diffusion_program()),
-    ]
-    k2_cases = [(n, k, ir.repeat(p, k)) for n, k, p in k2_cases]
+    # K2's conformance set: every 2-D program of tests/conformance.py, 1-3 sweeps.
+    conformance_2d = {
+        "hdiff": ir.hdiff_program, "hdiff_simple": lambda: ir.hdiff_program(limit=False),
+        "jacobi2d_3pt": ir.jacobi2d_3pt_program, "laplacian": ir.laplacian_program,
+        "jacobi2d_5pt": ir.jacobi2d_5pt_program, "jacobi2d_9pt": ir.jacobi2d_9pt_program,
+        "seidel2d": ir.seidel2d_program, "vadvc": ir.vadvc_program,
+        "hdiff_coupled": ir.hdiff_coupled_program, "shallow_water": ir.shallow_water_program,
+        "advection_diffusion": ir.advection_diffusion_program,
+    }
+    k2_cases = [(n, k, ir.repeat(make(), k)) for n, make in conformance_2d.items()
+                for k in (1, 2, 3)]
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(shape, dtype=torch.float32):
@@ -323,12 +329,15 @@ def main() -> int:
 
     # -- build -------------------------------------------------------------------
     sources = [k13.source()]
-    for shape in (PAPER_GRID, RAGGED_GRID, BIG_GRID):
+    for shape in (PAPER_GRID, RAGGED_GRID):
         for _, _, prog in k2_cases:
-            sources.append(kernel_source(prog, ("float32",) * len(prog.inputs),
-                                         tile_for(prog, *shape[1:])))
+            for dtype in ("float32", "bfloat16"):
+                sources.append(kernel_source(prog, (dtype,) * len(prog.inputs),
+                                             tile_for(prog, *shape[1:])))
     hdiff2 = ir.repeat(ir.hdiff_program(), 2)
-    sources.append(kernel_source(hdiff2, ("bfloat16",), tile_for(hdiff2, *PAPER_GRID[1:])))
+    for prog in (hdiff2, ir.hdiff_coupled_program()):
+        sources.append(kernel_source(prog, ("float32",) * len(prog.inputs),
+                                     tile_for(prog, *BIG_GRID[1:])))
     sources.append(k45.source())
     elementary = {name: ir.ELEMENTARY_PROGRAMS[name]() for name in ELEMENTARY_2D}
     for prog in elementary.values():
@@ -352,7 +361,7 @@ def main() -> int:
                                "rglru_scan_cuda": 0.0, "wkv6_cuda": 0.0}
     results = []
 
-    def compare(kernel, label, got, want, exact=False):
+    def compare(kernel, label, got, want, exact=False, record=True):
         got = got if isinstance(got, dict) else {"": got}
         want = want if isinstance(want, dict) else {"": want}
         torch.cuda.synchronize()
@@ -364,8 +373,9 @@ def main() -> int:
             err, equal = max(err, d), equal and torch.equal(got[f], want[f])
         check(equal if exact else err <= TOL, f"{label}: max abs error {err}")
         worst[kernel] = max(worst[kernel], err)
-        results.append({"kernel": kernel, "case": label, "max_abs_err": err,
-                        "bit_equal": equal})
+        if record:
+            results.append({"kernel": kernel, "case": label, "max_abs_err": err,
+                            "bit_equal": equal})
 
     for shape in (PAPER_GRID, RAGGED_GRID):
         tag = "x".join(map(str, shape))
@@ -381,14 +391,16 @@ def main() -> int:
                 -1000, 1000, shape, generator=gen, device=dev, dtype=torch.int32)
             compare("hdiff_fixed_cuda", f"{tag}/i32/wrap={wrap}", k13.hdiff_fixed_cuda(xq),
                     hdiff_fixed_point_ref(xq, 26, 10), exact=True)
-        for name, k, prog in k2_cases:
-            arrays = tuple(fields(prog, shape).values())
-            compare("stencil_program_cuda", f"{tag}/{name}/k={k}",
-                    ir.stencil_program_cuda(prog, arrays), ir.stencil_program_plain(prog, arrays))
-        if shape == PAPER_GRID:
-            xb = (randn(shape, torch.bfloat16),)
-            compare("stencil_program_cuda", f"{tag}/hdiff/k=2/bf16",
-                    ir.stencil_program_cuda(hdiff2, xb), ir.stencil_program_plain(hdiff2, xb))
+        # K2: every conformance program and k, float32 and bfloat16, bit for bit.
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, k, prog in k2_cases:
+                arrays = tuple(fields(prog, shape, dtype).values())
+                compare("stencil_program_cuda", f"{tag}/{name}/k={k}/{str(dtype)[6:]}",
+                        ir.stencil_program_cuda(prog, arrays),
+                        ir.stencil_program_plain(prog, arrays), exact=True, record=False)
+            results.append({"kernel": "stencil_program_cuda",
+                            "case": f"{tag}/{len(k2_cases)} programs x k/{str(dtype)[6:]}",
+                            "max_abs_err": worst["stencil_program_cuda"], "bit_equal": True})
     # K2 on the five elementary programs (this also loads their kernels, so
     # the counted elementary path pays no first-use cost).
     x = randn(PAPER_GRID)
@@ -691,6 +703,51 @@ def main() -> int:
           "launches": elem_launches, "legs": legs, "checks": leg_checks,
           "derived_op_counts": specs})
 
+    # -- trace: torch.profiler over a short steady window -------------------------
+    for fn in (lambda: hdiff_fused(psi, COEFF), lambda: hdiff_twostep(psi, COEFF),
+               lambda: stencil2d(x3, "jacobi2d_9pt")):
+        fn()  # warm-up outside the window
+    torch.cuda.synchronize()
+    with profiler_trace(TRACE_DIR) as prof:
+        check(prof is not None, "torch.profiler could not start a trace")
+        t0 = time.perf_counter()
+        # One launch of each, synchronised, before the loops, so a late start
+        # of the device-side tracing loses one of these, not the loops'.
+        hdiff_fused(psi, COEFF), hdiff_twostep(psi, COEFF), stencil2d(x3, "jacobi2d_9pt")
+        torch.cuda.synchronize()
+        a, b, c = psi, psi, x3
+        for _ in range(10):
+            a = hdiff_fused(a, COEFF)
+        for _ in range(5):
+            b = hdiff_twostep(b, COEFF)
+        for _ in range(10):
+            c = stencil2d(c, "jacobi2d_9pt")
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    check((TRACE_DIR / "trace.json").is_file(), "no trace.json written")
+    kernels_seen = device_kernels(prof)
+    starts, ends = [], []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            starts.append(e.time_range.start)
+            ends.append(e.time_range.end)
+    busy_us = sum(v["device_us"] for v in kernels_seen.values())
+    found = {}
+    for label, pattern in (("K1 hdiff_cuda", r"hdiff_kernel"),
+                           ("K2 stencil_program_cuda", r"stencil_program(?!_1d)"),
+                           ("K4 stencil2d_cuda", r"stencil2d_kernel")):
+        hits = [k for k in kernels_seen if re.search(pattern, k)]
+        check(bool(hits), f"trace shows no device time for {label} ({pattern}); "
+              f"kernels seen: {sorted(kernels_seen)}")
+        found[label] = {"calls": sum(kernels_seen[k]["calls"] for k in hits),
+                        "device_us": sum(kernels_seen[k]["device_us"] for k in hits)}
+    emit({"phase": "trace", "dir": str(TRACE_DIR.relative_to(ROOT)), "kernels": found,
+          "all_kernels": kernels_seen, "device_busy_us": busy_us, "window_us": window_us,
+          "busy_share_of_window": busy_us / window_us,
+          "busy_share_of_kernel_span": busy_us / (max(ends) - min(starts)) if starts else None})
+    del a, b, c, out, firsts
+    torch.cuda.empty_cache()
+
     # -- serve: the recurrent LMs at their published shapes, counted ------------
     serve_launches: dict[str, int] = {}
     want_launches = {"rwkv6-3b": {"wkv6_cuda": 7 * 32},
@@ -837,47 +894,6 @@ def main() -> int:
                            "device_ms_per_launch": device_ms})
     emit({"phase": "obs", "counters": counters, "timers": timers,
           "runtime_metadata": runtime_metadata(str(ROOT))})
-
-    # -- trace: torch.profiler over a short steady window -------------------------
-    for fn in (lambda: hdiff_fused(psi, COEFF), lambda: hdiff_twostep(psi, COEFF),
-               lambda: stencil2d(x3, "jacobi2d_9pt")):
-        fn()  # warm-up outside the window
-    torch.cuda.synchronize()
-    with profiler_trace(TRACE_DIR) as prof:
-        check(prof is not None, "torch.profiler could not start a trace")
-        t0 = time.perf_counter()
-        a, b, c = psi, psi, x3
-        for _ in range(10):
-            a = hdiff_fused(a, COEFF)
-        for _ in range(5):
-            b = hdiff_twostep(b, COEFF)
-        for _ in range(10):
-            c = stencil2d(c, "jacobi2d_9pt")
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    check((TRACE_DIR / "trace.json").is_file(), "no trace.json written")
-    kernels_seen = device_kernels(prof)
-    starts, ends = [], []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            starts.append(e.time_range.start)
-            ends.append(e.time_range.end)
-    busy_us = sum(v["device_us"] for v in kernels_seen.values())
-    found = {}
-    for label, pattern in (("K1 hdiff_cuda", r"hdiff_kernel"),
-                           ("K2 stencil_program_cuda", r"stencil_program(?!_1d)"),
-                           ("K4 stencil2d_cuda", r"stencil2d_kernel")):
-        hits = [k for k in kernels_seen if re.search(pattern, k)]
-        check(bool(hits), f"trace shows no device time for {label} ({pattern}); "
-              f"kernels seen: {sorted(kernels_seen)}")
-        found[label] = {"calls": sum(kernels_seen[k]["calls"] for k in hits),
-                        "device_us": sum(kernels_seen[k]["device_us"] for k in hits)}
-    emit({"phase": "trace", "dir": str(TRACE_DIR.relative_to(ROOT)), "kernels": found,
-          "all_kernels": kernels_seen, "device_busy_us": busy_us, "window_us": window_us,
-          "busy_share_of_window": busy_us / window_us,
-          "busy_share_of_kernel_span": busy_us / (max(ends) - min(starts)) if starts else None})
-    del a, b, c, out, firsts
-    torch.cuda.empty_cache()
 
     # -- timing --------------------------------------------------------------
     def bound(nbytes, ops, peak):

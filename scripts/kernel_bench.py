@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Times the port's K7 (``wkv6_cuda``) and K2 (``stencil_program_cuda``) on
+one NVIDIA GPU, for a source tree given on the command line.
+
+    python3 scripts/kernel_bench.py [--src DIR] [--label NAME] [--ptxas] [--profile]
+
+``--src`` names the ``src/`` directory whose ``repro_torch`` is imported
+(default: this checkout's), so two versions of the kernels can be timed in
+one process tree on one card, in turns. Each case is first checked against
+its plain version (K7 within ``1e-5 * max|y| + 1e-6``, K2 bit for bit), then
+timed as ``chip_smoke.py`` times it: the median of 25 replays (10 at the
+large shapes) of a CUDA graph of 10 launches, after a warm-up. Cases: K7 at
+(1, 512, 40, 64) and (8, 4096, 40, 64) with chunk 64 (K7 also checked as a
+replayed CUDA graph); K2 hdiff x 2 and
+hdiff_coupled at 64x256x256 and 80x1024x1024, float32. ``--ptxas`` also
+compiles each kernel source once more with ``-Xptxas -v`` and prints the
+registers, shared memory and spills it reports; ``--profile`` adds, per K7
+shape, the device time of each of the call's launches from one
+``torch.profiler`` window of 5 calls.
+
+Prints one JSON line per case, with the card's name and power limit, and
+exits non-zero without a card or if a check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+
+def graph_ms(fn, launches=10, replays=25):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def ptxas(build, name: str, text: str) -> list[str]:
+    """``-Xptxas -v`` lines for one source: registers, shared memory, spills."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cu = Path(tmp) / f"{name}.cu"
+        cu.write_text(text)
+        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(build.CSRC),
+               "-o", str(Path(tmp) / f"{name}.so"), str(cu)]
+        out = subprocess.run(cmd, capture_output=True, text=True, check=True)
+    return [line.strip() for line in (out.stdout + out.stderr).splitlines()
+            if "registers" in line or "spill" in line or "Compiling entry" in line]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_bench: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, args.src)
+    import repro_torch.ir as ir
+    from repro_torch.ir.lower_cuda import kernel_source, tile_for
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv6 import kernel as k7
+    from repro_torch.kernels.wkv6 import wkv6_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2024)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    hdiff2, coupled = ir.repeat(ir.hdiff_program(), 2), ir.hdiff_coupled_program()
+    grids = ((64, 256, 256), (80, 1024, 1024))
+    sources = [k7.source()] + [
+        kernel_source(p, ("float32",) * len(p.inputs), tile_for(p, *g[1:]))
+        for p in (hdiff2, coupled) for g in grids]
+    _build.build(sources)
+    emit = {"label": args.label, "src": args.src, "nvidia_smi": smi}
+    if args.ptxas:
+        for name, text in sources[:2] + sources[3:4]:
+            print(json.dumps({**emit, "ptxas": name, "lines": ptxas(_build, name, text)}),
+                  flush=True)
+
+    def row(kernel, case, shape, ms, err):
+        print(json.dumps({**emit, "kernel": kernel, "case": case,
+                          "shape": "x".join(map(str, shape)), "ms": ms, "max_abs_err": err}),
+              flush=True)
+
+    for shape in ((1, 512, 40, 64), (8, 4096, 40, 64)):
+        b, t, h, n = shape
+        r, k, v = 0.5 * randn(shape), 0.5 * randn(shape), randn(shape)
+        w = 0.6 + 0.399 * torch.rand(shape, generator=gen, device=dev)
+        u, s0 = 0.3 * randn((h, n)), 0.1 * randn((b, h, n, n))
+        want = wkv6_plain(r, k, v, w, u, s0, chunk=64)
+        bound = 1e-5 * want[0].abs().max().item() + 1e-6
+        graph = torch.cuda.CUDAGraph()  # checked eagerly and as a replayed graph
+        with torch.cuda.graph(graph):
+            replayed = k7.wkv6_cuda(r, k, v, w, u, s0, chunk=64)
+        graph.replay()
+        err = 0.0
+        for got in (k7.wkv6_cuda(r, k, v, w, u, s0, chunk=64), replayed):
+            torch.cuda.synchronize()
+            err = max(err, *((g - p).abs().max().item() for g, p in zip(got, want)))
+        if not err <= bound:
+            raise RuntimeError(f"K7 {shape}: {err} from its plain version (bound {bound})")
+        del got, want, replayed, graph
+        ms = graph_ms(lambda: k7.wkv6_cuda(r, k, v, w, u, s0, chunk=64),
+                      replays=10 if b > 1 else 25)
+        row("wkv6_cuda", "wkv6", shape, ms, err)
+        if args.profile:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(5):
+                    k7.wkv6_cuda(r, k, v, w, u, s0, chunk=64)
+                torch.cuda.synchronize()
+            per_call = {e.key[:60]: e.self_device_time_total / 5 for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and e.self_device_time_total > 0}
+            print(json.dumps({**emit, "kernel": "wkv6_cuda", "shape": "x".join(map(str, shape)),
+                              "device_us_per_call": per_call}), flush=True)
+        del r, k, v, w, u, s0
+        torch.cuda.empty_cache()
+    for grid in grids:
+        for label, prog in (("hdiff x2", hdiff2), ("hdiff_coupled", coupled)):
+            arrays = tuple(randn(grid) if f != "coeff" else
+                           0.025 * (1.0 + 0.25 * torch.tanh(randn(grid))) for f in prog.inputs)
+            got = ir.stencil_program_cuda(prog, arrays)
+            want = ir.stencil_program_plain(prog, arrays)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"K2 {label} {grid}: not bit-equal to its plain version")
+            ms = graph_ms(lambda p=prog, a=arrays: ir.stencil_program_cuda(p, a),
+                          replays=10 if grid[0] > 64 else 25)
+            row("stencil_program_cuda", label, grid, ms, 0.0)
+            del arrays, got, want
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -38,7 +38,7 @@ import torch
 from repro_torch.ir.codegen_cuda import frame_plan, kernel_name, render
 from repro_torch.ir.evaluate import interior_eval, resolve_field_arrays, ring_crop, slab_sweep
 from repro_torch.ir.graph import StencilProgram
-from repro_torch.ir.plan import TilePlan, plan_tile, plan_tile_1d
+from repro_torch.ir.plan import TilePlan, plan_program_tile, plan_tile_1d
 from repro_torch.kernels import _build
 from repro_torch.obs import metrics
 
@@ -79,7 +79,8 @@ def tile_for(program: StencilProgram, rows: int, cols: int,
     buffers = frame_plan(program).n_frames
     if program.ndim == 1:
         return plan_tile_1d(cols, halo=program.radius, buffers=buffers)
-    return plan_tile(rows, cols, halo=program.radius, buffers=buffers, block_rows=block_rows)
+    return plan_program_tile(rows, cols, halo=program.radius, buffers=buffers,
+                             block_rows=block_rows)
 
 
 def kernel_source(program: StencilProgram, dtypes, tile: TilePlan) -> tuple[str, str]:

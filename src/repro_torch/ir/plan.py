@@ -11,10 +11,12 @@ that attribute when a plan needs more).
 
 Every kernel stores its tiles as float32 *frames* of
 ``(rows + 2 * halo) x (cols + 2 * halo)`` words: the hdiff kernels keep two
-(the input tile and its Laplacian), the mask kernel (K4) one, the
-generated program kernel one per
-live field of its op DAG; a 1-D program's kernel holds one row tile per
-frame (:func:`plan_tile_1d`). The 2-D mesh planner (``plan_partition``) needs
+(the input tile and its Laplacian) and the mask kernel (K4) one, planned by
+:func:`plan_tile`; the generated program kernel (K2) keeps one per input,
+one more per evolving field when it runs several sweeps, and one per live
+op that is not inlined, with rows padded for 16-byte copies
+(:func:`program_frame_layout`), planned by :func:`plan_program_tile`; a 1-D
+program's kernel holds one row tile per frame (:func:`plan_tile_1d`). The 2-D mesh planner (``plan_partition``) needs
 the halo wire model of the distributed layer and is ported with it
 (ROADMAP M9).
 """
@@ -24,7 +26,13 @@ from __future__ import annotations
 import dataclasses
 
 SMEM_BLOCK_LIMIT = 232_448  # bytes of dynamic shared memory one block may use
-DEFAULT_TILE = (32, 64)  # output rows x cols per block before shrinking
+SMEM_SM = 233_472  # bytes of shared memory per SM; each resident block reserves 1 KB of it
+SMEM_BLOCK_RESERVED = 1024
+DEFAULT_TILE = (32, 64)  # output rows x cols per block before shrinking (K1, K4)
+# The generated program kernel's tiles, largest first: a larger tile cuts
+# the k * r halo every sweep recomputes (1.27x the tile's points at 64x64
+# with hdiff x 2's halo of 4, 1.41x at 32x64).
+PROGRAM_TILES = ((64, 64), (32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8))
 DEFAULT_TILE_1D = 1024  # output points per block of a 1-D program's kernel
 FRAME_ITEMSIZE = 4  # frames hold float32 (or int32) words
 
@@ -80,6 +88,59 @@ def plan_tile(
                 "per-block limit; use fewer block rows"
             )
     return TilePlan(tr, tc, halo, buffers)
+
+
+def program_frame_layout(rows: int, cols: int, halo: int) -> tuple[int, int, int]:
+    """``(row stride, shift, words)`` of one frame of the generated program
+    kernel for a ``rows x cols`` tile: rows of ``cols + 2 * halo`` words
+    padded to a multiple of 4, and the frame shifted by ``(-halo) % 4``
+    words, so that frame column ``j`` and grid column ``c0 - halo + j``
+    (``c0`` a multiple of 4) share their address modulo 16 bytes and whole
+    aligned groups of 4 columns load with one 16-byte copy. ``words`` is the
+    frame's size, shift included, rounded up to a multiple of 4."""
+    ld = -(-(cols + 2 * halo) // 4) * 4
+    shift = (-halo) % 4
+    return ld, shift, -(-(shift + (rows + 2 * halo) * ld) // 4) * 4
+
+
+def program_tile_bytes(rows: int, cols: int, halo: int, buffers: int) -> int:
+    """Dynamic shared memory of the generated program kernel's block."""
+    return program_frame_layout(rows, cols, halo)[2] * FRAME_ITEMSIZE * buffers
+
+
+def plan_program_tile(
+    rows: int,
+    cols: int,
+    *,
+    halo: int,
+    buffers: int,
+    block_rows: int | None = None,
+) -> TilePlan:
+    """The generated program kernel's tile: the first of
+    :data:`PROGRAM_TILES` (clipped to the grid) whose ``buffers`` frames let
+    two blocks share an SM, else the first that fits one block. An explicit
+    ``block_rows`` fixes the tile rows and only the columns (64 down to 8)
+    are chosen. Raises when not even an 8-column tile fits one block."""
+    if rows < 1 or cols < 1:
+        raise ValueError(f"grid ({rows}, {cols}) has no points")
+    if buffers < 1:
+        raise ValueError(f"buffers must be >= 1, got {buffers}")
+    if block_rows is not None:
+        candidates = [(block_rows, min(tc, cols)) for tc in (64, 32, 16, 8)]
+    else:
+        candidates = [(min(tr, rows), min(tc, cols)) for tr, tc in PROGRAM_TILES]
+    for blocks in (2, 1):
+        for tr, tc in candidates:
+            need = program_tile_bytes(tr, tc, halo, buffers)
+            if need <= SMEM_BLOCK_LIMIT and blocks * (need + SMEM_BLOCK_RESERVED) <= SMEM_SM:
+                return TilePlan(tr, tc, halo, buffers)
+    tr, tc = candidates[-1]
+    raise ValueError(
+        f"a {tr}x{tc} tile with a {halo}-cell halo needs "
+        f"{program_tile_bytes(tr, tc, halo, buffers)} bytes of shared memory for "
+        f"{buffers} frames, over the {SMEM_BLOCK_LIMIT}-byte per-block limit; use "
+        "fewer block rows"
+    )
 
 
 def plan_tile_1d(n: int, *, halo: int, buffers: int) -> TilePlan:

@@ -7,8 +7,10 @@ over ``(B, T, H, N)`` float32 r/k/v/w with an ``(H, N)`` bonus and a
 
 A CPU tensor gets the plain version (:func:`~repro_torch.kernels.wkv6.ref.wkv6_plain`);
 a CUDA tensor launches the kernel on the current stream or raises — it
-never falls back. The kernel source's header says what bounds it on the
-card and what its design does about that.
+never falls back. One call is three launches (chunk-local state products,
+the scan over chunks, the chunk outputs) into scratch the wrapper
+allocates, and counts as one launch of K7. The kernel source's header says
+what bounds it on the card and what its design does about that.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ def source() -> tuple[str, str]:
 def _library() -> ctypes.CDLL:
     """The built and bound K7 library, loaded once per process."""
     lib = _build.load(*source())
-    lib.wkv6_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.wkv6_f32.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.wkv6_f32.restype = ctypes.c_int
     lib.wkv6_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.wkv6_smem_bytes.restype = ctypes.c_int
@@ -71,9 +73,14 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     s_out = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     if y.numel() == 0:
         return y, state0.clone()
+    # Scratch: each chunk's k_tail^T v, replaced by the scan with the state
+    # entering the next chunk, and each chunk's exp(total).
+    kv = torch.empty((b, h, t // c, n, n), dtype=torch.float32, device=r.device)
+    decay = torch.empty((b, h, t // c, n), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         code = lib.wkv6_f32(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                             u.data_ptr(), state0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-                            b, t, h, n, c, torch.cuda.current_stream().cuda_stream)
+                            kv.data_ptr(), decay.data_ptr(), b, t, h, n, c,
+                            torch.cuda.current_stream().cuda_stream)
     _build.check_launch("wkv6_cuda", code)
     return y, s_out

@@ -13,7 +13,9 @@ Shapes: r/k/v/w (B, T, H, N) with head size N; u (H, N); state
     a diagonal-masked einsum); the JAX model's prefill path.
   * :func:`wkv6_plain` — the Pallas kernel's chunk body
     (``kernels/wkv6/kernel.py:27-63``) in its own order, bonus
-    ``sum(r * u * k) * v``: the plain version K7 is held to on the card.
+    ``sum(r * u * k) * v``, split into K7's three passes (chunk-local
+    products, the scan over chunks, the outputs): the plain version K7 is
+    held to on the card.
 """
 
 from __future__ import annotations
@@ -79,32 +81,39 @@ def wkv6_chunked_ref(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
 
 def wkv6_plain(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor, state0: Tensor,
                *, chunk: int = 64) -> tuple[Tensor, Tensor]:
-    """K7's plain version: the Pallas kernel's per-chunk body, batched over
-    (B, H). ``chunk`` is clamped to T, which it must divide."""
+    """K7's plain version: the Pallas kernel's per-chunk body, in the
+    kernel's three passes and batched over (B, H) and the chunks.
+    ``chunk`` is clamped to T, which it must divide.
+
+    (a) each chunk's ``k_tail^T v`` and ``exp(total)``; (b) the scan over
+    chunks, ``S <- exp(total) * S + k_tail^T v``, keeping the state that
+    enters each chunk; (c) each chunk's ``(r_dec S + tril(r_dec k_dec^T, -1)
+    v) + sum(r * u * k) * v``."""
     b, t, h, n = r.shape
     c = min(chunk, t)
     if c < 1 or t % c:
         raise ValueError(f"sequence length {t} is not a positive multiple of chunk {c}")
-    # (B, H, T, N): one (T, N) stream per (batch, head), as a Pallas program sees it.
-    rs, ks, vs, ws = (a.to(torch.float32).transpose(1, 2) for a in (r, k, v, w))
-    u = u.to(torch.float32)[None, :, None, :]
+    nch = t // c
+    # (B, H, chunks, C, N): one (C, N) block per chunk of each (batch, head) stream.
+    rs, ks, vs, ws = (a.to(torch.float32).transpose(1, 2).reshape(b, h, nch, c, n)
+                      for a in (r, k, v, w))
+    logw = torch.log(torch.clamp_min(ws, 1e-30))
+    cum = torch.cumsum(logw, dim=3)
+    total = cum[:, :, :, -1:]
+    # (a) chunk-local state products.
+    kv = (ks * torch.exp(total - cum)).transpose(-1, -2) @ vs
+    decay = torch.exp(total[:, :, :, 0])[..., None]
+    # (b) the inter-chunk scan.
     state = state0.to(torch.float32)
+    entering = []
+    for i in range(nch):
+        entering.append(state)
+        state = decay[:, :, i] * state + kv[:, :, i]
+    # (c) the outputs.
+    r_dec = rs * torch.exp(cum - logw)
+    k_dec = ks * torch.exp(-cum)
     lower = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device), -1)
-    ys = []
-    for i in range(t // c):
-        sl = slice(i * c, (i + 1) * c)
-        rc, kc, vc, wc = rs[:, :, sl], ks[:, :, sl], vs[:, :, sl], ws[:, :, sl]
-        logw = torch.log(torch.clamp_min(wc, 1e-30))
-        cum = torch.cumsum(logw, dim=2)
-        total = cum[:, :, -1:]
-        r_dec = rc * torch.exp(cum - logw)
-        k_dec = kc * torch.exp(-cum)
-        y_inter = r_dec @ state
-        att = torch.where(lower, r_dec @ k_dec.transpose(-1, -2), 0.0)
-        y_intra = att @ vc
-        bonus = torch.sum(rc * u * kc, dim=-1, keepdim=True)
-        y_bonus = bonus * vc
-        k_tail = kc * torch.exp(total - cum)
-        state = torch.exp(total[:, :, 0])[..., None] * state + k_tail.transpose(-1, -2) @ vc
-        ys.append(y_inter + y_intra + y_bonus)
-    return torch.cat(ys, dim=2).transpose(1, 2).contiguous(), state
+    att = torch.where(lower, r_dec @ k_dec.transpose(-1, -2), 0.0)
+    bonus = torch.sum(rs * u.to(torch.float32)[None, :, None, None, :] * ks, dim=-1, keepdim=True)
+    y = (r_dec @ torch.stack(entering, dim=2) + att @ vs) + bonus * vs
+    return y.reshape(b, h, t, n).transpose(1, 2).contiguous(), state

@@ -95,6 +95,29 @@ def test_k2_bit_equal_to_plain(cuda, name, shape):
     _equal(ir.stencil_program_cuda(prog, arrays), ir.stencil_program_plain(prog, arrays))
 
 
+CONFORMANCE_2D = {
+    "hdiff": ir.hdiff_program, "hdiff_simple": lambda: ir.hdiff_program(limit=False),
+    "jacobi2d_3pt": ir.jacobi2d_3pt_program, "laplacian": ir.laplacian_program,
+    "jacobi2d_5pt": ir.jacobi2d_5pt_program, "jacobi2d_9pt": ir.jacobi2d_9pt_program,
+    "seidel2d": ir.seidel2d_program, "vadvc": ir.vadvc_program,
+    "hdiff_coupled": ir.hdiff_coupled_program, "shallow_water": ir.shallow_water_program,
+    "advection_diffusion": ir.advection_diffusion_program,
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("name", sorted(CONFORMANCE_2D))
+def test_k2_conformance_programs_bit_equal_to_plain(cuda, name, k, dtype):
+    """Every 2-D conformance program, k fused sweeps, on a ragged grid whose
+    rows are not a multiple of 4 words (element-wise loads) and on one of
+    several tiles each way whose rows are (16-byte copies)."""
+    prog = ir.repeat(CONFORMANCE_2D[name](), k)
+    for shape in ((2, 37, 70), (1, 130, 152)):
+        arrays = tuple(_rand(shape, cuda, seed=i).to(dtype) for i in range(len(prog.inputs)))
+        _equal(ir.stencil_program_cuda(prog, arrays), ir.stencil_program_plain(prog, arrays))
+
+
 def test_k2_bf16_and_twostep(cuda):
     x = _rand((2, 64, 48), cuda, seed=5)
     _equal(hdiff_twostep(x, 0.05, block_rows=16), hdiff_fused(hdiff_fused(x, 0.05), 0.05))
@@ -191,10 +214,10 @@ def _wkv_inputs(shape, device, seed):
     return r, k, v, w, 0.3 * randn(h, n), 0.1 * randn(b, h, n, n)
 
 
-# Head sizes that are not a multiple of the 16-column value tile (24, 8),
-# B > 1, and chunks from 8 to 64.
+# Head sizes that are not a multiple of the 16-wide mma tile (24, 8), B > 1,
+# chunks from 8 to 64, and many chunks with B > 1.
 K7_CASES = [((1, 128, 3, 64), 64), ((2, 128, 3, 16), 32), ((1, 96, 2, 24), 32),
-            ((3, 40, 2, 8), 8), ((2, 64, 5, 32), 16)]
+            ((3, 40, 2, 8), 8), ((2, 64, 5, 32), 16), ((2, 1024, 4, 64), 64)]
 
 
 @pytest.mark.parametrize("shape,chunk", K7_CASES)

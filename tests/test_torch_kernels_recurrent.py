@@ -98,6 +98,20 @@ def test_wkv6_matches_jax_kernel_and_oracle(shape, chunk, with_state):
         _close(got, want, 3e-4)
 
 
+def test_wkv6_plain_many_chunks_with_state_matches_jax():
+    """Sixteen chunks and a non-zero initial state: K7's plain version (its
+    three passes, the scan over chunks in the middle) against the JAX
+    package's chunked form, the Pallas kernel in interpret mode and the
+    sequential oracle, at 3e-4."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, 128, 2, 16, seed=16)
+    jargs = [jnp.asarray(a) for a in (r, k, v, w, u, s0)]
+    y, s = wkv6_plain(*_t((r, k, v, w, u, s0)), chunk=8)
+    for y_j, s_j in (jax_wkv6_chunked_ref(*jargs, chunk=8),
+                     jax_wkv6(*jargs, chunk=8, interpret=True), jax_wkv6_ref(*jargs)):
+        _close(y, y_j, 3e-4)
+        _close(s, s_j, 3e-4)
+
+
 def test_wkv6_plain_clamps_chunk_and_rejects_ragged_lengths():
     r, k, v, w, u, s0 = _t(_wkv_inputs(1, 12, 1, 8))
     y_big, s_big = wkv6_plain(r, k, v, w, u, s0, chunk=64)  # clamped to T = 12

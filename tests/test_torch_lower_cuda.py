@@ -20,6 +20,8 @@ from repro_torch.interop import fields_from_numpy, to_numpy
 from repro_torch.ir.codegen_cuda import frame_plan, kernel_name
 from repro_torch.ir.lower_cuda import kernel_source, tile_for
 from repro_torch.ir.ops import f32_literal
+from repro_torch.ir.plan import (PROGRAM_TILES, SMEM_BLOCK_LIMIT, SMEM_SM,
+                                 program_tile_bytes)
 from test_torch_ir_graph import TORCH_PROGRAMS
 
 ELEMENTARY_2D = ["jacobi2d_3pt", "laplacian", "jacobi2d_5pt", "jacobi2d_9pt", "seidel2d"]
@@ -157,7 +159,7 @@ def test_source_is_deterministic_and_keyed_by_fingerprint():
 def test_one_store_per_output(name):
     prog = _port(name, 2)
     src = _source(prog)[1]
-    stores = re.findall(r"^\s*O(\d+)\[g\] = from_f32<\w+>\(F\d+\[p\]\);", src, re.M)
+    stores = re.findall(r"^\s*O(\d+)\[g\] = from_f32<\w+>\(n\d+\);", src, re.M)
     assert sorted(int(s) for s in stores) == list(range(len(prog.outputs)))
     assert len(re.findall(r"\bO\d+\[", src)) == len(prog.outputs)
 
@@ -175,14 +177,80 @@ def test_coefficients_are_exact_float32_literals():
 
 
 def test_frames_are_reused_across_ops_and_sweeps():
-    """hdiff needs its input, the Laplacian and four fluxes live at once;
-    the output op reuses the Laplacian's frame, and a second sweep reuses
-    the first sweep's frames."""
-    assert frame_plan(tir.hdiff_program()).n_frames == 6
-    assert frame_plan(_port("hdiff", 3)).n_frames == 6
+    """hdiff keeps its input and the Laplacian in frames; the four fluxes
+    are inlined into the update, whose last sweep stores from registers. A
+    chain of sweeps adds one state frame (the two take turns) and reuses
+    the Laplacian's frame in every sweep. Barriers: one after the loads,
+    then one after each Laplacian and each update but the last."""
+    assert frame_plan(tir.hdiff_program()).n_frames == 2
+    assert frame_plan(_port("hdiff", 2)).n_frames == 3
+    assert frame_plan(_port("hdiff", 3)).n_frames == 3
+    for k, barriers in ((1, 2), (2, 4), (3, 6)):
+        assert _source(_port("hdiff", k))[1].count("__syncthreads()") == barriers
     sw = frame_plan(_port("shallow_water", 2))
     assert sw.input_frames == {"u": 0, "v": 1, "h": 2}
     assert all(len(s.updates) == 3 for s in sw.sweeps)
+    assert [new for *_, new in sw.sweeps[0].updates] == [3, 4, 5]
+    assert [new for *_, new in sw.sweeps[1].updates] == [None] * 3
+
+
+CONFORMANCE_2D = [(name, k) for name in sorted(TORCH_PROGRAMS) if name != "jacobi1d"
+                  for k in KS]
+
+
+def _expected_inlined(sweep):
+    """Ops that exactly one later op reads, only at offset zero, and that
+    produce no evolving field's next value."""
+    readers = {op.name: [] for op in sweep.ops}
+    for op in sweep.ops:
+        for r in op.reads:
+            if r.field in readers:
+                readers[r.field].append((op.name, r.offset))
+    return tuple(
+        name for name, rs in readers.items()
+        if name not in sweep.outputs.values() and len({n for n, _ in rs}) == 1
+        and all(o == (0, 0) for _, o in rs)
+    )
+
+
+@pytest.mark.parametrize("name,k", CONFORMANCE_2D)
+def test_frame_plan_inlines_single_zero_offset_readers_only(name, k):
+    prog = _port(name, k)
+    plan = frame_plan(prog)
+    assert len(plan.sweeps) == k
+    for sweep in plan.sweeps:
+        p = sweep.program
+        assert sweep.inlined == _expected_inlined(p)
+        for op in p.ops:
+            reads = [(o.name, r.offset) for o in p.ops for r in o.reads if r.field == op.name]
+            if any(off != (0, 0) for _, off in reads) or len({n for n, _ in reads}) > 1:
+                assert op.name not in sweep.inlined
+            if op.name in sweep.inlined:
+                assert op.name not in sweep.env and op.name not in sweep.materialized
+    if name == "hdiff":
+        assert all(s.inlined == ("flx_r", "flx_rm", "flx_c", "flx_cm") for s in plan.sweeps)
+        assert all(s.materialized == ("lap",) for s in plan.sweeps)
+
+
+@pytest.mark.parametrize("name,k", CONFORMANCE_2D)
+def test_source_is_deterministic_and_tile_fits(name, k):
+    """Two renders are the same text, and the planned tile is the largest
+    of ``PROGRAM_TILES`` whose frames leave room for two blocks per SM on
+    the paper grid (64x64 for hdiff x 1-3)."""
+    prog = _port(name, k)
+    for dtype in ("float32", "bfloat16"):
+        assert _source(prog, dtype) == _source(prog, dtype)
+    tile = tile_for(prog, 256, 256)
+    need = program_tile_bytes(tile.rows, tile.cols, tile.halo, tile.buffers)
+    assert tile.buffers == frame_plan(prog).n_frames
+    assert need <= SMEM_BLOCK_LIMIT and 2 * (need + 1024) <= SMEM_SM
+    larger = PROGRAM_TILES[:PROGRAM_TILES.index((tile.rows, tile.cols))]
+    assert all(2 * (program_tile_bytes(tr, tc, tile.halo, tile.buffers) + 1024) > SMEM_SM
+               for tr, tc in larger)
+    if name == "hdiff":
+        assert (tile.rows, tile.cols) == (64, 64)
+    assert (f"// tile: {tile.rows}x{tile.cols}  chain halo: {prog.radius}  "
+            f"frames: {tile.buffers}") in _source(prog, grid=(1, 256, 256))[1]
 
 
 def test_radius_zero_field_fetches_no_halo():
