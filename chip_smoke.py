@@ -33,8 +33,13 @@ script's seconds so far when it was printed):
               (1, 512, 40, 64) and (2, 128, 3, 16), zero and non-zero initial
               state, within 1e-5 * max|y| + 1e-6 of its plain chunked version
               (summation order in the four products) and 3e-4 of the
-              sequential oracle (the JAX test's bound); K6 at (1, 512, 2560),
-              (3, 64, 128) and bf16, bit-equal; and each LM at full width and
+              sequential oracle (the JAX test's bound); K6 (channel tiles
+              sized for one wave, a and b streamed through a cp.async ring
+              of 64-step stages) at (1, 512, 2560), (3, 64, 128) and
+              (2, 100, 2562), f32 and bf16, and replayed from a CUDA graph,
+              bit-equal; K3 (one int32 frame per 64x64 tile, register
+              windows down runs of rows) also on inputs at the sign test's
+              edges, bit-equal; and each LM at full width and
               reduced depth (RWKV-6 2 layers, RecurrentGemma 3), float32, a
               128-token prefill on the card against the same on the CPU (the
               plain versions): last logits and every cache leaf within
@@ -72,7 +77,8 @@ script's seconds so far when it was printed):
               prefill (last logits and every cache leaf within 1e-3 * max|.|);
               then steady state: three synchronised 512-token prefills, 20
               decode tokens, and one torch.profiler window of each (device
-              busy share, the six kernels with the most device time); the
+              busy share, the six kernels with the most device time, and
+              the device time of K6 / K7 themselves); the
               bytes a decode token's operations move, casts included, and
               their time at 3.35 TB/s, the decode token's floor
   obs         the port's metrics registry, enabled around the elementary
@@ -391,6 +397,14 @@ def main() -> int:
                 -1000, 1000, shape, generator=gen, device=dev, dtype=torch.int32)
             compare("hdiff_fixed_cuda", f"{tag}/i32/wrap={wrap}", k13.hdiff_fixed_cuda(xq),
                     hdiff_fixed_point_ref(xq, 26, 10), exact=True)
+        # The limiter's sign test at its edges: zeros, INT32_MIN/MAX, +-2**30
+        # (wrapping Laplacians), and runs of equal neighbours.
+        pool = torch.tensor([0, -(2**31), 2**31 - 1, 2**30, -(2**30), 2**30 - 1, 1, -1],
+                            dtype=torch.int32, device=dev)
+        xq = pool[torch.randint(0, len(pool), shape, generator=gen, device=dev)]
+        xq[:, ::3, :] = xq[:, ::3, :1]
+        compare("hdiff_fixed_cuda", f"{tag}/i32/sign edges", k13.hdiff_fixed_cuda(xq),
+                hdiff_fixed_point_ref(xq, 26, 10), exact=True)
         # K2: every conformance program and k, float32 and bfloat16, bit for bit.
         for dtype in (torch.float32, torch.bfloat16):
             for name, k, prog in k2_cases:
@@ -477,15 +491,25 @@ def main() -> int:
             results.append({"kernel": "wkv6_cuda", "case": tag, "max_abs_err": err,
                             "bound": bound, "oracle_max_abs_err": oracle_err,
                             "bit_equal": all(torch.equal(g, p) for g, p in zip(got, plain))})
+    # K6 at the serving shape, small tiles, a width that is not whole 16-byte
+    # groups (one-word copies) with T not a multiple of the 64-step stage,
+    # bfloat16, and replayed from a CUDA graph.
     for shape, dtype in ((K6_SERVE, torch.float32), ((3, 64, 128), torch.float32),
-                         (K6_SERVE, torch.bfloat16)):
+                         ((2, 100, 2562), torch.float32), (K6_SERVE, torch.bfloat16),
+                         ((2, 100, 2562), torch.bfloat16)):
         a = (0.5 + 0.499 * torch.rand(shape, generator=gen, device=dev)).to(dtype)
         b = randn(shape, dtype)
         h0 = randn((shape[0], shape[2]))
         compare("rglru_scan_cuda", f"{'x'.join(map(str, shape))}/{str(dtype)[6:]}",
                 dict(zip("hl", k6.rglru_scan_cuda(a, b, h0))),
                 dict(zip("hl", rglru_seq_ref(a, b, h0))), exact=True)
-    del r, k, v, w, u, s0, a, b, h0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = k6.rglru_scan_cuda(a, b, h0)
+    graph.replay()
+    compare("rglru_scan_cuda", "2x100x2562/bf16/graph replay", dict(zip("hl", replayed)),
+            dict(zip("hl", rglru_seq_ref(a, b, h0))), exact=True)
+    del r, k, v, w, u, s0, a, b, h0, graph, replayed
 
     def leaves(tree):
         if isinstance(tree, dict):
@@ -848,9 +872,13 @@ def main() -> int:
             seen = device_kernels(prof)
             busy = sum(v["device_us"] for v in seen.values())
             top = sorted(seen.items(), key=lambda kv: -kv[1]["device_us"])[:6]
+            # The port's own recurrence kernels (K6, K7), listed whether or not
+            # they are among the six with the most device time.
+            port = {k[:60]: v for k, v in seen.items() if "rglru_kernel" in k or "wkv6_" in k}
             windows[label] = {"calls": n, "window_us": window_us, "device_busy_us": busy,
                               "busy_share": busy / window_us,
-                              "top_kernels": {k[:60]: v for k, v in top}}
+                              "top_kernels": {k[:60]: v for k, v in top},
+                              "port_kernels": port}
         emit({"phase": "serve", "arch": arch, "params_gb": params_gb, "build_s": build_s,
               "launches": launches_here, "requests": len(done), "tokens_out": tokens,
               "prefill_s_by_len": [[len(r.prompt), r.prefill_s] for r in done],

@@ -10,9 +10,11 @@ bytes) of dynamic shared memory, of which only 48 KB come without
 that attribute when a plan needs more).
 
 Every kernel stores its tiles as float32 *frames* of
-``(rows + 2 * halo) x (cols + 2 * halo)`` words: the hdiff kernels keep two
-(the input tile and its Laplacian) and the mask kernel (K4) one, planned by
-:func:`plan_tile`; the generated program kernel (K2) keeps one per input,
+``(rows + 2 * halo) x (cols + 2 * halo)`` words: the float hdiff kernel
+(K1) keeps two (the input tile and its Laplacian) and the mask kernel (K4)
+one, planned by :func:`plan_tile`; the int32 hdiff kernel (K3) one int32
+frame with rows of whole 16-byte groups, planned by
+:func:`plan_fixed_tile`; the generated program kernel (K2) keeps one per input,
 one more per evolving field when it runs several sweeps, and one per live
 op that is not inlined, with rows padded for 16-byte copies
 (:func:`program_frame_layout`), planned by :func:`plan_program_tile`; a 1-D
@@ -33,6 +35,9 @@ DEFAULT_TILE = (32, 64)  # output rows x cols per block before shrinking (K1, K4
 # the k * r halo every sweep recomputes (1.27x the tile's points at 64x64
 # with hdiff x 2's halo of 4, 1.41x at 32x64).
 PROGRAM_TILES = ((64, 64), (32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8))
+FIXED_TILE = 64  # K3's output rows and columns per block before shrinking
+FIXED_TILE_COLS = (64, 32, 16, 8)  # K3's column tiles: its kernel's template constants
+FIXED_SHIFT = 2  # words before K3's frame, so its grid column c0 starts a 16-byte group
 DEFAULT_TILE_1D = 1024  # output points per block of a 1-D program's kernel
 FRAME_ITEMSIZE = 4  # frames hold float32 (or int32) words
 
@@ -88,6 +93,38 @@ def plan_tile(
                 "per-block limit; use fewer block rows"
             )
     return TilePlan(tr, tc, halo, buffers)
+
+
+def fixed_tile_bytes(rows: int, cols: int, halo: int = 2) -> int:
+    """Dynamic shared memory of K3's block for a ``rows x cols`` tile: one
+    int32 frame of ``rows + 2 * halo`` rows of ``cols + 2 * halo`` words,
+    after :data:`FIXED_SHIFT` words, rounded up to 16 bytes."""
+    words = FIXED_SHIFT + (rows + 2 * halo) * (cols + 2 * halo)
+    return -(-words // 4) * 16
+
+
+def plan_fixed_tile(rows: int, cols: int, *, halo: int = 2,
+                    block_rows: int | None = None) -> TilePlan:
+    """K3's tile: :data:`FIXED_TILE` rows (clipped to the grid) by the
+    narrowest of :data:`FIXED_TILE_COLS` that covers the grid's columns
+    (else the widest), halved while the frame does not fit the per-block
+    shared-memory limit. An explicit ``block_rows`` fixes the rows. Raises
+    when not even an 8-column tile fits."""
+    if rows < 1 or cols < 1:
+        raise ValueError(f"grid ({rows}, {cols}) has no points")
+    tr = block_rows if block_rows is not None else min(FIXED_TILE, rows)
+    if tr < 1:
+        raise ValueError(f"a tile needs at least one row, got {tr}")
+    tc = next((c for c in reversed(FIXED_TILE_COLS) if c >= cols), FIXED_TILE_COLS[0])
+    while fixed_tile_bytes(tr, tc, halo) > SMEM_BLOCK_LIMIT:
+        if tc == FIXED_TILE_COLS[-1]:
+            raise ValueError(
+                f"a {tr}x{tc} int32 tile with a {halo}-cell halo needs "
+                f"{fixed_tile_bytes(tr, tc, halo)} bytes of shared memory, over the "
+                f"{SMEM_BLOCK_LIMIT}-byte per-block limit; use fewer block rows"
+            )
+        tc //= 2
+    return TilePlan(tr, tc, halo, 1)
 
 
 def program_frame_layout(rows: int, cols: int, halo: int) -> tuple[int, int, int]:

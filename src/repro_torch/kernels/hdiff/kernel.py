@@ -24,7 +24,7 @@ import functools
 import torch
 
 from repro_torch.core.hdiff import hdiff, hdiff_simple
-from repro_torch.ir.plan import plan_tile
+from repro_torch.ir.plan import plan_fixed_tile, plan_tile
 from repro_torch.kernels import _build
 from repro_torch.kernels.hdiff.ref import hdiff_fixed_point_ref
 
@@ -62,6 +62,7 @@ def hdiff_plain(psi: torch.Tensor, coeff: float, *, limit: bool = True) -> torch
 
 
 def _tile(x: torch.Tensor, block_rows: int | None):
+    """K1's tile: two float32 frames (the input and its Laplacian)."""
     _, rows, cols = x.shape
     return plan_tile(rows, cols, halo=HALO, buffers=2, block_rows=block_rows)
 
@@ -98,7 +99,9 @@ def hdiff_fixed_cuda(
     block_rows: int | None = None,
 ) -> torch.Tensor:
     """K3: one int32 fixed-point hdiff sweep (``coeff = coeff_num /
-    2**coeff_shift``; products wrap like the JAX int32 datapath)."""
+    2**coeff_shift``; products wrap like the JAX int32 datapath);
+    ``block_rows`` fixes the tile rows of a block (default: the planner's
+    64-row tiles, :func:`~repro_torch.ir.plan.plan_fixed_tile`)."""
     if not 0 <= coeff_shift < 32:
         raise ValueError(f"coeff_shift must be in [0, 32), got {coeff_shift}")
     if psi_q.device.type == "cpu":
@@ -107,8 +110,8 @@ def hdiff_fixed_cuda(
     out = torch.empty_like(psi_q)
     if psi_q.numel() == 0:
         return out
-    tile = _tile(psi_q, block_rows)
     depth, rows, cols = psi_q.shape
+    tile = plan_fixed_tile(rows, cols, halo=HALO, block_rows=block_rows)
     with torch.cuda.device(psi_q.device):
         code = _library().hdiff_fixed_i32(
             psi_q.data_ptr(), out.data_ptr(), depth, rows, cols, tile.rows, tile.cols,

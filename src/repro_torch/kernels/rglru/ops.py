@@ -1,7 +1,8 @@
 """Public entry point for the RG-LRU scan kernel (the counterpart of
 ``repro/kernels/rglru/ops.py``). A CUDA tensor launches K6, a CPU tensor
 computes its plain version. The Pallas ``block_w`` and ``interpret`` knobs
-have no counterpart: one thread owns one channel."""
+have no counterpart: the wrapper plans the kernel's channel tile and ring
+stages itself (:func:`~repro_torch.kernels.rglru.kernel.plan_scan`)."""
 
 from __future__ import annotations
 

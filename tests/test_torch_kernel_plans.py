@@ -1,0 +1,154 @@
+"""The launch planners of K6 (``rglru_scan_cuda``) and K3
+(``hdiff_fixed_cuda``), on the CPU: what grid and shared memory they ask
+of the card, how they treat tiny and huge shapes, and that the constants
+they share with the CUDA sources agree with those sources."""
+
+import re
+
+import pytest
+
+from repro_torch.ir.plan import (
+    FIXED_SHIFT,
+    FIXED_TILE_COLS,
+    SMEM_BLOCK_LIMIT,
+    TilePlan,
+    fixed_tile_bytes,
+    plan_fixed_tile,
+    plan_tile,
+)
+from repro_torch.kernels import _build
+from repro_torch.kernels.hdiff import kernel as k13
+from repro_torch.kernels.rglru import kernel as k6
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_k6_serving_shape_fills_the_card_in_one_wave(itemsize):
+    plan = k6.plan_scan(1, 512, 2560, itemsize, H100_SMS, vec=True)
+    assert plan.tile == 20 and plan.tile % k6.GROUP == 0
+    assert plan.blocks == 128 and 0.9 * H100_SMS <= plan.blocks <= H100_SMS
+    assert plan.stage_steps == k6.STAGE_STEPS
+    assert plan.smem == k6.STAGES * 2 * 64 * k6.MAX_TILE * itemsize
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 2560), (8, 4096, 2560), (4, 1, 7), (3, 200, 33),
+                                   (2, 37, 100), (1, 1, 1), (64, 64, 4096), (1, 100_000, 4)])
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("vec", [True, False])
+def test_k6_plan_fits_shared_memory_and_covers_the_width(shape, itemsize, vec):
+    batch, steps, width = shape
+    if vec and width % k6.GROUP:
+        with pytest.raises(ValueError, match="multiple of 4"):
+            k6.plan_scan(batch, steps, width, itemsize, H100_SMS, vec=vec)
+        return
+    plan = k6.plan_scan(batch, steps, width, itemsize, H100_SMS, vec=vec)
+    assert 1 <= plan.tile <= k6.MAX_TILE
+    assert not vec or plan.tile % k6.GROUP == 0
+    assert 1 <= plan.stage_steps <= min(k6.STAGE_STEPS, steps)
+    assert plan.smem == k6.STAGES * 2 * plan.stage_steps * k6.MAX_TILE * itemsize
+    assert plan.smem <= SMEM_BLOCK_LIMIT
+    assert plan.blocks == batch * -(-width // plan.tile)
+    # About one wave: a smaller tile would not cut the grid below the SMs'
+    # count, unless the tile is already the smallest the path allows.
+    unit = k6.GROUP if vec else 1
+    assert plan.tile == k6.MAX_TILE or plan.tile == unit or \
+        batch * -(-width // (plan.tile - unit)) > H100_SMS
+
+
+def test_k6_large_batch_takes_full_warp_tiles():
+    plan = k6.plan_scan(8, 4096, 2560, 4, H100_SMS, vec=True)
+    assert (plan.tile, plan.blocks, plan.smem) == (32, 640, 65536)
+
+
+def test_k6_plan_clamps_tiny_shapes_and_rejects_huge_ones():
+    assert k6.plan_scan(1, 0, 8, 4, H100_SMS, vec=True).stage_steps == 1
+    assert k6.plan_scan(1, 3, 2, 4, H100_SMS, vec=False).tile == 1
+    assert k6.plan_scan(1, 3, 8, 4, 1, vec=False).tile == 8  # one SM: one block
+    with pytest.raises(ValueError, match="grid"):
+        k6.plan_scan(65536, 1, 4, 4, H100_SMS, vec=True)
+    with pytest.raises(ValueError, match="int32 indexing"):
+        k6.plan_scan(1, 2**20, 2**11, 4, H100_SMS, vec=True)
+    with pytest.raises(ValueError, match="no lanes"):
+        k6.plan_scan(1, 4, 4, 4, 0, vec=True)
+    with pytest.raises(ValueError, match="no lanes"):
+        k6.plan_scan(1, 4, 4, 8, H100_SMS, vec=True)
+
+
+def test_k6_constants_match_the_cuda_source():
+    text = k6.SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
+    assert int(consts["kStages"]) == k6.STAGES
+    assert int(consts["kMaxTile"]) == k6.MAX_TILE
+    assert int(consts["kStageSteps"]) == k6.STAGE_STEPS
+    # Every argument the wrapper passes is bound: 5 pointers, 6 ints, the stream.
+    assert text.count("int batch, int steps, int width, int tile, int stage_steps, int vec") == 3
+
+
+@pytest.mark.parametrize("rows,cols,want", [
+    (256, 256, (64, 64)), (1024, 1024, (64, 64)), (250, 190, (64, 64)), (67, 129, (64, 64)),
+    (8, 8, (8, 8)), (37, 30, (37, 32)), (70, 12, (64, 16)), (5, 9, (5, 16)), (3, 64, (3, 64)),
+])
+def test_k3_default_tiles(rows, cols, want):
+    plan = plan_fixed_tile(rows, cols)
+    assert (plan.rows, plan.cols) == want
+    assert plan.cols in FIXED_TILE_COLS and plan.buffers == 1
+    assert fixed_tile_bytes(plan.rows, plan.cols) <= SMEM_BLOCK_LIMIT
+    # 64x64: one 18.5 KB frame, so eight 256-thread blocks share an SM.
+    assert fixed_tile_bytes(64, 64) == 18_512
+
+
+@pytest.mark.parametrize("block_rows", [4, 16, 64, 256, 1024, 4096])
+def test_k3_block_rows_fix_the_rows_and_shrink_the_columns(block_rows):
+    plan = plan_fixed_tile(4096, 4096, block_rows=block_rows)
+    assert plan.rows == block_rows
+    assert fixed_tile_bytes(plan.rows, plan.cols) <= SMEM_BLOCK_LIMIT
+    wider = [c for c in FIXED_TILE_COLS if c > plan.cols]
+    assert all(fixed_tile_bytes(block_rows, c) > SMEM_BLOCK_LIMIT for c in wider)
+
+
+def test_k3_plan_raises_when_no_tile_fits():
+    with pytest.raises(ValueError, match="fewer block rows"):
+        plan_fixed_tile(10**6, 64, block_rows=10**5)
+    with pytest.raises(ValueError, match="no points"):
+        plan_fixed_tile(0, 64)
+    with pytest.raises(ValueError, match="at least one row"):
+        plan_fixed_tile(64, 64, block_rows=0)
+
+
+def test_k3_column_tiles_match_the_cuda_source():
+    text = k13.SOURCE.read_text()
+    cases = [int(c) for c in re.findall(r"case (\d+): return launch_fixed<\1>", text)]
+    assert sorted(cases) == sorted(FIXED_TILE_COLS)
+    assert all(c % 4 == 0 for c in FIXED_TILE_COLS)
+    assert re.search(rf"constexpr int kFixedShift = {FIXED_SHIFT};", text)
+
+
+@pytest.mark.parametrize("rows,cols,block_rows,want", [
+    (256, 256, None, TilePlan(32, 64, 2, 2)), (1024, 1024, None, TilePlan(32, 64, 2, 2)),
+    (250, 190, None, TilePlan(32, 64, 2, 2)), (8, 8, None, TilePlan(8, 8, 2, 2)),
+    (64, 96, 16, TilePlan(16, 64, 2, 2)), (4096, 64, 2048, TilePlan(2048, 8, 2, 2)),
+])
+def test_k1_keeps_its_tile_plan(rows, cols, block_rows, want):
+    """K1 keeps two float32 frames and the 32x64 tile of its first planner."""
+    import torch
+
+    assert plan_tile(rows, cols, halo=2, buffers=2, block_rows=block_rows) == want
+    assert k13._tile(torch.empty((1, rows, cols)), block_rows) == want
+    with pytest.raises(ValueError, match="fewer block rows"):
+        plan_tile(4096, 64, halo=2, buffers=2, block_rows=2418)
+
+
+def test_k3_block_rows_validation_is_unchanged_on_the_cpu():
+    import torch
+
+    from repro_torch.kernels.hdiff import hdiff_fixed
+
+    x = torch.zeros((1, 30, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="not divisible"):
+        hdiff_fixed(x, block_rows=8)
+    with pytest.raises(ValueError, match=">= 4"):
+        hdiff_fixed(x, block_rows=2)
+    _build.reset_launches()
+    assert torch.equal(hdiff_fixed(x, block_rows=15), x)
+    assert _build.LAUNCHES == {}

@@ -87,6 +87,60 @@ def test_k3_bit_equal_to_plain_with_wraparound(cuda, shape):
     _equal(hdiff_fixed(x, coeff_num=3, coeff_shift=2), hdiff_fixed_point_ref(x, 3, 2))
 
 
+def _int32(shape, device, seed, lo=-(2**31), hi=2**31):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(lo, hi, shape, generator=g, device=device, dtype=torch.int64).to(
+        torch.int32)
+
+
+def _sign_edges(shape, device, seed):
+    """int32 values chosen for the flux limiter's sign test: zeros,
+    INT32_MIN and INT32_MAX, values near +-2**30 whose Laplacian and fluxes
+    wrap, and runs of equal neighbours (zero fluxes and zero gradients)."""
+    pool = torch.tensor([0, -(2**31), 2**31 - 1, 2**30, -(2**30), 2**30 - 1, -(2**30) + 1, 1, -1,
+                         7], dtype=torch.int32, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = pool[torch.randint(0, len(pool), shape, generator=g, device=device)]
+    x[..., ::3, :] = x[..., ::3, :1]  # every third row constant along the row
+    x[..., :, 1::4] = x[..., :, :1]  # and runs of equal values down columns
+    return x.contiguous()
+
+
+K3_COEFFS = [(26, 10), (3, 2), (-7, 31), (1, 0)]
+
+
+@pytest.mark.parametrize("shape", [(3, 250, 190), (2, 67, 129), (1, 130, 66), (2, 5, 9)])
+def test_k3_ragged_grids_bit_equal(cuda, shape):
+    """Grids that cross tile edges both ways, with widths that are not a
+    multiple of 4 words (the word-by-word loads) and ones that are."""
+    for seed, x in enumerate((_int32(shape, cuda, 1), _int32(shape, cuda, 2, -1000, 1000),
+                              _sign_edges(shape, cuda, 3))):
+        for num, shift in K3_COEFFS:
+            _equal(hdiff_fixed(x, coeff_num=num, coeff_shift=shift),
+                   hdiff_fixed_point_ref(x, num, shift))
+
+
+@pytest.mark.parametrize("shape", [(64, 256, 256), (2, 64, 96)])
+def test_k3_sign_test_edge_cases(cuda, shape):
+    x = _sign_edges(shape, cuda, 4)
+    for num, shift in K3_COEFFS:
+        _equal(k13.hdiff_fixed_cuda(x, coeff_num=num, coeff_shift=shift),
+               hdiff_fixed_point_ref(x, num, shift))
+
+
+@pytest.mark.parametrize("block_rows", [4, 16, 32, 64])
+def test_k3_explicit_tile_rows_and_unaligned_pointer(cuda, block_rows):
+    x = _int32((2, 64, 96), cuda, 5)
+    want = hdiff_fixed_point_ref(x, 26, 10)
+    _equal(hdiff_fixed(x, block_rows=block_rows), want)
+    # A contiguous view one word into its storage: the loads go word by word.
+    base = torch.empty(x.numel() + 1, dtype=torch.int32, device=cuda)
+    y = base[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 and y.is_contiguous()
+    _equal(hdiff_fixed(y, block_rows=block_rows), want)
+
+
 @pytest.mark.parametrize("name", sorted(K2_PROGRAMS))
 @pytest.mark.parametrize("shape", SHAPES[1:])
 def test_k2_bit_equal_to_plain(cuda, name, shape):
@@ -262,6 +316,62 @@ def test_k6_bit_equal_to_plain(cuda, shape, dtype):
     h_p, last_p = rglru_seq_ref(a, b, h0)
     _equal(h, h_p)
     _equal(last, last_p)
+
+
+def _k6_inputs(shape, device, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = (0.5 + 0.499 * torch.rand(shape, generator=g, device=device)).to(dtype)
+    b = torch.randn(shape, generator=g, device=device).to(dtype)
+    return a, b, torch.randn((shape[0], shape[2]), generator=g, device=device)
+
+
+# The channel tile against the width (2564 = 128 tiles of 20 and one of 4),
+# float32 rows that are not whole 16-byte groups (102, 33: one-word copies),
+# T = 1, T not a multiple of the 64-step stage (200, 65), B = 8 with
+# T = 4096 (32-channel tiles, 640 blocks).
+K6_SHAPES = [(1, 70, 2564), (2, 37, 102), (3, 20, 33), (4, 1, 2560), (2, 200, 256),
+             (1, 65, 2560), (8, 4096, 2560)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K6_SHAPES)
+def test_k6_new_paths_bit_equal_to_plain(cuda, shape, dtype):
+    a, b, h0 = _k6_inputs(shape, cuda, dtype, sum(shape))
+    h, last = rglru_scan_cuda(a, b, h0)
+    h_p, last_p = rglru_seq_ref(a, b, h0)
+    _equal(h, h_p)
+    _equal(last, last_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_unaligned_pointers_take_the_word_path(cuda, dtype):
+    """Contiguous views one element into their storage: the width is a
+    multiple of 4 but the copies cannot be 4-channel groups."""
+    a, b, h0 = _k6_inputs((2, 130, 256), cuda, dtype, 6)
+    views = []
+    for x in (a, b):
+        base = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+        views.append(base[1:].view(x.shape))
+        views[-1].copy_(x)
+    assert views[0].data_ptr() % 8 and views[0].is_contiguous()
+    want = rglru_seq_ref(a, b, h0)
+    got = rglru_scan_cuda(*views, h0)
+    _equal(got[0], want[0])
+    _equal(got[1], want[1])
+
+
+def test_k6_replayed_from_a_cuda_graph_equals_eager(cuda):
+    a, b, h0 = _k6_inputs((1, 512, 2560), cuda, torch.float32, 7)
+    eager = rglru_scan_cuda(a, b, h0)
+    rglru_scan_cuda(a, b, h0)  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = rglru_scan_cuda(a, b, h0)
+    for _ in range(2):
+        graph.replay()
+    _equal(replayed[0], eager[0])
+    _equal(replayed[1], eager[1])
 
 
 def test_k6_entry_and_bad_input(cuda):
