@@ -19,8 +19,11 @@ script's seconds so far when it was printed):
               program below (one nvcc each, all at once, into
               build/repro_torch/)
   parity      each kernel against its plain version on the same inputs, at
-              64x256x256 and a ragged 3x250x190 (K4 with every named mask
-              and a random one, f32 and bf16; K2 — the generated kernel,
+              64x256x256 and a ragged 3x250x190 (K1 — one frame per 64x64
+              tile loaded by cp.async, register windows down runs of rows —
+              f32 and bf16, limiter on and off, bit-equal; K4 — the same
+              design at radius 1 — with every named mask and a random one,
+              f32 and bf16, bit-equal; K2 — the generated kernel,
               single-reader offset-0 ops inlined, taps slid through
               registers down runs of rows, 64x64 tiles loaded by cp.async —
               on all 11 2-D conformance programs x k = 1..3, f32 and bf16,
@@ -54,7 +57,11 @@ script's seconds so far when it was printed):
               through stencil2d (K4) and lower_cuda (K2), 10 jacobi1d sweeps
               through jacobi1d (K5) and lower_cuda (K5'), 5 calls of
               lower_cuda(repeat(jacobi1d, 2)); the counters must read exactly
-              41 / 41 / 10 / 15; every leg equal to the same sweeps of its
+              41 / 41 / 10 / 15; then the lower_cuda legs again outside the
+              count and uninstrumented (the counted ones synchronise per
+              call for the obs phase), each bit-equal to its counted leg, so
+              their host time per sweep compares with stencil2d's and
+              jacobi1d's; every leg equal to the same sweeps of its
               plain version, the three routes (hand-written kernel,
               lower_reference, IR kernel) within 1e-5 after one sweep, the
               derived op counts equal to ELEMENTARY_SPECS
@@ -388,10 +395,13 @@ def main() -> int:
         x = randn(shape)
         for limit in (True, False):
             compare("hdiff_cuda", f"{tag}/f32/limit={limit}",
-                    k13.hdiff_cuda(x, COEFF, limit=limit), k13.hdiff_plain(x, COEFF, limit=limit))
+                    k13.hdiff_cuda(x, COEFF, limit=limit), k13.hdiff_plain(x, COEFF, limit=limit),
+                    exact=True)
         xb = x.to(torch.bfloat16)
-        compare("hdiff_cuda", f"{tag}/bf16", k13.hdiff_cuda(xb, COEFF),
-                k13.hdiff_plain(xb, COEFF))
+        for limit in (True, False):
+            compare("hdiff_cuda", f"{tag}/bf16/limit={limit}",
+                    k13.hdiff_cuda(xb, COEFF, limit=limit),
+                    k13.hdiff_plain(xb, COEFF, limit=limit), exact=True)
         for wrap in (False, True):
             xq = near_wrap(shape) if wrap else torch.randint(
                 -1000, 1000, shape, generator=gen, device=dev, dtype=torch.int32)
@@ -428,11 +438,13 @@ def main() -> int:
         x = randn(shape)
         for mname, w in masks.items():
             compare("stencil2d_cuda", f"{tag}/{mname}", k45.stencil2d_cuda(x, w),
-                    k45.stencil2d_plain(x, w))
-    xb = randn(PAPER_GRID, torch.bfloat16)
-    for mname, w in masks.items():
-        compare("stencil2d_cuda", f"64x256x256/{mname}/bf16", k45.stencil2d_cuda(xb, w),
-                k45.stencil2d_plain(xb, w))
+                    k45.stencil2d_plain(x, w), exact=True)
+    for shape in (PAPER_GRID, RAGGED_GRID):
+        tag = "x".join(map(str, shape))
+        xb = randn(shape, torch.bfloat16)
+        for mname, w in masks.items():
+            compare("stencil2d_cuda", f"{tag}/{mname}/bf16", k45.stencil2d_cuda(xb, w),
+                    k45.stencil2d_plain(xb, w), exact=True)
     for shape in (PAPER_ROWS, LONG_ROW):
         tag = "x".join(map(str, shape))
         y = randn(shape)
@@ -672,6 +684,16 @@ def main() -> int:
     want = {"stencil2d_cuda": 41, "stencil_program_cuda": 41, "jacobi1d_cuda": 10,
             "stencil_program_1d_cuda": 15}
     check(elem_launches == want, f"elementary launches {elem_launches} != {want}")
+    # The same lower_cuda legs uninstrumented, after the count (the counted
+    # legs above are the path): an instrumented call synchronises the card
+    # (obs/metrics.py), so only these compare with the stencil2d and jacobi1d
+    # legs' host time per sweep. Each equals its instrumented leg bit for bit.
+    for name in ELEMENTARY_2D:
+        y, _ = leg(f"{name}/lower_cuda uninstrumented", lowered[name], x3, sweeps[name])
+        check(torch.equal(y, out[("k2", name)]), f"{name}: uninstrumented K2 leg differs")
+    for key, label, n in (("k5p", "jacobi1d", 10), ("k5p2", "jacobi1d_x2", 5)):
+        y, _ = leg(f"{label}/lower_cuda uninstrumented", lowered[label], x1, n)
+        check(torch.equal(y, out[(key, "jacobi1d")]), f"{label}: uninstrumented K5' leg differs")
 
     def repeated(fn, x, n):
         for _ in range(n):

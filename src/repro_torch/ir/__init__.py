@@ -58,7 +58,7 @@ from repro_torch.ir.evaluate import (
     slab_sweep,
     thread_chain,
 )
-from repro_torch.ir.plan import SMEM_BLOCK_LIMIT, TilePlan, plan_tile
+from repro_torch.ir.plan import SMEM_BLOCK_LIMIT, TilePlan, plan_fixed_tile
 from repro_torch.ir.lower_reference import lower_reference
 from repro_torch.ir.lower_cuda import (
     lower_cuda,

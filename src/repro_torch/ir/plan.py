@@ -9,17 +9,20 @@ bytes) of dynamic shared memory, of which only 48 KB come without
 ``cudaFuncAttributeMaxDynamicSharedMemorySize`` (the kernels' launchers set
 that attribute when a plan needs more).
 
-Every kernel stores its tiles as float32 *frames* of
-``(rows + 2 * halo) x (cols + 2 * halo)`` words: the float hdiff kernel
-(K1) keeps two (the input tile and its Laplacian) and the mask kernel (K4)
-one, planned by :func:`plan_tile`; the int32 hdiff kernel (K3) one int32
-frame with rows of whole 16-byte groups, planned by
-:func:`plan_fixed_tile`; the generated program kernel (K2) keeps one per input,
-one more per evolving field when it runs several sweeps, and one per live
-op that is not inlined, with rows padded for 16-byte copies
-(:func:`program_frame_layout`), planned by :func:`plan_program_tile`; a 1-D
-program's kernel holds one row tile per frame (:func:`plan_tile_1d`). The 2-D mesh planner (``plan_partition``) needs
-the halo wire model of the distributed layer and is ported with it
+Every kernel stores its tiles in shared-memory *frames* of
+``(rows + 2 * halo)`` rows, each padded to whole 16-byte groups and shifted
+so that the tile's first grid column starts a group
+(:func:`frame_layout`); a frame holds float32 (or int32) words, a
+bfloat16 input widened as it loads. The hand-written stencil kernels hold
+one frame each: the float hdiff kernel (K1), the int32 hdiff kernel (K3)
+and the mask kernel (K4, halo 1), all planned by :func:`plan_fixed_tile`
+(64-row tiles, a column tile that is a template constant of the kernel);
+the generated program kernel (K2) keeps one frame per input, one more per
+evolving field when it runs several sweeps, and one per live op that is not
+inlined (:func:`program_frame_layout`), planned by
+:func:`plan_program_tile`; a 1-D program's kernel holds one row tile per
+frame (:func:`plan_tile_1d`). The 2-D mesh planner (``plan_partition``)
+needs the halo wire model of the distributed layer and is ported with it
 (ROADMAP M9).
 """
 
@@ -30,13 +33,12 @@ import dataclasses
 SMEM_BLOCK_LIMIT = 232_448  # bytes of dynamic shared memory one block may use
 SMEM_SM = 233_472  # bytes of shared memory per SM; each resident block reserves 1 KB of it
 SMEM_BLOCK_RESERVED = 1024
-DEFAULT_TILE = (32, 64)  # output rows x cols per block before shrinking (K1, K4)
 # The generated program kernel's tiles, largest first: a larger tile cuts
 # the k * r halo every sweep recomputes (1.27x the tile's points at 64x64
 # with hdiff x 2's halo of 4, 1.41x at 32x64).
 PROGRAM_TILES = ((64, 64), (32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8))
-FIXED_TILE = 64  # K3's output rows and columns per block before shrinking
-FIXED_TILE_COLS = (64, 32, 16, 8)  # K3's column tiles: its kernel's template constants
+FIXED_TILE = 64  # K1's, K3's and K4's output rows and columns per block before shrinking
+FIXED_TILE_COLS = (64, 32, 16, 8)  # their column tiles: the kernels' template constants
 FIXED_SHIFT = 2  # words before K3's frame, so its grid column c0 starts a 16-byte group
 DEFAULT_TILE_1D = 1024  # output points per block of a 1-D program's kernel
 FRAME_ITEMSIZE = 4  # frames hold float32 (or int32) words
@@ -52,64 +54,33 @@ class TilePlan:
     buffers: int
 
 
-def frame_bytes(rows: int, cols: int, halo: int) -> int:
-    """Bytes of one float32 frame: the tile plus its halo on every side."""
-    return (rows + 2 * halo) * (cols + 2 * halo) * FRAME_ITEMSIZE
-
-
-def plan_tile(
-    rows: int,
-    cols: int,
-    *,
-    halo: int,
-    buffers: int,
-    block_rows: int | None = None,
-) -> TilePlan:
-    """Picks a (rows x cols) output tile whose ``buffers`` frames fit the
-    per-block shared-memory limit.
-
-    Starts from :data:`DEFAULT_TILE` clipped to the grid and halves the tile
-    rows, then the tile columns, until the frames fit. An explicit
-    ``block_rows`` fixes the tile rows and only the columns shrink. Tiles
-    need not divide the grid: the kernels mask ragged edges. Raises when
-    not even an 8-column tile fits.
-    """
-    if rows < 1 or cols < 1:
-        raise ValueError(f"grid ({rows}, {cols}) has no points")
-    if buffers < 1:
-        raise ValueError(f"buffers must be >= 1, got {buffers}")
-    tr = block_rows if block_rows is not None else min(DEFAULT_TILE[0], rows)
-    tc = min(DEFAULT_TILE[1], cols)
-    while frame_bytes(tr, tc, halo) * buffers > SMEM_BLOCK_LIMIT:
-        if block_rows is None and tr > 8:
-            tr //= 2
-        elif tc > 8:
-            tc //= 2
-        else:
-            raise ValueError(
-                f"a {tr}x{tc} tile with a {halo}-cell halo needs "
-                f"{frame_bytes(tr, tc, halo) * buffers} bytes of shared memory "
-                f"for {buffers} frames, over the {SMEM_BLOCK_LIMIT}-byte "
-                "per-block limit; use fewer block rows"
-            )
-    return TilePlan(tr, tc, halo, buffers)
+def frame_layout(cols: int, halo: int) -> tuple[int, int]:
+    """``(row stride, shift)``, in 4-byte words, of a frame holding a
+    ``cols``-column tile and its ``halo``: rows of ``cols + 2 * halo`` words
+    padded to a multiple of 4, and the frame shifted by ``(-halo) % 4``
+    words, so that frame column ``j`` and grid column ``c0 - halo + j``
+    (``c0`` a multiple of 4) share their address modulo 16 bytes and whole
+    aligned groups of 4 columns load with one 16-byte copy
+    (``csrc/stencil_common.cuh``, ``Frame``; ``codegen_cuda``)."""
+    return -(-(cols + 2 * halo) // 4) * 4, (-halo) % 4
 
 
 def fixed_tile_bytes(rows: int, cols: int, halo: int = 2) -> int:
-    """Dynamic shared memory of K3's block for a ``rows x cols`` tile: one
-    int32 frame of ``rows + 2 * halo`` rows of ``cols + 2 * halo`` words,
-    after :data:`FIXED_SHIFT` words, rounded up to 16 bytes."""
-    words = FIXED_SHIFT + (rows + 2 * halo) * (cols + 2 * halo)
-    return -(-words // 4) * 16
+    """Dynamic shared memory of K1's, K3's or K4's block for a ``rows x
+    cols`` tile: one frame of ``rows + 2 * halo`` rows, after its shift,
+    rounded up to 16 bytes."""
+    ld, shift = frame_layout(cols, halo)
+    return -(-(shift + (rows + 2 * halo) * ld) // 4) * 16
 
 
 def plan_fixed_tile(rows: int, cols: int, *, halo: int = 2,
                     block_rows: int | None = None) -> TilePlan:
-    """K3's tile: :data:`FIXED_TILE` rows (clipped to the grid) by the
+    """The tile of the one-frame kernels K3, K1 (``halo=2``) and K4
+    (``halo=1``): :data:`FIXED_TILE` rows (clipped to the grid) by the
     narrowest of :data:`FIXED_TILE_COLS` that covers the grid's columns
-    (else the widest), halved while the frame does not fit the per-block
-    shared-memory limit. An explicit ``block_rows`` fixes the rows. Raises
-    when not even an 8-column tile fits."""
+    (else the widest), the columns halved while the frame does not fit the
+    per-block shared-memory limit. An explicit ``block_rows`` fixes the
+    rows. Raises when not even an 8-column tile fits."""
     if rows < 1 or cols < 1:
         raise ValueError(f"grid ({rows}, {cols}) has no points")
     tr = block_rows if block_rows is not None else min(FIXED_TILE, rows)
@@ -119,7 +90,7 @@ def plan_fixed_tile(rows: int, cols: int, *, halo: int = 2,
     while fixed_tile_bytes(tr, tc, halo) > SMEM_BLOCK_LIMIT:
         if tc == FIXED_TILE_COLS[-1]:
             raise ValueError(
-                f"a {tr}x{tc} int32 tile with a {halo}-cell halo needs "
+                f"a {tr}x{tc} tile with a {halo}-cell halo needs "
                 f"{fixed_tile_bytes(tr, tc, halo)} bytes of shared memory, over the "
                 f"{SMEM_BLOCK_LIMIT}-byte per-block limit; use fewer block rows"
             )
@@ -129,14 +100,9 @@ def plan_fixed_tile(rows: int, cols: int, *, halo: int = 2,
 
 def program_frame_layout(rows: int, cols: int, halo: int) -> tuple[int, int, int]:
     """``(row stride, shift, words)`` of one frame of the generated program
-    kernel for a ``rows x cols`` tile: rows of ``cols + 2 * halo`` words
-    padded to a multiple of 4, and the frame shifted by ``(-halo) % 4``
-    words, so that frame column ``j`` and grid column ``c0 - halo + j``
-    (``c0`` a multiple of 4) share their address modulo 16 bytes and whole
-    aligned groups of 4 columns load with one 16-byte copy. ``words`` is the
-    frame's size, shift included, rounded up to a multiple of 4."""
-    ld = -(-(cols + 2 * halo) // 4) * 4
-    shift = (-halo) % 4
+    kernel for a ``rows x cols`` tile (:func:`frame_layout`); ``words`` is
+    the frame's size, shift included, rounded up to a multiple of 4."""
+    ld, shift = frame_layout(cols, halo)
     return ld, shift, -(-(shift + (rows + 2 * halo) * ld) // 4) * 4
 
 

@@ -24,7 +24,7 @@ import functools
 import torch
 
 from repro_torch.core.hdiff import hdiff, hdiff_simple
-from repro_torch.ir.plan import plan_fixed_tile, plan_tile
+from repro_torch.ir.plan import plan_fixed_tile
 from repro_torch.kernels import _build
 from repro_torch.kernels.hdiff.ref import hdiff_fixed_point_ref
 
@@ -62,16 +62,18 @@ def hdiff_plain(psi: torch.Tensor, coeff: float, *, limit: bool = True) -> torch
 
 
 def _tile(x: torch.Tensor, block_rows: int | None):
-    """K1's tile: two float32 frames (the input and its Laplacian)."""
+    """K1's tile: one float32 frame (a bfloat16 input is widened as it
+    loads), 64 rows (or ``block_rows``) by the narrowest column tile
+    covering the grid (:func:`~repro_torch.ir.plan.plan_fixed_tile`)."""
     _, rows, cols = x.shape
-    return plan_tile(rows, cols, halo=HALO, buffers=2, block_rows=block_rows)
+    return plan_fixed_tile(rows, cols, halo=HALO, block_rows=block_rows)
 
 
 def hdiff_cuda(
     psi: torch.Tensor, coeff: float, *, limit: bool = True, block_rows: int | None = None
 ) -> torch.Tensor:
     """K1: one hdiff sweep; ``block_rows`` fixes the tile rows of a block
-    (default: the shared-memory tile planner)."""
+    (default: the planner's 64-row tiles, :func:`_tile`)."""
     if psi.device.type == "cpu":
         return hdiff_plain(psi, coeff, limit=limit)
     _build.check_input("hdiff_cuda", psi, (torch.float32, torch.bfloat16))

@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.ir.plan import plan_tile
+from repro_torch.ir.plan import plan_fixed_tile
 from repro_torch.kernels import _build
 from repro_torch.kernels.stencil2d.ref import _mask_values, jacobi1d_ref, stencil2d_ref
 
@@ -71,11 +71,20 @@ def stencil2d_plain(x: torch.Tensor, weights) -> torch.Tensor:
 jacobi1d_plain = jacobi1d_ref
 
 
+def _tile(x: torch.Tensor, block_rows: int | None):
+    """K4's tile: one float32 frame with a radius-1 halo (a bfloat16 input
+    is widened as it loads), 64 rows (or ``block_rows``) by the narrowest
+    column tile covering the grid
+    (:func:`~repro_torch.ir.plan.plan_fixed_tile`)."""
+    _, rows, cols = x.shape
+    return plan_fixed_tile(rows, cols, halo=HALO, block_rows=block_rows)
+
+
 def stencil2d_cuda(
     x: torch.Tensor, weights, *, block_rows: int | None = None
 ) -> torch.Tensor:
     """K4: one masked 3x3 sweep; ``block_rows`` fixes the tile rows of a
-    block (default: the shared-memory tile planner)."""
+    block (default: the planner's 64-row tiles, :func:`_tile`)."""
     w = mask_3x3(weights)
     if x.device.type == "cpu":
         return stencil2d_plain(x, w)
@@ -84,7 +93,7 @@ def stencil2d_cuda(
     if x.numel() == 0:
         return out
     depth, rows, cols = x.shape
-    tile = plan_tile(rows, cols, halo=HALO, buffers=1, block_rows=block_rows)
+    tile = _tile(x, block_rows)
     lib = _library()
     fn = lib.stencil2d_f32 if x.dtype == torch.float32 else lib.stencil2d_bf16
     mask = (ctypes.c_float * 9)(*w.ravel().tolist())

@@ -1,7 +1,8 @@
-"""The launch planners of K6 (``rglru_scan_cuda``) and K3
-(``hdiff_fixed_cuda``), on the CPU: what grid and shared memory they ask
-of the card, how they treat tiny and huge shapes, and that the constants
-they share with the CUDA sources agree with those sources."""
+"""The launch planners of K6 (``rglru_scan_cuda``) and of the one-frame
+stencil kernels K3 (``hdiff_fixed_cuda``), K1 (``hdiff_cuda``) and K4
+(``stencil2d_cuda``), on the CPU: what grid and shared memory they ask of
+the card, how they treat tiny and huge shapes, and that the constants they
+share with the CUDA sources agree with those sources."""
 
 import re
 
@@ -13,12 +14,13 @@ from repro_torch.ir.plan import (
     SMEM_BLOCK_LIMIT,
     TilePlan,
     fixed_tile_bytes,
+    frame_layout,
     plan_fixed_tile,
-    plan_tile,
 )
 from repro_torch.kernels import _build
 from repro_torch.kernels.hdiff import kernel as k13
 from repro_torch.kernels.rglru import kernel as k6
+from repro_torch.kernels.stencil2d import kernel as k45
 
 H100_SMS = 132
 
@@ -125,18 +127,76 @@ def test_k3_column_tiles_match_the_cuda_source():
 
 
 @pytest.mark.parametrize("rows,cols,block_rows,want", [
-    (256, 256, None, TilePlan(32, 64, 2, 2)), (1024, 1024, None, TilePlan(32, 64, 2, 2)),
-    (250, 190, None, TilePlan(32, 64, 2, 2)), (8, 8, None, TilePlan(8, 8, 2, 2)),
-    (64, 96, 16, TilePlan(16, 64, 2, 2)), (4096, 64, 2048, TilePlan(2048, 8, 2, 2)),
+    (256, 256, None, TilePlan(64, 64, 2, 1)),  # the paper grid
+    (1024, 1024, None, TilePlan(64, 64, 2, 1)),
+    (250, 190, None, TilePlan(64, 64, 2, 1)),  # ragged both ways
+    (8, 8, None, TilePlan(8, 8, 2, 1)),  # tiny: rows clipped, narrowest columns
+    (5, 9, None, TilePlan(5, 16, 2, 1)),
+    (37, 30, None, TilePlan(37, 32, 2, 1)),
+    (64, 96, 16, TilePlan(16, 64, 2, 1)),  # explicit block_rows fix the rows
+    (4096, 64, 2048, TilePlan(2048, 16, 2, 1)),  # ... and shrink the columns
+    (10**5, 64, 4838, TilePlan(4838, 8, 2, 1)),  # the largest tile that fits
 ])
-def test_k1_keeps_its_tile_plan(rows, cols, block_rows, want):
-    """K1 keeps two float32 frames and the 32x64 tile of its first planner."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_tile_plan(rows, cols, block_rows, want, dtype):
+    """K1 holds one float32 frame per 64x64 tile (bfloat16 widened as it
+    loads), planned as K3's; a tile one row taller than the largest raises."""
     import torch
 
-    assert plan_tile(rows, cols, halo=2, buffers=2, block_rows=block_rows) == want
-    assert k13._tile(torch.empty((1, rows, cols)), block_rows) == want
+    assert plan_fixed_tile(rows, cols, block_rows=block_rows) == want
+    x = torch.empty((1, rows, cols), dtype=getattr(torch, dtype))
+    assert k13._tile(x, block_rows) == want
+    assert fixed_tile_bytes(want.rows, want.cols) <= SMEM_BLOCK_LIMIT
     with pytest.raises(ValueError, match="fewer block rows"):
-        plan_tile(4096, 64, halo=2, buffers=2, block_rows=2418)
+        k13._tile(x, 4839)
+
+
+@pytest.mark.parametrize("rows,cols,block_rows,want", [
+    (256, 256, None, TilePlan(64, 64, 1, 1)),
+    (250, 190, None, TilePlan(64, 64, 1, 1)),
+    (3, 3, None, TilePlan(3, 8, 1, 1)),
+    (70, 12, None, TilePlan(64, 16, 1, 1)),
+    (64, 96, 1, TilePlan(1, 64, 1, 1)),  # one-row tiles still plan
+    (4096, 96, 4096, TilePlan(4096, 8, 1, 1)),
+    (10**5, 64, 4840, TilePlan(4840, 8, 1, 1)),  # the largest tile that fits
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_tile_plan(rows, cols, block_rows, want, dtype):
+    """K4 holds one float32 frame with a radius-1 halo per 64x64 tile."""
+    import torch
+
+    assert plan_fixed_tile(rows, cols, halo=1, block_rows=block_rows) == want
+    x = torch.empty((2, rows, cols), dtype=getattr(torch, dtype))
+    assert k45._tile(x, block_rows) == want
+    assert fixed_tile_bytes(want.rows, want.cols, halo=1) <= SMEM_BLOCK_LIMIT
+    with pytest.raises(ValueError, match="fewer block rows"):
+        k45._tile(x, 4841)
+
+
+@pytest.mark.parametrize("halo,ld,shift,tile_bytes", [(2, 68, 2, 18_512), (1, 68, 3, 17_968)])
+def test_frame_layout_of_a_64x64_tile(halo, ld, shift, tile_bytes):
+    assert frame_layout(64, halo) == (ld, shift)
+    assert fixed_tile_bytes(64, 64, halo) == tile_bytes
+    # Frame column `halo`, grid column c0, starts a 16-byte group.
+    assert (shift + halo) % 4 == 0 and ld % 4 == 0
+
+
+@pytest.mark.parametrize("module,launcher,halo_name", [
+    (k13, "launch_hdiff", "HALO"), (k45, "launch_stencil2d", "R"),
+])
+def test_k1_k4_column_tiles_and_frame_shifts_match_the_cuda_source(module, launcher, halo_name):
+    text = module.SOURCE.read_text()
+    cases = [int(c) for c in re.findall(rf"case (\d+): return {launcher}<T, \1>", text)]
+    assert sorted(cases) == sorted(FIXED_TILE_COLS)
+    halo = int(re.search(rf"constexpr int {halo_name} = (\d+);", text).group(1))
+    assert halo == module.HALO
+    tc, shift = re.search(rf"static_assert\(Frame<{halo_name}, (\d+)>::kShift == (\d+)",
+                          text).groups()
+    assert frame_layout(int(tc), halo)[1] == int(shift)
+    # The shared header lays frames out by frame_layout's formula.
+    common = (_build.CSRC / "stencil_common.cuh").read_text()
+    assert "kShift = (4 - H % 4) % 4;" in common
+    assert "kLd = (TC + 2 * H + 3) / 4 * 4;" in common
 
 
 def test_k3_block_rows_validation_is_unchanged_on_the_cpu():

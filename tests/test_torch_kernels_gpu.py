@@ -79,6 +79,95 @@ def test_k1_explicit_tile_rows(cuda, block_rows):
     _equal(hdiff_fused(x, 0.05, block_rows=block_rows), k13.hdiff_plain(x, 0.05))
 
 
+def _bits_equal(got, want):
+    """Equal dtype and shape, NaN at the same points, and every other value
+    equal bit for bit (so +0 and -0 differ)."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[want.dtype]
+    assert torch.equal(got.view(ints)[~nan], want.view(ints)[~nan])
+
+
+def _offset_by_one(x):
+    """A contiguous copy of ``x`` one element into its storage, so its
+    pointer is not 16-byte aligned and the frame loads go word by word."""
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = base[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 and y.is_contiguous()
+    return y
+
+
+def _nonfinite(x, seed):
+    """``x`` with NaN, +-Inf, -0 and values whose differences' products
+    underflow (to subnormals and to +-0) scattered through it."""
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    x = x.clone()
+    flat = x.view(-1)
+    picks = torch.randint(0, flat.numel(), (6, max(1, flat.numel() // 50)), generator=g,
+                          device=x.device)
+    flat[picks[0]] = float("nan")
+    flat[picks[1]] = float("inf")
+    flat[picks[2]] = float("-inf")
+    flat[picks[3]] = -0.0
+    flat[picks[4]] = 1e-21 * torch.randn(picks.shape[1], generator=g, device=x.device).to(x.dtype)
+    flat[picks[5]] = 1e-25 * torch.randn(picks.shape[1], generator=g, device=x.device).to(x.dtype)
+    return x
+
+
+# Widths that are not whole 16-byte groups in float32 (33, 102) or bfloat16
+# (33, 102, 36), and a grid of several tiles each way.
+UNALIGNED_SHAPES = [(2, 37, 33), (1, 70, 102), (2, 9, 36), (1, 130, 136)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", UNALIGNED_SHAPES)
+def test_k1_unaligned_widths_and_pointers_bit_equal(cuda, shape, dtype):
+    x = _rand(shape, cuda, seed=21).to(dtype)
+    for limit in (True, False):
+        want = k13.hdiff_plain(x, 0.025, limit=limit)
+        _bits_equal(k13.hdiff_cuda(x, 0.025, limit=limit), want)
+        _bits_equal(k13.hdiff_cuda(_offset_by_one(x), 0.025, limit=limit), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_rows", [4, 16, 64])
+def test_k1_explicit_tile_rows_bf16_and_unaligned_pointer(cuda, block_rows, dtype):
+    x = _rand((2, 64, 96), cuda, seed=22).to(dtype)
+    want = k13.hdiff_plain(x, 0.05)
+    _bits_equal(hdiff_fused(x, 0.05, block_rows=block_rows), want)
+    _bits_equal(hdiff_fused(_offset_by_one(x), 0.05, block_rows=block_rows), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 37, 33)])
+def test_k1_nonfinite_and_underflowing_inputs(cuda, shape, dtype):
+    """NaN and Inf inputs, -0, and fluxes whose products with the gradient
+    underflow: the multiply-compare limiter keeps a flux whose product is
+    +-0 and zeroes one whose product is NaN, as the plain version does."""
+    x = _nonfinite(_rand(shape, cuda, seed=23).to(dtype), seed=24)
+    for limit in (True, False):
+        _bits_equal(k13.hdiff_cuda(x, 0.025, limit=limit), k13.hdiff_plain(x, 0.025, limit=limit))
+    tiny = (1e-20 * _rand(shape, cuda, seed=25)).to(dtype)  # every product underflows
+    _bits_equal(k13.hdiff_cuda(tiny, 0.025), k13.hdiff_plain(tiny, 0.025))
+
+
+def test_k1_replayed_from_a_cuda_graph_equals_eager(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _rand((4, 130, 102), cuda, seed=26).to(dtype)
+        eager = k13.hdiff_cuda(x, 0.025)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = k13.hdiff_cuda(x, 0.025)
+        for _ in range(2):
+            graph.replay()
+        _bits_equal(replayed, eager)
+        _bits_equal(replayed, k13.hdiff_plain(x, 0.025))
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_k3_bit_equal_to_plain_with_wraparound(cuda, shape):
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -201,6 +290,50 @@ def test_k4_explicit_tile_rows_and_nonfinite_input(cuda, block_rows):
     torch.cuda.synchronize()
     assert torch.equal(got.isnan(), want.isnan())
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+def _k4_masks():
+    g = torch.Generator().manual_seed(27)
+    return [weights_for(n) for n in MASKS] + [torch.randn(3, 3, generator=g).numpy()]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", UNALIGNED_SHAPES)
+def test_k4_unaligned_widths_and_pointers_bit_equal(cuda, shape, dtype):
+    x = _rand(shape, cuda, seed=28).to(dtype)
+    y = _offset_by_one(x)
+    for w in _k4_masks():
+        want = stencil2d_plain(x, w)
+        _bits_equal(stencil2d_cuda(x, w), want)
+        _bits_equal(stencil2d_cuda(y, w), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_rows", [1, 4, 16, 64])
+def test_k4_tile_rows_every_mask_and_nonfinite_input(cuda, block_rows, dtype):
+    """NaN, +-Inf and -0 inputs under every mask: a zero tap on an Inf
+    makes NaN, and 0 + -0 is +0, as the plain version's sum gives."""
+    x = _nonfinite(_rand((2, 64, 96), cuda, seed=29).to(dtype), seed=30)
+    for w in _k4_masks():
+        _bits_equal(stencil2d_cuda(x, w, block_rows=block_rows), stencil2d_plain(x, w))
+    neg0 = torch.full((1, 16, 40), -0.0, device=cuda, dtype=dtype)
+    _bits_equal(stencil2d(neg0, "laplacian", block_rows=block_rows),
+                stencil2d_plain(neg0, weights_for("laplacian")))
+
+
+def test_k4_replayed_from_a_cuda_graph_equals_eager(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _rand((4, 130, 102), cuda, seed=31).to(dtype)
+        w = weights_for("jacobi2d_9pt")
+        eager = stencil2d_cuda(x, w)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = stencil2d_cuda(x, w)
+        for _ in range(2):
+            graph.replay()
+        _bits_equal(replayed, eager)
+        _bits_equal(replayed, stencil2d_plain(x, w))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
