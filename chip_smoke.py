@@ -28,8 +28,11 @@ script's seconds so far when it was printed):
               registers down runs of rows, 64x64 tiles loaded by cp.async —
               on all 11 2-D conformance programs x k = 1..3, f32 and bf16,
               bit-equal), at (16384, 256) and a long
-              ragged row (4, 4194307) (K5, K5' k=1..3): max abs error and bit
-              equality, asserted <= 1e-6 (int32, K2: exact); plus a 20-step run
+              ragged row (4, 4194307) (K5; K5' — flat spans across rows,
+              a warp's or a block's, 16-byte vectors, every sweep in
+              registers — on jacobi1d and the 1-D chains hdiff1d and
+              smooth1d, k=1..3, f32 and bf16, bit-equal): max abs error and bit
+              equality, asserted <= 1e-6 (int32, K1-K4, K5', K6: exact); plus a 20-step run
               on the card against the same run on the CPU. K7 (three launches:
               chunk-local k_tail^T v, the scan over chunks, the chunk outputs,
               products in 3xTF32 on the tensor cores) at
@@ -101,6 +104,7 @@ script's seconds so far when it was printed):
               3.35 TB/s or operations over the peak rate, whichever is
               larger), the achieved bytes/s and, for K4/K5/K5', one library
               call computing the same interior (conv2d / conv1d, TF32 off);
+              K5' at k = 1, 2 (what the elementary path launches) and 3;
               K7 at (1, 512, 40, 64) and (8, 4096, 40, 64) and K6 at
               (1, 512, 2560) and (8, 4096, 2560), with no library yardstick
 
@@ -356,10 +360,13 @@ def main() -> int:
     for prog in elementary.values():
         sources.append(kernel_source(prog, ("float32",), tile_for(prog, *PAPER_GRID[1:])))
     jac = {k: ir.repeat(ir.jacobi1d_program(), k) for k in (1, 2, 3)}
-    for prog in jac.values():
-        for shape in (PAPER_ROWS, LONG_ROW, BIG_ROWS):
-            sources.append(kernel_source(prog, ("float32",), tile_for(prog, *shape)))
-    sources.append(kernel_source(jac[2], ("bfloat16",), tile_for(jac[2], *PAPER_ROWS)))
+    # K5''s other chains: intermediates read at non-zero offsets (parity only).
+    chains_1d = {f"{name}/k={k}": ir.repeat(make(), k) for k in (1, 2, 3)
+                 for name, make in (("hdiff1d", ir.hdiff1d_program),
+                                    ("smooth1d", ir.smooth1d_program))}
+    for prog in (*jac.values(), *chains_1d.values()):
+        for dtype in ("float32", "bfloat16"):  # one span for every row length
+            sources.append(kernel_source(prog, (dtype,), tile_for(prog, *PAPER_ROWS)))
     sources += [k6.source(), k7.source()]
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
@@ -449,14 +456,17 @@ def main() -> int:
         tag = "x".join(map(str, shape))
         y = randn(shape)
         compare("jacobi1d_cuda", f"{tag}/f32", k45.jacobi1d_cuda(y), k45.jacobi1d_plain(y))
-        for k, prog in jac.items():
-            compare("stencil_program_1d_cuda", f"{tag}/jacobi1d/k={k}",
-                    ir.stencil_program_1d_cuda(prog, y), ir.stencil_program_1d_plain(prog, y))
+        # K5' (flat spans, whatever rows they cross), bit for bit: jacobi1d
+        # and the chains, k = 1-3 (warp and block spans), float32 and bfloat16.
+        for yd in (y, y.to(torch.bfloat16)):
+            for label, prog in [(f"jacobi1d/k={k}", p) for k, p in jac.items()] + \
+                    list(chains_1d.items()):
+                compare("stencil_program_1d_cuda", f"{tag}/{label}/{str(yd.dtype)[6:]}",
+                        ir.stencil_program_1d_cuda(prog, yd),
+                        ir.stencil_program_1d_plain(prog, yd), exact=True)
     yb = randn(PAPER_ROWS, torch.bfloat16)
     compare("jacobi1d_cuda", "16384x256/bf16", k45.jacobi1d_cuda(yb), k45.jacobi1d_plain(yb))
-    compare("stencil_program_1d_cuda", "16384x256/jacobi1d/k=2/bf16",
-            ir.stencil_program_1d_cuda(jac[2], yb), ir.stencil_program_1d_plain(jac[2], yb))
-    del x, xb, y, yb
+    del x, xb, y, yb, yd
     # The card against the CPU path, whose float32 steps the CPU tests hold
     # bit-identical to the JAX package's eager steps.
     # (Its diagnostics also load the reduction kernels the main path's
@@ -960,12 +970,13 @@ def main() -> int:
     third = float(torch.tensor(1.0 / 3.0))
     # The library yardsticks (never called by the port) compute the interior
     # only: conv2d of the (D, 1, R, C) view with the 3x3 mask, conv1d of the
-    # (B, 1, n) view with [c, c, c] (for three sweeps, the composed 7-tap
-    # filter c^3 [1, 3, 6, 7, 6, 3, 1]); no padding, TF32 off.
+    # (B, 1, n) view with [c, c, c] (for k sweeps, the composed filter: c^2
+    # [1, 2, 3, 2, 1], c^3 [1, 3, 6, 7, 6, 3, 1]); no padding, TF32 off.
     library_w = {name: torch.tensor(weights_for(name), device=dev).view(1, 1, 3, 3)
                  for name in ("jacobi2d_9pt", "laplacian")}
-    library_c = {1: torch.full((1, 1, 3), third, device=dev),
-                 3: (third**3 * torch.tensor([1.0, 3, 6, 7, 6, 3, 1], device=dev)).view(1, 1, 7)}
+    library_c = {k: (third**k * torch.tensor(taps, device=dev)).view(1, 1, -1)
+                 for k, taps in ((1, [1.0, 1, 1]), (2, [1.0, 2, 3, 2, 1]),
+                                 (3, [1.0, 3, 6, 7, 6, 3, 1]))}
     timing = {}
     for shape, rshape in ((PAPER_GRID, PAPER_ROWS), (BIG_GRID, BIG_ROWS)):
         tag, rtag = "x".join(map(str, shape)), "x".join(map(str, rshape))
@@ -1007,7 +1018,7 @@ def main() -> int:
             lambda: k45.jacobi1d_plain(y), 2 * ny * 4, jac_pts * jac_flops,
             H100_SXM.peak_flops_vpu_f32, rtag,
             lambda: torch.nn.functional.conv1d(y3, library_c[1])))
-        for k in (1, 3):
+        for k in (1, 2, 3):
             cases.append((
                 "stencil_program_1d_cuda", f"jacobi1d x{k}",
                 lambda k=k: ir.stencil_program_1d_cuda(jac[k], y),

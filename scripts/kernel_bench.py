@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Times the port's K7 (``wkv6_cuda``), K2 (``stencil_program_cuda``), K6
-(``rglru_scan_cuda``), K3 (``hdiff_fixed_cuda``), K1 (``hdiff_cuda``) and K4
-(``stencil2d_cuda``) on one NVIDIA GPU, for a source tree given on the
-command line.
+(``rglru_scan_cuda``), K3 (``hdiff_fixed_cuda``), K1 (``hdiff_cuda``), K4
+(``stencil2d_cuda``) and K5' (``stencil_program_1d_cuda``) on one NVIDIA
+GPU, for a source tree given on the command line.
 
     python3 scripts/kernel_bench.py [--src DIR] [--label NAME]
-                                    [--only k7,k2,k6,k3,k1,k4]
+                                    [--only k7,k2,k6,k3,k1,k4,k5p]
                                     [--ptxas] [--profile] [--sass DIR] [--no-check]
 
 ``--src`` names the ``src/`` directory whose ``repro_torch`` is imported
@@ -25,15 +25,22 @@ bit against ``hdiff_plain`` with the limiter on and off, beside its in-tree
 yardstick K2 running ``hdiff`` x 1; K4 at the same grids, float32 and
 bfloat16, bit for bit against ``stencil2d_plain`` for every named mask and
 a random one, timed on ``jacobi2d_9pt`` beside K2 running the same program
-and one ``conv2d`` of the interior (TF32 off, never called by the port).
-``--only`` picks kernels (default: all six). ``--ptxas``
+and one ``conv2d`` of the interior (TF32 off, never called by the port);
+K5' on ``jacobi1d`` and ``hdiff1d`` x 1, 2 and 3 at (16384, 256)
+and (81920, 1024), float32 and bfloat16, bit for bit against
+``stencil_program_1d_plain``, beside its yardsticks K5 (``jacobi1d_cuda``)
+and, in float32, one ``conv1d`` of the interior with jacobi1d's composed
+filter (``hdiff1d`` only where the tree's generator has it).
+``--only`` picks kernels (default: all seven). ``--ptxas``
 also compiles each kernel source once more with ``-Xptxas -v`` and prints
 the registers, shared memory and spills it reports; ``--profile`` adds, per
 K7 shape, the device time of each of the call's launches from one
 ``torch.profiler`` window of 5 calls; ``--sass DIR`` writes ``cuobjdump
--sass`` of the K6, K3/K1 and K4 libraries into DIR and prints, for each loop
-of each kernel (a backward branch), its instructions by opcode (the row
-loops of K3, K1 and K4 are unrolled by 4: a point is a quarter of one).
+-sass`` of the K6, K3/K1, K4 and K5' libraries into DIR and prints, for
+each loop of each kernel (a backward branch), its instructions by opcode
+(the row loops of K3, K1 and K4 are unrolled by 4: a point is a quarter of
+one), and for K5' (straight-line code, no loop) the whole kernel's
+instructions by opcode and per point.
 ``--no-check`` skips K1's and K4's checks, to time deliberately altered
 copies of them (a probe with part of the kernel removed).
 
@@ -121,13 +128,34 @@ def sass_loops(text: str) -> list[dict]:
     return loops
 
 
+def sass_functions(text: str) -> list[dict]:
+    """Every function in ``cuobjdump -sass`` output: its instructions by
+    opcode."""
+    funcs, func = [], None
+    pat = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)[^;]*;")
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = {"function": m.group(1), "by_opcode": {}}
+            funcs.append(func)
+            continue
+        m = pat.search(line)
+        if m and func is not None:
+            op = m.group(2).split(".")[0]
+            func["by_opcode"][op] = func["by_opcode"].get(op, 0) + 1
+    for func in funcs:
+        func["instructions"] = sum(func["by_opcode"].values())
+        func["by_opcode"] = dict(sorted(func["by_opcode"].items(), key=lambda kv: -kv[1]))
+    return funcs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only", default="k7,k2,k6,k3,k1,k4")
+    ap.add_argument("--only", default="k7,k2,k6,k3,k1,k4,k5p")
     ap.add_argument("--sass", default=None)
     ap.add_argument("--no-check", action="store_true")
     args = ap.parse_args()
@@ -173,11 +201,22 @@ def main() -> int:
     # Built: the picked kernels' sources (K1's and K4's with their K2
     # yardsticks). Shown by --ptxas: one of each (K2's two programs at the
     # paper grid); by --sass: K6's, K3's (K1's) and K4's.
+    # K5': jacobi1d x 1-3, and hdiff1d x 1-3 where the tree has it (the
+    # first 1-D generator could not compile a limited flux).
+    k5p_progs = {f"jacobi1d x{k}": ir.repeat(ir.jacobi1d_program(), k) for k in (1, 2, 3)}
+    if hasattr(ir, "hdiff1d_program"):
+        k5p_progs.update({f"hdiff1d x{k}": ir.repeat(ir.hdiff1d_program(), k) for k in (1, 2, 3)})
+    rows_1d = ((16384, 256), (81920, 1024))
+    k5p_sources = {(label, d, shape): kernel_source(p, (d,), tile_for(p, *shape))
+                   for label, p in k5p_progs.items() for d in ("float32", "bfloat16")
+                   for shape in rows_1d}
     picked = {"k7": [k7.source()], "k2": k2_sources((hdiff2, coupled)), "k6": [k6.source()],
               "k3": [k13.source()], "k1": [k13.source(), *k2_sources((hdiff1,))],
-              "k4": [k45.source(), *k2_sources((jac9,))]}
+              "k4": [k45.source(), *k2_sources((jac9,))],
+              "k5p": [k45.source(), *k5p_sources.values()]}
     shown = {"k7": [k7.source()], "k2": picked["k2"][::2], "k6": [k6.source()],
-             "k3": [k13.source()], "k1": [k13.source()], "k4": [k45.source()]}
+             "k3": [k13.source()], "k1": [k13.source()], "k4": [k45.source()],
+             "k5p": [src for (_, _, shape), src in k5p_sources.items() if shape == rows_1d[0]]}
     _build.build(list(dict.fromkeys(src for k, srcs in picked.items() if k in only
                                     for src in srcs)))
     emit = {"label": args.label, "src": args.src, "nvidia_smi": smi}
@@ -190,14 +229,23 @@ def main() -> int:
         out_dir = Path(args.sass)
         out_dir.mkdir(parents=True, exist_ok=True)
         cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
-        for name, text in dict.fromkeys(src for k in ("k6", "k3", "k1", "k4") if k in only
-                                        for src in shown[k]):
+        for name, text in dict.fromkeys(src for k in ("k6", "k3", "k1", "k4", "k5p")
+                                        if k in only for src in shown[k]):
             so = _build.library_path(name, text)
             dump = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
                                   text=True, check=True, timeout=120).stdout
             (out_dir / f"{args.label.replace(' ', '_')}-{name}.sass").write_text(dump)
             for loop in sass_loops(dump):
                 print(json.dumps({**emit, "sass": name, **loop}), flush=True)
+            if name.startswith("stencil_"):
+                points = re.search(r"constexpr int P = (\d+);", text)
+                head = re.search(r"// input: (.*)\n// span: (.*)", text)
+                for func in sass_functions(dump):
+                    if "stencil_program_1d" not in func["function"]:
+                        continue
+                    per = func["instructions"] / int(points.group(1)) if points else None
+                    print(json.dumps({**emit, "sass": name, "k5p": list(head.groups()),
+                                      "per_point": per, **func}), flush=True)
 
     def row(kernel, case, shape, ms, err):
         print(json.dumps({**emit, "kernel": kernel, "case": case,
@@ -339,6 +387,33 @@ def main() -> int:
                       replays=10 if grid[0] > 64 else 25)
         row("conv2d", "jacobi2d_9pt interior, TF32 off (K4 yardstick)", grid, ms, None)
         del x, xd, x4
+        torch.cuda.empty_cache()
+    for shape in rows_1d if "k5p" in only else ():
+        y = randn(shape)
+        replays = 10 if shape[0] > 16384 else 25
+        for dtype in (torch.float32, torch.bfloat16):
+            yd = y.to(dtype)
+            for label, prog in k5p_progs.items():
+                got = ir.stencil_program_1d_cuda(prog, yd)
+                want = ir.stencil_program_1d_plain(prog, yd)
+                torch.cuda.synchronize()
+                if not args.no_check and not torch.equal(got, want):
+                    raise RuntimeError(f"K5' {label} {shape} {dtype}: not bit-equal to "
+                                       "stencil_program_1d_plain")
+                del got, want
+                ms = graph_ms(lambda p=prog, a=yd: ir.stencil_program_1d_cuda(p, a),
+                              replays=replays)
+                row("stencil_program_1d_cuda", f"{label} {str(dtype)[6:]}", shape, ms, 0.0)
+            ms = graph_ms(lambda a=yd: k45.jacobi1d_cuda(a), replays=replays)
+            row("jacobi1d_cuda", f"jacobi1d {str(dtype)[6:]} (K5' yardstick)", shape, ms, 0.0)
+        third = float(torch.tensor(1.0 / 3.0))
+        composed = {1: [1.0, 1, 1], 2: [1.0, 2, 3, 2, 1], 3: [1.0, 3, 6, 7, 6, 3, 1]}
+        y3 = y.view(shape[0], 1, shape[1])
+        for k, taps in composed.items():
+            w = (third**k * torch.tensor(taps, device=dev)).view(1, 1, -1)
+            ms = graph_ms(lambda w=w: torch.nn.functional.conv1d(y3, w), replays=replays)
+            row("conv1d", f"jacobi1d x{k} interior, f32 (K5' yardstick)", shape, ms, None)
+        del y, yd, y3
         torch.cuda.empty_cache()
     return 0
 

@@ -11,7 +11,9 @@ float32 domain, each timed by the wall clock between two
 ``hdiff_fused`` (K1), 50 ``hdiff_twostep`` calls (K2, two steps each), 100
 int32 steps with ``hdiff_fixed`` (K3), 10 ``stencil2d(x, "jacobi2d_9pt")``
 sweeps (K4) and 10 sweeps of ``lower_cuda(jacobi2d_9pt)`` with no metrics
-registry (K2). Prints one JSON line per leg: the median and quartiles of
+registry (K2); on fig11's (16384, 256) rows, 10 ``jacobi1d`` sweeps (K5)
+and, with no registry, 10 sweeps of ``lower_cuda(jacobi1d)`` and 5 calls of
+``lower_cuda(repeat(jacobi1d, 2))`` (K5'). Prints one JSON line per leg: the median and quartiles of
 µs per step or sweep and every sample, with the card's name and power
 limit. ``--src`` names the ``src/`` directory whose ``repro_torch`` is
 imported (default: this checkout's), so two trees can be timed in turns
@@ -48,7 +50,7 @@ def main() -> int:
     import repro_torch.ir as ir
     from repro_torch.core import make_initial_field, run_simulation
     from repro_torch.kernels.hdiff import hdiff_fixed, hdiff_fused, hdiff_twostep
-    from repro_torch.kernels.stencil2d import stencil2d
+    from repro_torch.kernels.stencil2d import jacobi1d, stencil2d
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
@@ -59,6 +61,9 @@ def main() -> int:
     x = torch.randn((64, 256, 256), generator=torch.Generator(device="cuda").manual_seed(2024),
                     device="cuda")
     jac9 = ir.lower_cuda(ir.jacobi2d_9pt_program())
+    rows = x.view(64 * 256, 256)
+    jac1 = ir.lower_cuda(ir.jacobi1d_program())
+    jac1x2 = ir.lower_cuda(ir.repeat(ir.jacobi1d_program(), 2))
 
     def chain(fn, start, n):
         def run():
@@ -76,6 +81,9 @@ def main() -> int:
                                                 n_steps=100), 100),
         "stencil2d_jacobi2d_9pt_10_k4": (chain(lambda a: stencil2d(a, "jacobi2d_9pt"), x, 10), 10),
         "lower_cuda_jacobi2d_9pt_10_k2": (chain(jac9, x, 10), 10),
+        "jacobi1d_10_k5": (chain(jacobi1d, rows, 10), 10),
+        "lower_cuda_jacobi1d_10_k5p": (chain(jac1, rows, 10), 10),
+        "lower_cuda_jacobi1d_x2_5_k5p": (chain(jac1x2, rows, 5), 10),
     }
     samples: dict[str, list[float]] = {name: [] for name in legs}
     for fn, _ in legs.values():  # warm-up: builds, loads and first-use costs

@@ -33,6 +33,7 @@ from repro_torch.ir.programs import (
     MULTIFIELD_PROGRAMS,
     MULTIOUTPUT_PROGRAMS,
     advection_diffusion_program,
+    hdiff1d_program,
     hdiff_coupled_program,
     hdiff_multistep_program,
     hdiff_program,
@@ -44,6 +45,7 @@ from repro_torch.ir.programs import (
     seidel2d_program,
     shallow_water_program,
     smagorinsky_coeff,
+    smooth1d_program,
     vadvc_program,
 )
 from repro_torch.ir.evaluate import (

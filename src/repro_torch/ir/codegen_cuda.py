@@ -2,13 +2,13 @@
 
 The Hopper counterpart of the body of ``repro/ir/lower_pallas.py``
 (``_generic_kernel``; for 1-D programs ``_kernel_1d``, rendered by
-:func:`render_1d` the same way over ``(batch, n)`` rows, with column
-frames in place of 2-D ones): :func:`render` turns a :class:`StencilProgram` — its
+:func:`render_1d`): :func:`render` turns a :class:`StencilProgram` — its
 op list, its chain of sweeps, its per-field exchange radii and its outputs
 — into the source of one kernel, ``stencil_program``, plus a C launcher
 ``launch`` that :mod:`repro_torch.ir.lower_cuda` binds with ctypes.
 
-The generated kernel, one block per (plane, row tile, column tile):
+The generated 2-D kernel (K2), one block per (plane, row tile, column
+tile):
 
   1. loads every input field into a float32 shared-memory *frame* of
      ``(TR + 2H) x (TC + 2H)`` words, ``H`` the chain radius, with 16-byte
@@ -37,6 +37,21 @@ The generated kernel, one block per (plane, row tile, column tile):
   4. in the last sweep's update loop stores each ``program.outputs`` field
      straight from registers, once, in its input dtype.
 
+The generated 1-D kernel (K5', ``stencil_program_1d``) takes the
+``(batch, n)`` field as one flat array cut into spans of 16-byte vectors,
+one a thread, whatever rows a span crosses; spans overlap by the chain
+radius in whole vectors, which each span loads but leaves to its
+neighbours to store. A thread keeps its points in registers through every
+sweep and computes each op at the positions its readers need (an
+intermediate read at offset -1 is computed one position further out, not
+shared through memory); a sweep exchanges only the neighbours' points and
+keeps every row's end points by a select on each point's column. A chain
+of sweeps with a small halo runs a span a warp and exchanges by shuffles,
+with no barrier; anything else a span a block, through a shared frame with
+one barrier a sweep. A point that is no end point reads only its own row
+through the whole chain, so what a span computes across a row boundary
+reaches only end points and unstored halo points.
+
 Ops become C++ through :attr:`StencilOp.emit`, which keeps each
 combinator's association and writes its constants as exact float32 bit
 patterns; an inlined op is its own ``emit`` text bound to a local. The
@@ -51,10 +66,9 @@ import dataclasses
 import math
 
 from repro_torch.ir.graph import StencilProgram
-from repro_torch.ir.plan import TilePlan, program_frame_layout
+from repro_torch.ir.plan import THREADS, TilePlan, program_frame_layout
 
 CTYPES = {"float32": "float", "bfloat16": "__nv_bfloat16"}
-THREADS = 256  # repro_torch::kThreads (csrc/stencil_common.cuh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,9 +81,8 @@ class SweepPlan:
     their one consumer; ``materialized`` the ops, in order, that get a
     frame and a loop of their own. ``updates`` lists, per evolving field,
     ``(field, producing op, state frame, next-state frame)``; the
-    next-state frame is ``None`` in the last sweep of a 2-D kernel, which
-    stores the output instead. A 1-D kernel (K5') inlines nothing and
-    copies each producing op's frame into the state frame in place."""
+    next-state frame is ``None`` in the last sweep, which stores the output
+    instead."""
 
     program: StencilProgram
     inset: int
@@ -81,9 +94,9 @@ class SweepPlan:
 
 @dataclasses.dataclass(frozen=True)
 class FramePlan:
-    """Frames of the whole kernel: one per program input, then (2-D, more
-    than one sweep) a second state frame per evolving field, then op
-    frames shared across sweeps."""
+    """Frames of the whole kernel: one per program input, then (more than
+    one sweep) a second state frame per evolving field, then op frames
+    shared across sweeps."""
 
     input_frames: dict[str, int]
     sweeps: tuple[SweepPlan, ...]
@@ -157,9 +170,10 @@ def frame_plan(program: StencilProgram) -> FramePlan:
     one) and its frame is released right after its last reader, an
     inlined reader counting as its consumer. A frame is taken before the
     op's dead inputs are released, so an op never overwrites what it
-    reads. 1-D programs (K5') keep one frame per op: :func:`_staged_frame_plan`."""
-    if program.ndim == 1:
-        return _staged_frame_plan(program)
+    reads. 2-D programs only: the 1-D kernel (K5', :func:`render_1d`) keeps
+    every op in registers."""
+    if program.ndim != 2:
+        raise ValueError(f"frame_plan plans 2-D programs, got ndim={program.ndim}")
     inputs = {f: i for i, f in enumerate(program.inputs)}
     n_frames = len(inputs)
     spare = {}
@@ -211,46 +225,6 @@ def frame_plan(program: StencilProgram) -> FramePlan:
         for f, _, _, new in updates:
             current[states[f]] = new
         sweeps.append(SweepPlan(p, inset, env, inlined, tuple(materialized), tuple(updates)))
-        inset += p.radius
-    return FramePlan(inputs, tuple(sweeps), n_frames)
-
-
-def _staged_frame_plan(program: StencilProgram) -> FramePlan:
-    """K5''s frames: each input gets its own frame for the whole kernel
-    (the evolving one is updated in place). Within a sweep each op takes a
-    free frame (or a new one) and an op's frame is released right after its
-    last reader, unless it produces an evolving field's next value (those
-    live until the ring step). A frame is taken before the op's dead inputs
-    are released, so an op never overwrites what it reads."""
-    inputs = {f: i for i, f in enumerate(program.inputs)}
-    n_frames = len(inputs)
-    current = {f: inputs[f] for f in program.outputs}
-    sweeps = []
-    inset = 0
-    for p in program.chain:
-        env, states = _sweep_env(program, p, current)
-        last_use: dict[str, int] = {}
-        for idx, op in enumerate(p.ops):
-            for r in op.reads:
-                last_use[r.field] = idx
-        keep = set(p.outputs.values())
-        op_names = {op.name for op in p.ops}
-        free = list(range(len(inputs), n_frames))
-        for idx, op in enumerate(p.ops):
-            if free:
-                env[op.name] = free.pop(0)
-            else:
-                env[op.name] = n_frames
-                n_frames += 1
-            dead = [op.name] if op.name not in last_use and op.name not in keep else []
-            dead += [
-                f for f in dict.fromkeys(r.field for r in op.reads)
-                if f in op_names and last_use[f] == idx and f not in keep
-            ]
-            free = sorted(free + [env[f] for f in dead])
-        updates = tuple((f, p.outputs[f], current[states[f]], env[p.outputs[f]])
-                        for f in p.outputs)
-        sweeps.append(SweepPlan(p, inset, env, (), tuple(op.name for op in p.ops), updates))
         inset += p.radius
     return FramePlan(inputs, tuple(sweeps), n_frames)
 
@@ -431,14 +405,14 @@ def render(program: StencilProgram, dtypes, tile: TilePlan) -> str:
         for op in p.ops:
             if op.emit is None:
                 raise ValueError(f"op {op.name!r} of {p.name!r} has no CUDA emitter")
+    if program.ndim == 1:
+        return render_1d(program, dtypes[0], tile)
     plan = frame_plan(program)
     if tile.halo != program.radius or tile.buffers != plan.n_frames:
         raise ValueError(
             f"tile plan {tile} does not match program radius {program.radius} "
             f"and {plan.n_frames} frames"
         )
-    if program.ndim == 1:
-        return render_1d(program, dtypes[0], tile, plan)
     H = program.radius
     TR, TC = tile.rows, tile.cols
     FR, FC = TR + 2 * H, TC + 2 * H
@@ -590,103 +564,255 @@ def render(program: StencilProgram, dtypes, tile: TilePlan) -> str:
     return "\n".join(src)
 
 
-def _span_loop(lo: int, hi: int, body: list[str]) -> list[str]:
-    """The 1-D form of :func:`_region_loop`: frame positions ``[lo, hi)``."""
-    if hi <= lo:
-        raise ValueError(f"empty frame span [{lo}, {hi})")
-    return [
-        f"  for (int q = threadIdx.x; q < {hi - lo}; q += kThreads) {{",
-        f"    const int p = {lo} + q;",
-        *[f"    {line}" for line in body],
-        "  }",
-        "  __syncthreads();",
-    ]
 
 
-def render_1d(program: StencilProgram, dtype: str, tile: TilePlan, plan: FramePlan) -> str:
-    """K5': the fused kernel of a single-input 1-D program over ``(batch,
-    n)`` rows, the Hopper counterpart of ``lower_pallas.py::_kernel_1d``.
+# K5''s 16-byte vector loads and stores, per input dtype: whole where the
+# pointer is 16-byte aligned and the vector lies inside the field, word by
+# word otherwise (zero outside the field on loads). bfloat16 is widened to
+# float32 as it loads and rounded once, as it stores.
+_VECTOR_IO = {
+    "float32": """\
+__device__ __forceinline__ void load_vector(const float* __restrict__ in, long long g,
+                                            long long total, bool whole, float* x) {
+  if (whole && g >= 0 && g + V <= total) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(in + g));
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) x[e] = g + e >= 0 && g + e < total ? in[g + e] : 0.0f;
+  }
+}
 
-    One block per (row, column tile of ``tile.cols``): it loads the tile
-    plus a ``k * r`` halo into a float32 frame, runs every sweep of the
-    chain there (each op over its margin-shrunk span, ``interior_eval``'s
-    region), re-applies the radius-``r`` end points at ABSOLUTE column
-    indices between sweeps — what ``_kernel_1d`` does on its whole row —
-    and stores the tile once in the input dtype."""
-    H = program.radius
-    TC = tile.cols
-    FC = TC + 2 * H
+__device__ __forceinline__ void store_vector(float* __restrict__ out, long long g,
+                                             long long total, bool whole, const float* y) {
+  if (whole && g + V <= total) {
+    *reinterpret_cast<float4*>(out + g) = make_float4(y[0], y[1], y[2], y[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      if (g + e < total) out[g + e] = y[e];
+    }
+  }
+}""",
+    "bfloat16": """\
+__device__ __forceinline__ void load_vector(const __nv_bfloat16* __restrict__ in, long long g,
+                                            long long total, bool whole, float* x) {
+  if (whole && g >= 0 && g + V <= total) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(in + g));
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[2 * e] = __uint_as_float(w[e] << 16);
+      x[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      x[e] = g + e >= 0 && g + e < total ? __bfloat162float(in[g + e]) : 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(from_f32<__nv_bfloat16>(lo))) |
+         static_cast<unsigned>(__bfloat16_as_ushort(from_f32<__nv_bfloat16>(hi))) << 16;
+}
+
+__device__ __forceinline__ void store_vector(__nv_bfloat16* __restrict__ out, long long g,
+                                             long long total, bool whole, const float* y) {
+  if (whole && g + V <= total) {
+    *reinterpret_cast<uint4*>(out + g) = make_uint4(
+        pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      if (g + e < total) out[g + e] = from_f32<__nv_bfloat16>(y[e]);
+    }
+  }
+}""",
+}
+
+
+def _positions_1d(p: StencilProgram, points: int) -> dict[str, list[int]]:
+    """For each live op of sweep ``p`` and for its input, the positions
+    (relative to a thread's first point) at which a thread computing the
+    output at ``0 .. points - 1`` needs it, sorted."""
+    need: dict[str, set[int]] = {p.output: set(range(points))}
+    for op in reversed(p.ops):
+        for r in op.reads if op.name in need else ():
+            need.setdefault(r.field, set()).update(q + r.offset[0] for q in need[op.name])
+    return {f: sorted(qs) for f, qs in need.items()}
+
+
+def _sweep_1d(s: int, p: StencilProgram, points: int, frame: int | None) -> list[str]:
+    """One sweep of K5' over a thread's ``points`` state values ``x[]``: the
+    neighbours it reads from frame ``frame`` (``None``: from the warp's
+    other lanes, by shuffles), every live op at every position its readers
+    need (straight-line code, each value once), then the next state, the
+    end points of radius ``r`` kept by absolute column."""
+    need = _positions_1d(p, points)
+    state = p.inputs[0]
+    index = {op.name: i for i, op in enumerate(p.ops)}
+
+    def at(field: str, q: int) -> str:
+        if field != state:
+            return f"v{index[field]}_{'m' if q < 0 else ''}{abs(q)}"
+        if q < 0:
+            return f"l{-q}"
+        return f"x[{q}]" if q < points else f"r{q - points + 1}"
+
+    nbrs = [q for q in need.get(state, []) if not 0 <= q < points]
+    lines = [f"  {{  // sweep {s}: " + "; ".join(f"{op.name!r} {op.tag}" for op in p.ops
+                                               if op.name in need)]
+    if nbrs and frame is not None:
+        lines.append("    const float " + ", ".join(
+            f"{at(state, q)} = F{frame}[b {'-' if q < 0 else '+'} {abs(q)}]" for q in nbrs) + ";")
+    for q in nbrs if frame is None else ():
+        lane, i = divmod(q, points)  # the lane that holds it, and where
+        shfl = "__shfl_up_sync" if lane < 0 else "__shfl_down_sync"
+        lines.append(f"    const float {at(state, q)} = {shfl}(0xffffffffu, x[{i}], {abs(lane)});")
+    for op in p.ops:
+        for q in need.get(op.name, ()):
+            value = op.emit(*(at(r.field, q + r.offset[0]) for r in op.reads))
+            lines.append(f"    const float {at(op.name, q)} = {value};")
+    r = p.radius
+    for q in range(points):
+        new = at(p.output, q)
+        if r:
+            new = f"(c[{q}] < {r} || c[{q}] >= n - {r}) ? x[{q}] : {new}"
+        lines.append(f"    x[{q}] = {new};")
+    return lines + ["  }"]
+
+
+def render_1d(program: StencilProgram, dtype: str, tile: TilePlan) -> str:
+    """K5': the fused kernel of a single-input 1-D program over a ``(batch,
+    n)`` field, the Hopper counterpart of ``lower_pallas.py::_kernel_1d``.
+
+    The field is one flat array of ``batch * n`` points, cut into spans of
+    ``P`` points a thread (``tile.cols`` 16-byte vectors) whatever rows a
+    span crosses, overlapping by the chain halo rounded up to whole
+    vectors, ``HP``: a span's threads store it but its first and last
+    ``HP`` points. Each thread loads its points into registers by 16-byte
+    vectors and keeps them there through every sweep; it computes every op
+    at the positions its readers need and keeps the end points of radius
+    ``r`` of every row by absolute column ``f mod n`` — what ``_kernel_1d``
+    does on its whole row. A point that is no end point reads only its own
+    row through the whole chain, so the values a span computes across a
+    row boundary reach only end points (which keep their old value) and
+    halo points (which are not stored).
+
+    ``tile.buffers`` picks the span (:func:`repro_torch.ir.plan.plan_tile_1d`):
+    0, a warp's: its lanes exchange neighbours by shuffles, with no shared
+    memory and no barrier; 1 or 2, a block's: neighbours go through a
+    shared frame (two, taking turns, for several sweeps), one barrier a
+    sweep."""
+    if tile.halo != program.radius or tile.buffers not in (0, 1 if program.steps == 1 else 2):
+        raise ValueError(f"tile plan {tile} does not match program radius "
+                         f"{program.radius} and {program.steps} sweeps")
     (field,) = program.inputs
-    halo = program.exchange_radii()[field]
     ctype = CTYPES[dtype]
+    H = program.radius
+    V = 4 if dtype == "float32" else 8
+    P = V * tile.cols
+    SPANS = 1 if tile.buffers else THREADS // 32  # spans a block holds
+    S = THREADS // SPANS * P
+    HP = -(-H // V) * V
+    PAD = -(-max(p.radius for p in program.chain) // 4) * 4 if tile.buffers else 0
+    if S - 2 * HP <= 0:
+        raise ValueError(f"a chain halo of {H} leaves a {S}-point span nothing to store")
+    frames = range(tile.buffers)
+    body = []
+    for s, p in enumerate(program.chain):
+        body += _sweep_1d(s, p, P, s % 2 if frames else None)
+        if s < program.steps - 1 and frames:
+            body += [f"  put_frame(F{(s + 1) % 2} + b, x);", "  __syncthreads();"]
+    barriers = program.steps if frames else 0
     src = [
         "// Generated by repro_torch.ir.codegen_cuda; do not edit.",
         "// K5' stencil_program_1d_cuda: replaces the JAX package's",
         "// repro/ir/lower_pallas.py::_lower_pallas_1d (_kernel_1d).",
-        "// Bound on an H100: device-memory bytes, the (batch, n) row field read",
-        "// once and written once per launch of all k sweeps; the ops' flops per",
-        "// point are far below the card's FP32 rate per byte. Design: the row is",
-        "// tiled across blocks (Pallas held a whole row per program) with a k*r",
-        "// halo read from L2, every sweep stays in shared memory, one store.",
+        "// Bound on an H100: device-memory bytes, the (batch, n) field read once",
+        "// and written once per launch of all k sweeps; the ops' flops per point",
+        "// are far below the card's FP32 rate per byte. Design: the field is one",
+        "// flat array cut into overlapping spans, one a warp or one a block,",
+        "// whatever rows a span crosses; each thread loads and stores 16-byte",
+        "// vectors and keeps its points in registers through every sweep,",
+        "// computing each op where its readers need it; a sweep exchanges only",
+        "// the neighbours: by shuffles (warp spans, no barrier) or through a",
+        "// shared frame with one barrier (block spans); the end-point rule is a",
+        "// select on each point's column, computed once a thread.",
         f"// fingerprint: {program.fingerprint()}",
-        f"// input: {field}:{dtype}(halo {halo})",
-        f"// tile: {TC}  chain halo: {H}  frames: {plan.n_frames}  sweeps: {program.steps}",
+        f"// input: {field}:{dtype}(halo {H})",
+        f"// span: {S} points, {P} a thread, {SPANS} a block; chain halo: {H}"
+        f"  frames: {tile.buffers}  sweeps: {program.steps}  barriers: {barriers}",
         '#include "stencil_common.cuh"',
         "",
         "namespace {",
         "using repro_torch::from_f32;",
         "using repro_torch::kThreads;",
-        "using repro_torch::to_f32;",
-        f"constexpr int TC = {TC}, H = {H};",
-        "constexpr int FC = TC + 2 * H;",
-        f"constexpr int NFRAMES = {plan.n_frames};",
+        "using repro_torch::limit_flux;",
+        f"constexpr int V = {V};  // points a 16-byte vector holds",
+        f"constexpr int P = {P};  // points a thread holds: {tile.cols} vector(s)",
+        f"constexpr int SPANS = {SPANS};  // spans a block holds: one a warp, or one",
+        "constexpr int S = kThreads / SPANS * P;  // points a span holds",
+        f"constexpr int H = {H};  // chain halo: the sweeps' radii added up",
+        f"constexpr int HP = {HP};  // H in whole vectors: the span's ends, which neighbours store",
+        f"constexpr int PAD = {PAD};  // words beside each frame: the widest sweep's reach",
+        "constexpr int FSTRIDE = S + 2 * PAD;",
+        f"constexpr int NFRAMES = {tile.buffers};",
         "",
-        "// Rows map to blockIdx.z * gridDim.y + blockIdx.y (no 65535-row limit).",
-        "__global__ void __launch_bounds__(kThreads) stencil_program_1d(",
-        f"    const {ctype}* __restrict__ I0, {ctype}* __restrict__ O0, int batch, int n) {{",
-        "  extern __shared__ __align__(16) float smem[];",
-        "  const int b = blockIdx.z * gridDim.y + blockIdx.y;",
-        "  if (b >= batch) return;",
-        "  const long long row = static_cast<long long>(b) * n;",
-        "  const int c0 = blockIdx.x * TC;",
-        *[f"  float* const F{k} = smem + {k} * FC;" for k in range(plan.n_frames)],
+        _VECTOR_IO[dtype],
         "",
-        f"  // load {field!r}: halo {halo}, zero beyond it and outside the row",
-        "  for (int q = threadIdx.x; q < FC; q += kThreads) {",
-        "    const int gc = c0 + q - H;",
-        f"    const bool live = q >= {H - halo} && q < {FC - H + halo} && gc >= 0 && gc < n;",
-        f"    F{plan.input_frames[field]}[q] = live ? to_f32(I0[row + gc]) : 0.0f;",
-        "  }",
-        "  __syncthreads();",
     ]
-    for s, sweep in enumerate(plan.sweeps):
-        p, e = sweep.program, sweep.inset
-        margins = p.margins()
-        for op in p.ops:
-            (lo,), (hi,) = margins[op.name]
-            views = [
-                f"F{sweep.env[r.field]}[p{r.offset[0]:+d}]" if r.offset[0]
-                else f"F{sweep.env[r.field]}[p]"
-                for r in op.reads
-            ]
-            src.append(f"  // sweep {s}, op {op.name!r}: {op.tag}")
-            src += _span_loop(e + lo, FC - e - hi,
-                              [f"F{sweep.env[op.name]}[p] = {op.emit(*views)};"])
-        r = p.radius
-        src.append(f"  // sweep {s}: end points of radius {r} kept at absolute indices")
-        body = [
-            "const int gc = c0 + p - H;",
-            f"if (!(gc < {r} || gc >= n - {r})) {{",
-            *[f"  F{state}[p] = F{new}[p];" for _, _, state, new in sweep.updates],
+    if frames:
+        src += [
+            "__device__ __forceinline__ void put_frame(float* dst, const float* x) {",
+            "#pragma unroll",
+            "  for (int u = 0; u < P / 4; ++u) {",
+            "    reinterpret_cast<float4*>(dst)[u] =",
+            "        make_float4(x[4 * u], x[4 * u + 1], x[4 * u + 2], x[4 * u + 3]);",
+            "  }",
             "}",
+            "",
         ]
-        src += _span_loop(e + r, FC - e - r, body)
-    out_frame = plan.input_frames[program.passthrough]
     src += [
-        "  for (int q = threadIdx.x; q < TC; q += kThreads) {",
-        "    const int gc = c0 + q;",
-        "    if (gc >= n) break;",
-        f"    O0[row + gc] = from_f32<{ctype}>(F{out_frame}[q + H]);  // store {field!r}",
+        "__global__ void __launch_bounds__(kThreads) stencil_program_1d(",
+        f"    const {ctype}* __restrict__ I0, {ctype}* __restrict__ O0, long long total, int n,",
+        "    int aligned) {",
+        *(["  extern __shared__ __align__(16) float smem[];"] if frames else []),
+        *[f"  float* const F{k} = smem + {k} * FSTRIDE + PAD;" for k in frames],
+        "  // The thread's first point in its span, and in the field.",
+        "  const int b = threadIdx.x % (kThreads / SPANS) * P;",
+        "  const long long span =",
+        "      static_cast<long long>(blockIdx.x) * SPANS + threadIdx.x / (kThreads / SPANS);",
+        "  const long long f = span * (S - 2 * HP) - HP + b;",
+        "  // Each point's column, for the end-point rule: one division a thread.",
+        "  int c[P];",
+        "  c[0] = static_cast<int>(f % n);",
+        "  if (c[0] < 0) c[0] += n;",
+        "#pragma unroll",
+        "  for (int j = 1; j < P; ++j) c[j] = c[j - 1] + 1 == n ? 0 : c[j - 1] + 1;",
+        f"  // load {field!r}, zero outside the field",
+        "  float x[P];",
+        "#pragma unroll",
+        "  for (int u = 0; u < P / V; ++u) load_vector(I0, f + u * V, total, aligned & 1, x + u * V);",
+    ]
+    if PAD:
+        src += [
+            "  for (int q = threadIdx.x; q < PAD; q += kThreads) {",
+            *[f"    F{k}[-1 - q] = 0.0f, F{k}[S + q] = 0.0f;" for k in frames],
+            "  }",
+        ]
+    if frames:
+        src += ["  put_frame(F0 + b, x);", "  __syncthreads();"]
+    src += body
+    src += [
+        "  // store: the span but its ends, one vector at a time",
+        "#pragma unroll",
+        "  for (int u = 0; u < P / V; ++u) {",
+        "    if (b + u * V >= HP && b + u * V < S - HP) {",
+        f"      store_vector(O0, f + u * V, total, aligned & 2, x + u * V);  // store {field!r}",
+        "    }",
         "  }",
         "}",
         "",
@@ -695,13 +821,19 @@ def render_1d(program: StencilProgram, dtype: str, tile: TilePlan, plan: FramePl
         "// C launcher bound with ctypes; returns the CUDA error code (0 = ok).",
         'extern "C" int launch(const void* I0, void* O0, int batch, int n, void* stream) {',
         "  static size_t reserved = 0;",
-        "  const size_t smem = sizeof(float) * FC * NFRAMES;",
+        "  const size_t smem = sizeof(float) * FSTRIDE * NFRAMES;",
         "  const int err = repro_torch::reserve_smem(stencil_program_1d, smem, reserved);",
         "  if (err) return err;",
-        "  const unsigned gz = (batch + 65534) / 65535;",
-        "  const dim3 grid((n + TC - 1) / TC, (batch + gz - 1) / gz, gz);",
-        "  stencil_program_1d<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(",
-        f"      static_cast<const {ctype}*>(I0), static_cast<{ctype}*>(O0), batch, n);",
+        "  const long long total = static_cast<long long>(batch) * n;",
+        "  const long long spans = (total + S - 2 * HP - 1) / (S - 2 * HP);",
+        "  const long long blocks = (spans + SPANS - 1) / SPANS;",
+        "  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);",
+        "  // bit 0: the input is 16-byte aligned; bit 1: the output is",
+        "  const int aligned = (reinterpret_cast<uintptr_t>(I0) % 16 == 0 ? 1 : 0) |",
+        "                      (reinterpret_cast<uintptr_t>(O0) % 16 == 0 ? 2 : 0);",
+        "  stencil_program_1d<<<static_cast<unsigned>(blocks), kThreads, smem,",
+        "                       static_cast<cudaStream_t>(stream)>>>(",
+        f"      static_cast<const {ctype}*>(I0), static_cast<{ctype}*>(O0), total, n, aligned);",
         "  return static_cast<int>(cudaGetLastError());",
         "}",
         "",

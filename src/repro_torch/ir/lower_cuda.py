@@ -8,8 +8,8 @@ Pallas-only knobs have no counterpart (``interpret``; ``vmem_budget``,
 which the shared-memory tile planner replaces), and the column-slab mode
 (``cols_global`` / ``col_offset``) arrives with the distributed lowering
 (ROADMAP M9): standalone calls pass ``(0, rows, 0, cols)`` to the kernel.
-A single-input 1-D program (``jacobi1d``) lowers to K5' over a ``(batch,
-n)`` tensor, the port of ``_lower_pallas_1d``.
+A single-input 1-D program (``jacobi1d``, any 1-D chain) lowers to K5'
+over a ``(batch, n)`` tensor, the port of ``_lower_pallas_1d``.
 
 On CUDA tensors the call launches :func:`stencil_program_cuda` (2-D) or
 :func:`stencil_program_1d_cuda` (1-D), the kernels
@@ -75,10 +75,19 @@ def tile_for(program: StencilProgram, rows: int, cols: int,
     """The shared-memory tile the kernel for ``program`` uses on a grid
     (cached: programs hash by fingerprint, and planning the frames walks
     the whole chain, which would cost more host time than a launch). A 1-D
-    program's rows are ``cols`` points long; its ``rows`` is ignored."""
-    buffers = frame_plan(program).n_frames
+    program's rows are ``cols`` points long (its ``rows`` is ignored): its
+    span does not depend on them, but a row too short for an op's margins
+    raises here as it does in the plain version (``op_views``)."""
     if program.ndim == 1:
-        return plan_tile_1d(cols, halo=program.radius, buffers=buffers)
+        for prog in program.chain:
+            margins = prog.margins()
+            for op in prog.ops:
+                (lo,), (hi,) = margins[op.name]
+                if cols - lo - hi <= 0:
+                    raise ValueError(f"grid {(cols,)} too small for program margins "
+                                     f"lo={(lo,)} hi={(hi,)}")
+        return plan_tile_1d(halo=program.radius, steps=program.steps)
+    buffers = frame_plan(program).n_frames
     return plan_program_tile(rows, cols, halo=program.radius, buffers=buffers,
                              block_rows=block_rows)
 
@@ -150,16 +159,16 @@ def stencil_program_1d_plain(program: StencilProgram, x: Tensor) -> Tensor:
 
 def stencil_program_1d_cuda(program: StencilProgram, x: Tensor) -> Tensor:
     """K5': one launch of a 1-D program's fused kernel (all k sweeps) over a
-    contiguous ``(batch, n)`` float32 or bfloat16 CUDA tensor. CPU tensors
-    take :func:`stencil_program_1d_plain`."""
+    contiguous ``(batch, n)`` float32 or bfloat16 CUDA tensor, at any
+    pointer alignment. CPU tensors take :func:`stencil_program_1d_plain`.
+    Rows too short for the program raise as the plain version does."""
     if x.device.type == "cpu":
         return stencil_program_1d_plain(program, x)
     _build.check_input(KERNEL_1D, x, tuple(_DTYPE_NAMES), ndim=2)
     out = torch.empty_like(x)
     if x.numel():
         batch, n = x.shape
-        dtypes = (_DTYPE_NAMES[x.dtype],)
-        fn = _kernel(program, dtypes, tile_for(program, 1, n))
+        fn = _kernel(program, (_DTYPE_NAMES[x.dtype],), tile_for(program, 1, n))
         with torch.cuda.device(x.device):
             code = fn(x.data_ptr(), out.data_ptr(), batch, n,
                       torch.cuda.current_stream().cuda_stream)

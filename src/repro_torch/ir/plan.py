@@ -20,8 +20,10 @@ and the mask kernel (K4, halo 1), all planned by :func:`plan_fixed_tile`
 the generated program kernel (K2) keeps one frame per input, one more per
 evolving field when it runs several sweeps, and one per live op that is not
 inlined (:func:`program_frame_layout`), planned by
-:func:`plan_program_tile`; a 1-D program's kernel holds one row tile per
-frame (:func:`plan_tile_1d`). The 2-D mesh planner (``plan_partition``)
+:func:`plan_program_tile`. A 1-D program's kernel (K5') treats its
+``(batch, n)`` field as one flat array cut into spans, one a warp (no
+frame) or one a block (one frame, or two taking turns for a chain of
+sweeps): :func:`plan_tile_1d` picks the span. The 2-D mesh planner (``plan_partition``)
 needs the halo wire model of the distributed layer and is ported with it
 (ROADMAP M9).
 """
@@ -40,7 +42,8 @@ PROGRAM_TILES = ((64, 64), (32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 
 FIXED_TILE = 64  # K1's, K3's and K4's output rows and columns per block before shrinking
 FIXED_TILE_COLS = (64, 32, 16, 8)  # their column tiles: the kernels' template constants
 FIXED_SHIFT = 2  # words before K3's frame, so its grid column c0 starts a 16-byte group
-DEFAULT_TILE_1D = 1024  # output points per block of a 1-D program's kernel
+VECTORS_1D = (1, 2, 4)  # 16-byte vectors a thread of K5' may hold, fewest first
+THREADS = 256  # threads per block of every stencil kernel (csrc/stencil_common.cuh kThreads)
 FRAME_ITEMSIZE = 4  # frames hold float32 (or int32) words
 
 
@@ -146,21 +149,30 @@ def plan_program_tile(
     )
 
 
-def plan_tile_1d(n: int, *, halo: int, buffers: int) -> TilePlan:
-    """A 1-row tile of a ``(batch, n)`` row field: :data:`DEFAULT_TILE_1D`
-    columns clipped to ``n`` (one block's worth of threads, four points
-    each), halved until its ``buffers`` frames of ``cols + 2 * halo`` words
-    fit the per-block shared-memory limit."""
-    if n < 1:
-        raise ValueError(f"row of {n} points")
-    if buffers < 1:
-        raise ValueError(f"buffers must be >= 1, got {buffers}")
-    tc = min(DEFAULT_TILE_1D, n)
-    while (tc + 2 * halo) * FRAME_ITEMSIZE * buffers > SMEM_BLOCK_LIMIT:
-        if tc <= 8:
-            raise ValueError(
-                f"a {tc}-column tile with a {halo}-cell halo needs more than the "
-                f"{SMEM_BLOCK_LIMIT}-byte per-block limit for {buffers} frames"
-            )
-        tc //= 2
-    return TilePlan(1, tc, halo, buffers)
+def plan_tile_1d(*, halo: int, steps: int) -> TilePlan:
+    """K5''s span: ``TilePlan(1, vectors, halo, buffers)``, ``vectors`` the
+    16-byte vectors (4 float32 or 8 bfloat16 points) each thread loads. A
+    span's threads store it but ``halo``, rounded up to whole vectors, at
+    each end, which the neighbouring spans store.
+
+    A chain of several sweeps whose halo fits one float32 vector takes warp
+    spans, ``buffers`` 0: one vector a thread, a span a warp, neighbours by
+    shuffles, no barrier (one extra vector of loads at each end of a warp's
+    128 or 256 points, where a barrier a sweep would cost more). Any other
+    program takes block spans of :data:`THREADS` threads with one shared
+    frame, or two taking turns between sweeps: the fewest vectors of
+    :data:`VECTORS_1D` whose float32 span keeps the halo to at most a
+    quarter of it at each end. Raises for a chain too deep for that."""
+    if halo < 0:
+        raise ValueError(f"halo must be >= 0, got {halo}")
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    if steps > 1 and halo <= 4:
+        return TilePlan(1, 1, halo, 0)
+    for vectors in VECTORS_1D:
+        if -(-halo // 4) * 4 <= THREADS * vectors:  # at most a quarter of THREADS * 4 * vectors
+            return TilePlan(1, vectors, halo, 1 if steps == 1 else 2)
+    raise ValueError(
+        f"a chain halo of {halo} points is deeper than the 1-D kernel's widest span "
+        f"({THREADS * 4 * VECTORS_1D[-1]} float32 points) allows"
+    )

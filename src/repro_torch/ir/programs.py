@@ -19,6 +19,12 @@ derived per field and summed.
 timesteps): ``shallow_water_program`` evolves {u, v, h} together through
 the gravity-wave coupling, ``advection_diffusion_program`` evolves {c, u}
 over a shared velocity field — several ``outputs`` per sweep.
+
+``hdiff1d_program`` and ``smooth1d_program`` are the port's own: 1-D
+chains whose intermediates are read at non-zero offsets, which the 1-D
+kernel (K5') must handle beside ``jacobi1d``. The JAX package has no such
+programs; its combinators build the same DAGs, fingerprints equal
+(``tests/test_torch_lower_cuda.py``).
 """
 
 from __future__ import annotations
@@ -232,6 +238,30 @@ MULTIOUTPUT_PROGRAMS: dict[str, Callable[[], StencilProgram]] = {
 def jacobi1d_program(coeff: float = 1.0 / 3.0) -> StencilProgram:
     taps = {(-1,): coeff, (0,): coeff, (1,): coeff}
     return StencilProgram("jacobi1d", ["x"], [affine("out", "x", taps)], ndim=1)
+
+
+def hdiff1d_program(coeff: float = 0.025, *, limit: bool = True) -> StencilProgram:
+    """hdiff along a row: a 3-point Laplacian, the row's two (limited)
+    fluxes and the scaled residual — radius 2, the Laplacian read at
+    offsets -1, 0 and +1."""
+    lim = "psi" if limit else None
+    ops = [
+        affine("lap", "psi", {(0,): 2.0, (1,): -1.0, (-1,): -1.0}),
+        flux("flx", "lap", lo=(0,), hi=(1,), limiter=lim),
+        flux("flx_m", "lap", lo=(-1,), hi=(0,), limiter=lim),
+        scaled_residual("out", "psi", [("flx", 1), ("flx_m", -1)], coeff, ndim=1),
+    ]
+    return StencilProgram("hdiff1d", ["psi"], ops, ndim=1)
+
+
+def smooth1d_program() -> StencilProgram:
+    """Two 3-point filters in a row (radius 2): the second reads the first
+    at offsets -1, 0 and +1, with unequal weights."""
+    ops = [
+        affine("blur", "x", {(-1,): 0.25, (0,): 0.5, (1,): 0.25}),
+        affine("out", "blur", {(-1,): -0.125, (0,): 1.25, (1,): -0.125}),
+    ]
+    return StencilProgram("smooth1d", ["x"], ops, ndim=1)
 
 
 def jacobi2d_3pt_program(coeff: float = 1.0 / 3.0) -> StencilProgram:

@@ -1,6 +1,7 @@
-"""The launch planners of K6 (``rglru_scan_cuda``) and of the one-frame
+"""The launch planners of K6 (``rglru_scan_cuda``), of the one-frame
 stencil kernels K3 (``hdiff_fixed_cuda``), K1 (``hdiff_cuda``) and K4
-(``stencil2d_cuda``), on the CPU: what grid and shared memory they ask of
+(``stencil2d_cuda``) and of K5''s spans (``stencil_program_1d_cuda``), on
+the CPU: what grid and shared memory they ask of
 the card, how they treat tiny and huge shapes, and that the constants they
 share with the CUDA sources agree with those sources."""
 
@@ -13,9 +14,12 @@ from repro_torch.ir.plan import (
     FIXED_TILE_COLS,
     SMEM_BLOCK_LIMIT,
     TilePlan,
+    THREADS,
+    VECTORS_1D,
     fixed_tile_bytes,
     frame_layout,
     plan_fixed_tile,
+    plan_tile_1d,
 )
 from repro_torch.kernels import _build
 from repro_torch.kernels.hdiff import kernel as k13
@@ -212,3 +216,31 @@ def test_k3_block_rows_validation_is_unchanged_on_the_cpu():
     _build.reset_launches()
     assert torch.equal(hdiff_fixed(x, block_rows=15), x)
     assert _build.LAUNCHES == {}
+
+
+@pytest.mark.parametrize("halo,steps,vectors,buffers", [
+    (0, 1, 1, 1), (1, 1, 1, 1), (4, 1, 1, 1), (2, 2, 1, 0), (3, 3, 1, 0), (4, 2, 1, 0),
+    (5, 2, 1, 2), (6, 3, 1, 2), (256, 1, 1, 1), (257, 1, 2, 1), (300, 2, 2, 2),
+    (513, 4, 4, 2), (1024, 1, 4, 1)])
+def test_k5_prime_span_plan(halo, steps, vectors, buffers):
+    """A chain of sweeps whose halo fits one float32 vector takes warp spans
+    (no frame); anything else block spans: the fewest 16-byte vectors a
+    thread whose float32 span keeps the halo, in whole vectors, to a
+    quarter of the span at each end (so in bfloat16, whose vectors hold
+    twice the points, too), with one frame, or two for a chain of sweeps."""
+    plan = plan_tile_1d(halo=halo, steps=steps)
+    assert plan == TilePlan(1, vectors, halo, buffers)
+    threads = THREADS if buffers else 32
+    for points in (4, 8):  # float32, bfloat16
+        span, ends = threads * points * vectors, -(-halo // points) * points
+        assert 4 * ends <= span
+    assert vectors == VECTORS_1D[0] or 4 * -(-halo // 4) * 4 > THREADS * 4 * (vectors // 2)
+
+
+def test_k5_prime_span_plan_rejects_what_no_span_holds():
+    with pytest.raises(ValueError, match="deeper than"):
+        plan_tile_1d(halo=1025, steps=1)
+    with pytest.raises(ValueError, match="steps"):
+        plan_tile_1d(halo=1, steps=0)
+    with pytest.raises(ValueError, match="halo"):
+        plan_tile_1d(halo=-1, steps=1)

@@ -361,6 +361,79 @@ def test_k5_prime_k_sweeps_equal_k_single_sweeps(cuda):
     _equal(ir.lower_cuda(ir.repeat(ir.jacobi1d_program(), 3))(x), one(one(one(x))))
 
 
+CHAINS_1D = {"jacobi1d": ir.jacobi1d_program, "hdiff1d": ir.hdiff1d_program,
+             "smooth1d": ir.smooth1d_program}
+
+
+def _k5_prime_check(prog, x):
+    """K5' against its plain version, bit for bit; a row too short for the
+    program raises the same error on both paths."""
+    try:
+        want = ir.stencil_program_1d_plain(prog, x)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            ir.stencil_program_1d_cuda(prog, x)
+        assert str(got.value) == str(e)
+        return
+    _bits_equal(ir.stencil_program_1d_cuda(prog, x), want)
+
+
+# Spans that cross many rows, rows shorter than the chain halo (hdiff1d x 3:
+# 6) or than one sweep's margins (n = 1, 3), odd flat lengths, a row longer
+# than a span, the paper's rows.
+K5P_SHAPES = [(70000, 9), (16384, 3), (5, 1), (7, 5), (3, 6), (1, 3), (4, 4097),
+              (16384, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("name", sorted(CHAINS_1D))
+@pytest.mark.parametrize("shape", K5P_SHAPES)
+def test_k5_prime_chains_bit_equal_to_plain(cuda, shape, name, k, dtype):
+    prog = ir.repeat(CHAINS_1D[name](), k)
+    _k5_prime_check(prog, _rand(shape, cuda, seed=13).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("name", sorted(CHAINS_1D))
+def test_k5_prime_misaligned_base_and_nonfinite_inputs(cuda, name, k, dtype):
+    """A contiguous (b, n) view one element into its buffer takes the word
+    path for its loads (the output, a new tensor, still stores by
+    vectors); NaN, +-Inf, -0 and underflowing values land as in the plain
+    version."""
+    prog = ir.repeat(CHAINS_1D[name](), k)
+    x = _rand((37, 101), cuda, seed=14).to(dtype)
+    _k5_prime_check(prog, _offset_by_one(x))
+    _k5_prime_check(prog, _offset_by_one(_nonfinite(x, seed=15)))
+    _k5_prime_check(prog, _nonfinite(x, seed=16))
+    _k5_prime_check(prog, (1e-20 * _rand((37, 101), cuda, seed=17)).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k5_prime_deep_chain_takes_wider_spans(cuda, k, dtype):
+    """A radius-300 op: two (k = 1) or four (k = 2) vectors a thread."""
+    far = ir.StencilProgram(
+        "far1d", ["x"], [ir.affine("out", "x", {(-300,): 0.5, (0,): 0.25, (300,): 0.25})],
+        ndim=1)
+    _k5_prime_check(ir.repeat(far, k), _rand((5, 2000), cuda, seed=18).to(dtype))
+
+
+def test_k5_prime_replayed_from_a_cuda_graph_equals_eager(cuda):
+    prog = ir.repeat(ir.hdiff1d_program(), 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _rand((300, 257), cuda, seed=19).to(dtype)
+        eager = ir.stencil_program_1d_cuda(prog, x)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = ir.stencil_program_1d_cuda(prog, x)
+        for _ in range(2):
+            graph.replay()
+        _bits_equal(replayed, eager)
+        _bits_equal(replayed, ir.stencil_program_1d_plain(prog, x))
+
+
 def test_wrappers_count_launches_and_reject_bad_input(cuda):
     x = _rand((1, 16, 16), cuda)
     _build.reset_launches()
