@@ -4,10 +4,12 @@ NVIDIA H100.
 
     python3 chip_smoke.py
 
-Drives the port's three paths on one device — the paper's COSMO hdiff on
+Drives the port's four paths on one device — the paper's COSMO hdiff on
 the full 64x256x256 float32 domain through the IR compiler, the §3.5
 elementary-stencil suite (fig11's domain) through the hand-written and the
-generated kernels, and the recurrent LMs (RWKV-6 3B, RecurrentGemma 2B, at
+generated kernels, the gradient path (the data-assimilation trainer fitting
+``hdiff_coupled``'s coefficient field through the derived adjoints, on the
+same domain) and the recurrent LMs (RWKV-6 3B, RecurrentGemma 2B, at
 their published shapes) served by ``BatchedServer`` through the WKV-6 and
 RG-LRU kernels — and holds every hand-written kernel against its plain
 PyTorch version on the card. Each phase prints one JSON line (``t_s``: the
@@ -16,7 +18,8 @@ script's seconds so far when it was printed):
   env         torch / CUDA versions, the card, ``nvidia-smi`` name and power
               limit
   build       seconds to compile K1/K3, K4/K5, K6, K7 and every K2 and K5'
-              program below (one nvcc each, all at once, into
+              program below, the gradient path's adjoint and augmented K2
+              programs included (one nvcc each, all at once, into
               build/repro_torch/)
   parity      each kernel against its plain version on the same inputs, at
               64x256x256 and a ragged 3x250x190 (K1 — one frame per 64x64
@@ -49,7 +52,15 @@ script's seconds so far when it was printed):
               reduced depth (RWKV-6 2 layers, RecurrentGemma 3), float32, a
               128-token prefill on the card against the same on the CPU (the
               plain versions): last logits and every cache leaf within
-              1e-3 * max|.|
+              1e-3 * max|.|. The gradient path's K2 programs (every
+              conformance sweep's adjoint and augmented forward, up to 9
+              inputs and 6 outputs) at the padded paper and ragged grids,
+              f32 and bf16, bit-equal; make_vjp (all 11 programs x k = 1..3)
+              and hdiff_fused_ad's dpsi on the card bit-equal to the same
+              calls on the CPU, its dcoeff within 1e-5; the trainer's first
+              gradient at 3x70x90 bit-equal to the CPU's and its 5-step loss
+              trajectory within 1e-4 (the mean and the clip's norm are
+              reductions)
   main        the hdiff path with the launch counters reset just before it:
               CompoundStencil(hdiff) under its three policies, a 100-step
               run_simulation with hdiff_fused (K1), 50 hdiff_twostep calls
@@ -74,6 +85,17 @@ script's seconds so far when it was printed):
               per kernel name and the device's busy share; fails unless K1,
               K2 and K4 each show device time (it runs before serve: behind
               serve's profiled windows a trace once recorded no device time)
+  grad        the gradient path with the launch counters reset just before
+              it: fit_coefficient_field (AdamW, lr 3e-3, backend "cuda") at
+              64x256x256, 20 steps at k = 1 then 5 at k = 2, then one
+              hdiff_fused_ad forward and backward; K2 must count exactly
+              1 + 3 x 20 = 61, then 1 + 5 x 5 = 26, then K1 = 1 and K2 = 2,
+              and its N-output launches (augmented forwards and adjoints,
+              counted at the launch under their own key) 40, 20 and 2;
+              every loss finite, the best below the first, the boundary
+              ring's coefficients still exactly 0.025; seconds per step,
+              the loss ratio, one profiled step's device busy share and the
+              tile and frames of each K2 program
   serve       each LM in turn at its published shapes, random weights from
               the seed, with the launch counters reset just before its
               serving run: BatchedServer(lanes=4, max_len=1024), 8 requests
@@ -106,7 +128,11 @@ script's seconds so far when it was printed):
               call computing the same interior (conv2d / conv1d, TF32 off);
               K5' at k = 1, 2 (what the elementary path launches) and 3;
               K7 at (1, 512, 40, 64) and (8, 4096, 40, 64) and K6 at
-              (1, 512, 2560) and (8, 4096, 2560), with no library yardstick
+              (1, 512, 2560) and (8, 4096, 2560), with no library yardstick;
+              K2's N-output form on hdiff_coupled's augmented forward and
+              adjoint at the padded 64x260x260 and 80x1028x1028, their bytes
+              bound counting each input an op reads, the ring of an input
+              that only seeds an output's ring, and each output
 
 Then the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (each
 kernel's launches from the path that runs it), and last
@@ -136,6 +162,11 @@ BIG_GRID = (80, 1024, 1024)
 PAPER_ROWS = (PAPER_GRID[0] * PAPER_GRID[1], PAPER_GRID[2])
 BIG_ROWS = (BIG_GRID[0] * BIG_GRID[1], BIG_GRID[2])
 LONG_ROW = (4, 4_194_307)
+SMALL_GRAD = (3, 70, 90)  # make_vjp and the fit, card against CPU (the CPU side is eager)
+GRAD_K2 = "stencil_program_cuda (N outputs)"  # K2's adjoint and augmented launches
+FIT_STEPS, FIT_K2_STEPS, FIT_LR = 20, 5, 3e-3
+FIT_TOL = 1e-4  # card vs CPU loss trajectory: the mean and the global norm are reductions
+DCOEFF_TOL = 1e-5  # hdiff_fused_ad's scalar cotangent: a sum over the grid
 ELEMENTARY_2D = ("jacobi2d_3pt", "laplacian", "jacobi2d_5pt", "jacobi2d_9pt", "seidel2d")
 COEFF = 0.025
 TOL = 1e-6
@@ -288,12 +319,12 @@ def main() -> int:
         run_simulation,
     )
     from repro_torch.kernels import _build
-    from repro_torch.kernels.hdiff import hdiff_fixed, hdiff_fused, hdiff_twostep
+    from repro_torch.kernels.hdiff import hdiff_fixed, hdiff_fused, hdiff_fused_ad, hdiff_twostep
     from repro_torch.kernels.hdiff import hdiff_fixed_point_ref
     from repro_torch.kernels.hdiff import kernel as k13
     from repro_torch.kernels.stencil2d import jacobi1d, stencil2d, weights_for
     from repro_torch.kernels.stencil2d import kernel as k45
-    from repro_torch.ir.lower_cuda import kernel_source, tile_for
+    from repro_torch.ir.lower_cuda import KERNEL_N_OUT, kernel_source, tile_for
     from repro_torch.kernels.rglru import kernel as k6
     from repro_torch.kernels.rglru import rglru_seq_ref
     from repro_torch.kernels.wkv6 import kernel as k7
@@ -302,6 +333,8 @@ def main() -> int:
     from repro_torch.models import build_cache, build_lm, lm_decode, lm_prefill
     from repro_torch.obs import MetricsRegistry, metrics, profiler_trace, runtime_metadata
     from repro_torch.serve import BatchedServer
+    from repro_torch.train import (AssimilationConfig, fit_coefficient_field, forward_model,
+                                   synthetic_observations, true_coefficients)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -326,6 +359,19 @@ def main() -> int:
     }
     k2_cases = [(n, k, ir.repeat(make(), k)) for n, make in conformance_2d.items()
                 for k in (1, 2, 3)]
+    # The gradient path's K2 programs: each conformance sweep's adjoint and
+    # augmented forward (repeat(p, k) chains one sweep k times, so these are
+    # every k's), run by make_vjp on the grid padded by the sweep's radius.
+    grad_progs = {}
+    for n, make in conformance_2d.items():
+        q = make()
+        grad_progs[f"{n}.adj"] = (q, ir.adjoint(q))
+        if ir.cache_fields(q):
+            grad_progs[f"{n}.aug"] = (q, ir.augmented_forward(q))
+
+    def padded(shape, q):
+        (lo, hi), (clo, chi) = ir.pad_widths(q, shape[1:])
+        return (shape[0], shape[1] + lo + hi, shape[2] + clo + chi)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(shape, dtype=torch.float32):
@@ -351,6 +397,12 @@ def main() -> int:
             for dtype in ("float32", "bfloat16"):
                 sources.append(kernel_source(prog, (dtype,) * len(prog.inputs),
                                              tile_for(prog, *shape[1:])))
+    for shape in (PAPER_GRID, RAGGED_GRID, SMALL_GRAD, BIG_GRID):
+        for q, prog in grad_progs.values():
+            sources.append(kernel_source(q, ("float32",) * len(q.inputs), tile_for(q, *shape[1:])))
+            for dtype in ("float32", "bfloat16"):
+                sources.append(kernel_source(prog, (dtype,) * len(prog.inputs),
+                                             tile_for(prog, *padded(shape, q)[1:])))
     hdiff2 = ir.repeat(ir.hdiff_program(), 2)
     for prog in (hdiff2, ir.hdiff_coupled_program()):
         sources.append(kernel_source(prog, ("float32",) * len(prog.inputs),
@@ -378,7 +430,8 @@ def main() -> int:
     worst: dict[str, float] = {"hdiff_cuda": 0.0, "hdiff_fixed_cuda": 0.0,
                                "stencil_program_cuda": 0.0, "stencil2d_cuda": 0.0,
                                "jacobi1d_cuda": 0.0, "stencil_program_1d_cuda": 0.0,
-                               "rglru_scan_cuda": 0.0, "wkv6_cuda": 0.0}
+                               "rglru_scan_cuda": 0.0, "wkv6_cuda": 0.0,
+                               GRAD_K2: 0.0}
     results = []
 
     def compare(kernel, label, got, want, exact=False, record=True):
@@ -432,6 +485,68 @@ def main() -> int:
             results.append({"kernel": "stencil_program_cuda",
                             "case": f"{tag}/{len(k2_cases)} programs x k/{str(dtype)[6:]}",
                             "max_abs_err": worst["stencil_program_cuda"], "bit_equal": True})
+    # K2 on the gradient path's programs, at each sweep's padded paper and
+    # ragged grids, float32 and bfloat16, bit for bit (the augmented
+    # programs' cache inputs random, not zero: their ring is copied through).
+    for shape in (PAPER_GRID, RAGGED_GRID):
+        tag = "x".join(map(str, shape))
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, (q, prog) in grad_progs.items():
+                arrays = tuple(fields(prog, padded(shape, q), dtype).values())
+                compare(GRAD_K2, f"{tag}+pad/{name}/{str(dtype)[6:]}",
+                        ir.stencil_program_cuda(prog, arrays),
+                        ir.stencil_program_plain(prog, arrays), exact=True, record=False)
+            results.append({"kernel": GRAD_K2, "case": f"{tag}+pad/{len(grad_progs)} adjoint "
+                            f"and augmented programs/{str(dtype)[6:]}",
+                            "max_abs_err": worst[GRAD_K2], "bit_equal": True})
+    # The whole backward, card against CPU, bit for bit: make_vjp through K2
+    # (its plain version on the CPU); pad, mask, crop and add are elementwise.
+    for name, _, prog in k2_cases:
+        x = fields(prog, SMALL_GRAD)
+        g = {f: randn(SMALL_GRAD) for f in prog.outputs}
+        g = g if len(g) > 1 else g[prog.passthrough]
+        vjp = ir.make_vjp(prog, lambda p: ir.build_backend(p, "cuda"))
+        got = vjp(x, g)
+        want = vjp({f: a.cpu() for f, a in x.items()},
+                   {f: a.cpu() for f, a in g.items()} if isinstance(g, dict) else g.cpu())
+        compare(GRAD_K2, f"make_vjp/{name}/k={prog.steps}", {f: a.cpu() for f, a in got.items()},
+                want, exact=True, record=False)
+    results.append({"kernel": GRAD_K2, "case": f"{'x'.join(map(str, SMALL_GRAD))}/make_vjp card "
+                    f"vs cpu/{len(k2_cases)} programs x k", "max_abs_err": 0.0, "bit_equal": True})
+    # hdiff_fused_ad at the paper grid: K1 forward, K2 backward, card vs CPU.
+    x, gx = randn(PAPER_GRID), randn(PAPER_GRID)
+    ad = []
+    for where in (dev, torch.device("cpu")):
+        xp = x.detach().to(where).requires_grad_(True)
+        cp = torch.tensor(COEFF, device=where, requires_grad=True)
+        hdiff_fused_ad(xp, cp).backward(gx.to(where))
+        ad.append((xp.grad.cpu(), cp.grad.cpu()))
+    check(torch.equal(ad[0][0], ad[1][0]), "hdiff_fused_ad dpsi: card != cpu")
+    dcoeff_rel = abs(float(ad[0][1]) - float(ad[1][1])) / abs(float(ad[1][1]))
+    check(dcoeff_rel <= DCOEFF_TOL, f"hdiff_fused_ad dcoeff: card vs cpu {dcoeff_rel}")
+    results.append({"kernel": GRAD_K2, "case": "64x256x256/hdiff_fused_ad card vs cpu",
+                    "dpsi_bit_equal": True, "dcoeff_rel_err": dcoeff_rel})
+    # The trainer at a reduced grid, card against CPU: the first step's
+    # gradient bit for bit (the loss's backward is elementwise), then the
+    # loss trajectory within FIT_TOL (the mean and the clip's global norm are
+    # reductions, rounded in another order on the card).
+    small_cfg = AssimilationConfig(steps=5, learning_rate=FIT_LR)
+    us, cs = randn(SMALL_GRAD), true_coefficients(SMALL_GRAD, seed=1, device=dev)
+    fit_runs, step0 = [], []
+    for where in (dev, torch.device("cpu")):
+        u_w, fwd = us.to(where), forward_model(small_cfg)
+        obs_w = fwd({"u": u_w, "coeff": cs.to(where)}).detach()
+        leaf = torch.full_like(u_w, 0.025).requires_grad_(True)
+        torch.mean(torch.square(fwd({"u": u_w, "coeff": leaf}) - obs_w)).backward()
+        step0.append((obs_w.cpu(), leaf.grad.cpu()))
+        fit_runs.append(fit_coefficient_field(u_w, obs_w, small_cfg).losses)
+    check(torch.equal(step0[0][0], step0[1][0]), "observations: card != cpu")
+    check(torch.equal(step0[0][1], step0[1][1]), "first step's gradient: card != cpu")
+    traj = max(abs(a - b) / b for a, b in zip(*fit_runs))
+    check(traj <= FIT_TOL, f"fit card vs cpu: loss trajectory off by {traj}")
+    results.append({"kernel": GRAD_K2, "case": f"{'x'.join(map(str, SMALL_GRAD))}/fit card vs "
+                    "cpu: first gradient bit-equal, 5-step losses", "max_rel_err": traj})
+    del x, gx, ad, us, cs, fit_runs, step0
     # K2 on the five elementary programs (this also loads their kernels, so
     # the counted elementary path pays no first-use cost).
     x = randn(PAPER_GRID)
@@ -804,6 +919,92 @@ def main() -> int:
     del a, b, c, out, firsts
     torch.cuda.empty_cache()
 
+    # -- grad: the assimilation trainer at the paper grid, counted ---------------
+    # fit_coefficient_field through build_backend(hdiff_coupled, "cuda",
+    # differentiable=True): per step one forward, then the backward's
+    # augmented forward and adjoint (two each a step at k = 2), all K2; then
+    # hdiff_fused_ad, K1 forward and K2 backward. Counters reset once, read
+    # after each part.
+    u0 = randn(PAPER_GRID)
+    coeff_true = true_coefficients(PAPER_GRID, seed=1, device=dev)
+    cfg1 = AssimilationConfig(steps=FIT_STEPS, learning_rate=FIT_LR)
+    cfg2 = dataclasses.replace(cfg1, steps=FIT_K2_STEPS, k=2)
+    xad, gad = randn(PAPER_GRID), randn(PAPER_GRID)
+    grad_parts, fits, fit_s, obs = {}, {}, {}, {}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for label, cfg in (("k=1", cfg1), ("k=2", cfg2)):
+        before = dict(_build.LAUNCHES)
+        obs[label] = synthetic_observations(u0, coeff_true, cfg).detach()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits[label] = fit_coefficient_field(u0, obs[label], cfg)
+        torch.cuda.synchronize()
+        fit_s[label] = (time.perf_counter() - t0) / cfg.steps
+        grad_parts[label] = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                             if v - before.get(k, 0)}
+    before = dict(_build.LAUNCHES)
+    xp = xad.clone().requires_grad_(True)
+    cp = torch.tensor(COEFF, device=dev, requires_grad=True)
+    hdiff_fused_ad(xp, cp).backward(gad)
+    torch.cuda.synchronize()
+    grad_parts["hdiff_fused_ad"] = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                                    if v - before.get(k, 0)}
+    grad_launches = dict(_build.LAUNCHES)
+    # K2 in all (one-output forwards and N-output augmented forwards and
+    # adjoints), and the N-output launches among them.
+    want = {"k=1": {"stencil_program_cuda": 1 + 3 * FIT_STEPS, KERNEL_N_OUT: 2 * FIT_STEPS},
+            "k=2": {"stencil_program_cuda": 1 + 5 * FIT_K2_STEPS, KERNEL_N_OUT: 4 * FIT_K2_STEPS},
+            "hdiff_fused_ad": {"hdiff_cuda": 1, "stencil_program_cuda": 2, KERNEL_N_OUT: 2}}
+    check(grad_parts == want, f"grad-path launches {grad_parts} != {want}")
+    ring = torch.ones(PAPER_GRID[1:], dtype=torch.bool, device=dev)
+    ring[2:-2, 2:-2] = False
+    fit_out = {}
+    for label, res in fits.items():
+        check(all(np.isfinite(res.losses)), f"fit {label}: non-finite loss {res.losses}")
+        check(min(res.losses) < res.losses[0], f"fit {label}: no loss below the first")
+        check(bool((res.coeff[:, ring] == 0.025).all()), f"fit {label}: ring coefficients moved")
+        check(bool(torch.isfinite(res.coeff).all()), f"fit {label}: non-finite coefficients")
+        fit_out[label] = {"steps": len(res.losses), "s_per_step": fit_s[label],
+                          "loss_first": res.losses[0], "loss_best": min(res.losses),
+                          "loss_ratio": res.loss_ratio, "spikes": res.spikes}
+    check(bool(torch.isfinite(xp.grad).all()) and bool(torch.isfinite(cp.grad)),
+          "hdiff_fused_ad: non-finite gradients")
+    # One step more, profiled: the device's busy share of a trainer step.
+    step_cfg = dataclasses.replace(cfg1, steps=1)
+    fit_coefficient_field(u0, obs["k=1"], step_cfg, coeff_init=fits["k=1"].coeff)  # warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit_coefficient_field(u0, obs["k=1"], step_cfg, coeff_init=fits["k=1"].coeff)
+        torch.cuda.synchronize()
+        step_us = (time.perf_counter() - t0) * 1e6
+    seen = device_kernels(prof)
+    step_busy = sum(v["device_us"] for v in seen.values())
+    k2_us = sum(v["device_us"] for k, v in seen.items() if re.search(r"stencil_program(?!_1d)", k))
+    coupled = ir.hdiff_coupled_program()
+    pgrid = padded(PAPER_GRID, coupled)
+    tiles = {}
+    for label, prog, shape in (("hdiff_coupled", coupled, PAPER_GRID),
+                               ("hdiff_coupled.aug", ir.augmented_forward(coupled), pgrid),
+                               ("hdiff_coupled.adj", ir.adjoint(coupled), pgrid),
+                               ("hdiff_coupled x2", ir.repeat(coupled, 2), PAPER_GRID)):
+        t = tile_for(prog, *shape[1:])
+        tiles[label] = {"grid": "x".join(map(str, shape)), "tile": f"{t.rows}x{t.cols}",
+                        "frames": t.buffers, "inputs": len(prog.inputs),
+                        "outputs": len(prog.outputs), "ops": len(prog.ops)}
+    emit({"phase": "grad", "grid": list(PAPER_GRID), "launches": grad_launches,
+          "launches_by_part": grad_parts, "fits": fit_out,
+          "profiled_step": {"window_us": step_us, "device_busy_us": step_busy,
+                            "busy_share": step_busy / step_us, "k2_device_us": k2_us,
+                            "device_kernel_calls": sum(v["calls"] for v in seen.values()),
+                            "top_kernels": {k[:60]: v for k, v in sorted(
+                                seen.items(), key=lambda kv: -kv[1]["device_us"])[:6]}},
+          "tiles": tiles})
+    del u0, coeff_true, obs, fits, xp, cp, xad, gad, prof
+    torch.cuda.empty_cache()
+
     # -- serve: the recurrent LMs at their published shapes, counted ------------
     serve_launches: dict[str, int] = {}
     want_launches = {"rwkv6-3b": {"wkv6_cuda": 7 * 32},
@@ -964,6 +1165,16 @@ def main() -> int:
         d, rows, cols = shape
         return sum(d * max(rows - 2 * r, 0) * max(cols - 2 * r, 0) for _ in range(sweeps))
 
+    def k2_bytes(prog, shape):
+        """Compulsory bytes of one K2 launch (float32): each input an op
+        reads, the ring of an input that only seeds an output's ring, each
+        output."""
+        n = shape[0] * shape[1] * shape[2]
+        ring = n - interior(shape, prog.radius)
+        read = {r.field for op in prog.ops for r in op.reads}
+        words = sum(n if f in read else ring if f in prog.outputs else 0 for f in prog.inputs)
+        return 4 * (words + n * len(prog.outputs))
+
     flops_pt = ir.hdiff_program().spec().flops  # 72: 26 MACs + 20 other ops
     mask_flops = 18  # K4 evaluates all nine taps: 9 multiplies + 9 adds per point
     jac_flops = 3  # coeff * ((a + b) + c) per point and sweep
@@ -1005,6 +1216,21 @@ def main() -> int:
              interior(shape, 2) * coupled.spec().flops, H100_SXM.peak_flops_vpu_f32),
         ]
         cases = [(*c, tag, None) for c in cases]
+        # K2's N-output site on the gradient path: hdiff_coupled's augmented
+        # forward (6 outputs) and adjoint (2), on the grid padded by 2. Bytes:
+        # every input an op reads, the ring of one that only seeds an output's
+        # ring (the augmented forward's zero cache slots), every output.
+        pshape = padded(shape, coupled)
+        ptag = "x".join(map(str, pshape))
+        for gname in ("hdiff_coupled.aug", "hdiff_coupled.adj"):
+            prog = grad_progs[gname][1]
+            args = tuple(torch.zeros(pshape, device=dev) if f.startswith("c~") and
+                         gname.endswith(".aug") else a
+                         for f, a in fields(prog, pshape).items())
+            cases.append((GRAD_K2, gname, lambda p=prog, a=args: ir.stencil_program_cuda(p, a),
+                          lambda p=prog, a=args: ir.stencil_program_plain(p, a),
+                          k2_bytes(prog, pshape), interior(pshape, 2) * prog.spec().flops,
+                          H100_SXM.peak_flops_vpu_f32, ptag, None))
         for mname in ("jacobi2d_9pt", "laplacian"):
             w = masks[mname]
             cases.append((
@@ -1035,7 +1261,7 @@ def main() -> int:
                    "achieved_gbps": nbytes / (ms * 1e-3) / 1e9, "library_ms": library_ms}
             timing[(kernel, label, grid)] = row
             emit({"phase": "timing", **row})
-        del x, xq, xc, y, x4, y3
+        del x, xq, xc, y, x4, y3, args, cases
         torch.cuda.empty_cache()
 
     # K7 and K6. K7's operations, per chunk of C steps and head, 2 flops a
@@ -1075,9 +1301,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- result lines ----------------------------------------------------------
-    # Launches: K1-K3 from the hdiff path (K2 runs on both paths; its count
-    # here is the hdiff path's), K4/K5/K5' from the elementary path, K6/K7
-    # from the serve path.
+    # Launches: K1-K3 from the hdiff path (K2 runs on the hdiff, elementary
+    # and grad paths; its one-output count here is the hdiff path's),
+    # K4/K5/K5' from the elementary path, K6/K7 from the serve path.
     paper, paper_rows = "x".join(map(str, PAPER_GRID)), "x".join(map(str, PAPER_ROWS))
     rows = [
         ("hdiff_cuda", "hdiff f32", paper, "src/repro_torch/csrc/hdiff.cu",
@@ -1107,6 +1333,18 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    # K2's N-output site: the gradient path's N-output launches (per step the
+    # augmented forward and the adjoint, counted at the launch under their own
+    # key), timed on the adjoint.
+    t = timing[(GRAD_K2, "hdiff_coupled.adj", "x".join(map(str, padded(PAPER_GRID, coupled))))]
+    kernels.append({
+        "name": "stencil_program_cuda", "route": "cuda",
+        "source": "src/repro_torch/ir/codegen_cuda.py",
+        "replaces": "src/repro/ir/lower_pallas.py:273",
+        "launches": grad_launches[KERNEL_N_OUT], "max_abs_err": worst[GRAD_K2],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    })
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@
 GPU, for a source tree given on the command line.
 
     python3 scripts/kernel_bench.py [--src DIR] [--label NAME]
-                                    [--only k7,k2,k6,k3,k1,k4,k5p]
+                                    [--only k7,k2,k6,k3,k1,k4,k5p,k2adj]
                                     [--ptxas] [--profile] [--sass DIR] [--no-check]
 
 ``--src`` names the ``src/`` directory whose ``repro_torch`` is imported
@@ -30,8 +30,13 @@ K5' on ``jacobi1d`` and ``hdiff1d`` x 1, 2 and 3 at (16384, 256)
 and (81920, 1024), float32 and bfloat16, bit for bit against
 ``stencil_program_1d_plain``, beside its yardsticks K5 (``jacobi1d_cuda``)
 and, in float32, one ``conv1d`` of the interior with jacobi1d's composed
-filter (``hdiff1d`` only where the tree's generator has it).
-``--only`` picks kernels (default: all seven). ``--ptxas``
+filter (``hdiff1d`` only where the tree's generator has it); ``k2adj``:
+K2 on the gradient path's N-output programs, ``hdiff_coupled``'s augmented
+forward (6 outputs) and adjoint (2 outputs), at the grids ``make_vjp`` runs
+them on, 64x260x260 and 80x1028x1028 (padded by 2), float32, bit for bit,
+each row with its tile and frame count (only where the tree has
+``ir.adjoint``).
+``--only`` picks kernels (default: all eight). ``--ptxas``
 also compiles each kernel source once more with ``-Xptxas -v`` and prints
 the registers, shared memory and spills it reports; ``--profile`` adds, per
 K7 shape, the device time of each of the call's launches from one
@@ -155,7 +160,7 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only", default="k7,k2,k6,k3,k1,k4,k5p")
+    ap.add_argument("--only", default="k7,k2,k6,k3,k1,k4,k5p,k2adj")
     ap.add_argument("--sass", default=None)
     ap.add_argument("--no-check", action="store_true")
     args = ap.parse_args()
@@ -210,13 +215,20 @@ def main() -> int:
     k5p_sources = {(label, d, shape): kernel_source(p, (d,), tile_for(p, *shape))
                    for label, p in k5p_progs.items() for d in ("float32", "bfloat16")
                    for shape in rows_1d}
+    # k2adj: the gradient path's augmented forward and adjoint of hdiff_coupled.
+    adj_progs = {} if not hasattr(ir, "adjoint") else {
+        "hdiff_coupled.aug": ir.augmented_forward(coupled), "hdiff_coupled.adj": ir.adjoint(coupled)}
+    adj_grids = tuple((d, r + 4, c + 4) for d, r, c in grids)
+    adj_sources = [kernel_source(p, ("float32",) * len(p.inputs), tile_for(p, *g[1:]))
+                   for p in adj_progs.values() for g in adj_grids]
     picked = {"k7": [k7.source()], "k2": k2_sources((hdiff2, coupled)), "k6": [k6.source()],
               "k3": [k13.source()], "k1": [k13.source(), *k2_sources((hdiff1,))],
               "k4": [k45.source(), *k2_sources((jac9,))],
-              "k5p": [k45.source(), *k5p_sources.values()]}
+              "k5p": [k45.source(), *k5p_sources.values()], "k2adj": adj_sources}
     shown = {"k7": [k7.source()], "k2": picked["k2"][::2], "k6": [k6.source()],
              "k3": [k13.source()], "k1": [k13.source()], "k4": [k45.source()],
-             "k5p": [src for (_, _, shape), src in k5p_sources.items() if shape == rows_1d[0]]}
+             "k5p": [src for (_, _, shape), src in k5p_sources.items() if shape == rows_1d[0]],
+             "k2adj": adj_sources[::2]}
     _build.build(list(dict.fromkeys(src for k, srcs in picked.items() if k in only
                                     for src in srcs)))
     emit = {"label": args.label, "src": args.src, "nvidia_smi": smi}
@@ -298,6 +310,24 @@ def main() -> int:
             ms = graph_ms(lambda p=prog, a=arrays: ir.stencil_program_cuda(p, a),
                           replays=10 if grid[0] > 64 else 25)
             row("stencil_program_cuda", label, grid, ms, 0.0)
+            del arrays, got, want
+            torch.cuda.empty_cache()
+    for grid in adj_grids if "k2adj" in only else ():
+        for label, prog in adj_progs.items():
+            arrays = tuple(torch.zeros(grid, device=dev) if f.startswith("c~") and
+                           label.endswith(".aug") else
+                           0.025 * (1.0 + 0.25 * torch.tanh(randn(grid))) if f == "coeff" else
+                           randn(grid) for f in prog.inputs)
+            got = ir.stencil_program_cuda(prog, arrays)
+            want = ir.stencil_program_plain(prog, arrays)
+            torch.cuda.synchronize()
+            if not all(torch.equal(got[f], want[f]) for f in want):
+                raise RuntimeError(f"K2 {label} {grid}: not bit-equal to its plain version")
+            ms = graph_ms(lambda p=prog, a=arrays: ir.stencil_program_cuda(p, a),
+                          replays=10 if grid[0] > 64 else 25)
+            tile = tile_for(prog, *grid[1:])
+            row("stencil_program_cuda", f"{label} (tile {tile.rows}x{tile.cols}, "
+                f"{tile.buffers} frames)", grid, ms, 0.0)
             del arrays, got, want
             torch.cuda.empty_cache()
     for shape in ((1, 512, 2560), (8, 4096, 2560)) if "k6" in only else ():

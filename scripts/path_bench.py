@@ -13,7 +13,12 @@ int32 steps with ``hdiff_fixed`` (K3), 10 ``stencil2d(x, "jacobi2d_9pt")``
 sweeps (K4) and 10 sweeps of ``lower_cuda(jacobi2d_9pt)`` with no metrics
 registry (K2); on fig11's (16384, 256) rows, 10 ``jacobi1d`` sweeps (K5)
 and, with no registry, 10 sweeps of ``lower_cuda(jacobi1d)`` and 5 calls of
-``lower_cuda(repeat(jacobi1d, 2))`` (K5'). Prints one JSON line per leg: the median and quartiles of
+``lower_cuda(repeat(jacobi1d, 2))`` (K5'); and, where the tree has
+``repro_torch.train``, the assimilation trainer: 5 steps of
+``fit_coefficient_field`` on ``hdiff_coupled`` at k = 1 and at k = 2 (K2
+forward, augmented forward and adjoint a sweep, AdamW), whose device time
+per step (the kernels' busy time in one ``torch.profiler`` window of the
+leg after the samples) is printed beside the host time. Prints one JSON line per leg: the median and quartiles of
 µs per step or sweep and every sample, with the card's name and power
 limit. ``--src`` names the ``src/`` directory whose ``repro_torch`` is
 imported (default: this checkout's), so two trees can be timed in turns
@@ -85,6 +90,18 @@ def main() -> int:
         "lower_cuda_jacobi1d_10_k5p": (chain(jac1, rows, 10), 10),
         "lower_cuda_jacobi1d_x2_5_k5p": (chain(jac1x2, rows, 5), 10),
     }
+    fits = {}
+    if hasattr(ir, "build_backend"):
+        from repro_torch.train import (AssimilationConfig, fit_coefficient_field,
+                                       synthetic_observations, true_coefficients)
+
+        coeff_true = true_coefficients((64, 256, 256), seed=1)
+        for k in (1, 2):
+            cfg = AssimilationConfig(steps=5, k=k)
+            obs = synthetic_observations(x, coeff_true, cfg).detach()
+            fits[f"assimilate_k{k}_5"] = (
+                lambda cfg=cfg, obs=obs: fit_coefficient_field(x, obs, cfg), 5)
+        legs.update(fits)
     samples: dict[str, list[float]] = {name: [] for name in legs}
     for fn, _ in legs.values():  # warm-up: builds, loads and first-use costs
         fn()
@@ -95,11 +112,20 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             samples[name].append((time.perf_counter() - t0) / steps * 1e6)
+    device_us = {}
+    for name, (fn, steps) in fits.items():
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device_us[name] = sum(e.self_device_time_total for e in prof.key_averages()
+                              if e.device_type == torch.autograd.DeviceType.CUDA) / steps
     for name, us in samples.items():
         q = statistics.quantiles(us, n=4) if len(us) > 1 else [us[0]] * 3
+        extra = {"device_us_per_step": device_us[name]} if name in device_us else {}
         print(json.dumps({"label": args.label, "src": args.src, "nvidia_smi": smi, "leg": name,
                           "us_per_step_median": statistics.median(us), "q1": q[0], "q3": q[2],
-                          "samples": us}), flush=True)
+                          **extra, "samples": us}), flush=True)
     return 0
 
 

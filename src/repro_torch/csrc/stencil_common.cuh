@@ -32,6 +32,13 @@ __device__ __forceinline__ float limit_flux(float d, float g) {
   return (d * g <= 0.0f) ? d : 0.0f;
 }
 
+// The limiter's gate in an adjoint program (ir/ops.py, flux's vjp rule): the
+// cotangent g passes where the primal flux d was kept (d * gg <= 0, the same
+// test, rounded the same way) and is zero where it was cut.
+__device__ __forceinline__ float limit_gate(float g, float d, float gg) {
+  return (d * gg <= 0.0f) ? g : 0.0f;
+}
+
 // The raw word of an input of type T: the type its frame loader reads.
 template <typename T> struct WordOf { using type = uint32_t; };  // float32, int32
 template <> struct WordOf<__nv_bfloat16> { using type = uint16_t; };

@@ -9,6 +9,11 @@ arrays into the port's tensors on a device, and :func:`to_numpy` turns a
 result (bare tensor or ``{field: tensor}``) back into numpy. Nothing here
 imports JAX: arrays cross as numpy.
 
+Optimizers. :func:`optimizer_state_from_numpy` takes the JAX package's
+``AdamWState`` / ``AdafactorState`` as numpy (``jax.tree.map(np.asarray,
+state)``) and returns the port's, so one update can run from the same
+state in both packages.
+
 LMs. :func:`lm_params_from_numpy` takes the JAX ``build_lm`` parameter
 pytree as numpy (``jax.tree.map(np.asarray, params)``), unstacks its
 scanned superblocks (leading axis ``n_super``) and its tail into the
@@ -51,6 +56,29 @@ def to_numpy(result):
     if result.dtype == torch.bfloat16:
         result = result.to(torch.float32)
     return result.detach().cpu().numpy()
+
+
+def optimizer_state_from_numpy(state, device=None):
+    """The JAX package's ``AdamWState`` (``step, mu, nu``) or
+    ``AdafactorState`` (``step, vr, vc``), its leaves numpy arrays (a tensor
+    or a dict of them per field, bfloat16 moments as float32 or ml_dtypes
+    bfloat16), as the port's state of the same name on ``device`` (``None``
+    means the card)."""
+    from repro_torch.optim import AdafactorState, AdamWState
+
+    dev = resolve_device(device)
+    kinds = {cls._fields: cls for cls in (AdamWState, AdafactorState)}
+    cls = kinds.get(tuple(getattr(state, "_fields", ())))
+    if cls is None:
+        raise TypeError(f"not an AdamWState or AdafactorState: {type(state).__name__}")
+
+    def tensor(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return cls(*(_tree_map(tensor, getattr(state, f)) for f in cls._fields))
 
 
 def _tree_map(fn, tree):

@@ -15,7 +15,12 @@ boundary ring re-applied at absolute indices between sweeps. Multi-field
 and multi-output programs take and return ``{field: tensor}`` mappings.
 Both lowerings report per-call timers and counters through
 :mod:`repro_torch.obs.metrics` when a registry is enabled.
-The sharded, batched and adjoint layers follow (ROADMAP M8-M10).
+
+Derived adjoints (:mod:`repro_torch.ir.autodiff`): ``adjoint(p)`` is itself
+an IR program, so gradients run through the same lowerings;
+``build_backend(p, backend, differentiable=True)`` attaches it as a
+``torch.autograd.Function``. The sharded and batched layers follow
+(ROADMAP M9-M10).
 """
 
 from repro_torch.ir.graph import (
@@ -69,3 +74,15 @@ from repro_torch.ir.lower_cuda import (
     stencil_program_cuda,
     stencil_program_plain,
 )
+from repro_torch.ir.autodiff import (
+    acc_field,
+    adjoint,
+    augmented_forward,
+    cache_field,
+    cache_fields,
+    differentiable_lowering,
+    make_vjp,
+    pad_widths,
+    seed_field,
+)
+from repro_torch.ir.lower_batched import BACKENDS, build_backend

@@ -499,6 +499,7 @@ def render(program: StencilProgram, dtypes, tile: TilePlan) -> str:
         "using repro_torch::from_f32;",
         "using repro_torch::kThreads;",
         "using repro_torch::limit_flux;",
+        *(["using repro_torch::limit_gate;"] if any("limit_gate(" in b for b in body) else []),
         "using repro_torch::to_f32;",
         f"constexpr int TR = {TR}, TC = {TC}, H = {H};",
         f"constexpr int LD = {LD};  // frame row stride: TC + 2H padded to a multiple of 4",
@@ -751,6 +752,7 @@ def render_1d(program: StencilProgram, dtype: str, tile: TilePlan) -> str:
         "using repro_torch::from_f32;",
         "using repro_torch::kThreads;",
         "using repro_torch::limit_flux;",
+        *(["using repro_torch::limit_gate;"] if any("limit_gate(" in b for b in body) else []),
         f"constexpr int V = {V};  // points a 16-byte vector holds",
         f"constexpr int P = {P};  // points a thread holds: {tile.cols} vector(s)",
         f"constexpr int SPANS = {SPANS};  // spans a block holds: one a warp, or one",

@@ -45,6 +45,9 @@ from repro_torch.obs import metrics
 Tensor = torch.Tensor
 KERNEL = "stencil_program_cuda"
 KERNEL_1D = "stencil_program_1d_cuda"
+# K2's N-output launches (adjoint and augmented programs, the counterpart of
+# lower_pallas's N-output site), counted here as well as under KERNEL.
+KERNEL_N_OUT = "stencil_program_cuda.n_outputs"
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _KERNELS: dict[tuple, object] = {}
 
@@ -135,6 +138,8 @@ def stencil_program_cuda(
             code = fn(*ptrs, depth, rows, cols, 0, rows, 0, cols,
                       torch.cuda.current_stream().cuda_stream)
         _build.check_launch(KERNEL, code)
+        if len(outs) > 1:
+            _build.count_launch(KERNEL_N_OUT)
     if len(outs) == 1:
         return outs[program.passthrough]
     return outs

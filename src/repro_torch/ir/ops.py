@@ -79,9 +79,11 @@ def _signed(vals, signs):
 
 # ---------------------------------------------------------------------------
 # Adjoint (vjp) rules, carried over from the JAX package unchanged in
-# structure (the adjoint lowering is ROADMAP M8). The transposition
-# convention: a read of field f at offset o contributes to f's cotangent at
-# offset -o.
+# structure; :mod:`repro_torch.ir.autodiff` builds the adjoint programs from
+# them. Every op a rule creates carries an ``emit`` with its ``compute``'s
+# operand order and association, so adjoint programs lower to the generated
+# kernel too. The transposition convention: a read of field f at offset o
+# contributes to f's cotangent at offset -o.
 # ---------------------------------------------------------------------------
 
 
@@ -191,16 +193,21 @@ def flux(
             gg = l_hi - l_lo
             return torch.where(d * gg <= 0, g, torch.zeros_like(g))
 
+        def gate_emit(g, a_hi, a_lo, l_hi, l_lo):
+            # limit_gate (csrc/stencil_common.cuh): g if d * gg <= 0 else 0.
+            return f"limit_gate({g}, {a_hi} - {a_lo}, {l_hi} - {l_lo})"
+
         def gate_rule(gop, gbar2, fresh2):
             reads2 = (Read(gbar2, gop.reads[0].offset),) + gop.reads[1:]
             return [(gop.reads[0].field, StencilOp(
                 fresh2(f"{gop.name}.d"), reads2, gate, gop.cost,
-                tag=gop.tag, vjp=gate_rule,
+                tag=gop.tag, vjp=gate_rule, emit=gate_emit,
             ))]
 
         gate_op = StencilOp(
             fresh(f"{op.name}.dgate"), gate_reads, gate,
             OpCost(other_ops=4), tag=f"adj:{op.tag}:gate", vjp=gate_rule,
+            emit=gate_emit,
         )
         return [
             (None, gate_op),
@@ -246,7 +253,7 @@ def product(
             out.append((mine.field, StencilOp(
                 fresh(f"{op.name}.d_{mine.field}.{label}"), reads_t,
                 lambda g, v: g * v, OpCost(macs=1),
-                tag=f"adj:product:{label}",
+                tag=f"adj:product:{label}", emit=emit,
             )))
         return out
 
@@ -288,11 +295,14 @@ def weighted_residual(
         def w_term(g, *ts):
             return -g * _tree_sum(_signed(ts, signs))
 
+        def w_emit(g, *ts):
+            return f"((-{g}) * {_tree_sum(_signed(ts, signs))})"
+
         out.append((w_f, StencilOp(
             fresh(f"{op.name}.d_{w_f}"),
             (Read(gbar, zero_o),) + tuple(Read(f, zero_o) for f in t_fields),
             w_term, OpCost(macs=1, other_ops=len(signs)),
-            tag=f"adj:{op.tag}:w",
+            tag=f"adj:{op.tag}:w", emit=w_emit,
         )))
         for i, (tf, s) in enumerate(zip(t_fields, signs)):
             out.append((tf, StencilOp(
@@ -300,6 +310,8 @@ def weighted_residual(
                 (Read(gbar, zero_o), Read(w_f, zero_o)),
                 (lambda g, w: -(w * g)) if s > 0 else (lambda g, w: w * g),
                 OpCost(macs=1), tag=f"adj:{op.tag}:t{i}",
+                emit=(lambda g, w: f"(-({w} * {g}))") if s > 0
+                else (lambda g, w: f"({w} * {g})"),
             )))
         return out
 

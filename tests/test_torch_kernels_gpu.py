@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import repro_torch.ir as ir
+from repro_torch.ir.lower_cuda import KERNEL_N_OUT
 from repro_torch.kernels import _build
 from repro_torch.kernels.hdiff import hdiff_fixed, hdiff_fixed_point_ref, hdiff_fused, hdiff_twostep
 from repro_torch.kernels.hdiff import kernel as k13
@@ -603,3 +604,109 @@ def test_recurrent_wrappers_count_launches(cuda):
     wkv6_plain(r, k, v, w, u, s0)
     rglru_seq_ref(a, b, torch.zeros((1, 8), device=cuda))
     assert _build.LAUNCHES == {"wkv6_cuda": 1, "rglru_scan_cuda": 1}
+
+
+# -- K2 on the gradient path: adjoint and augmented programs ----------------------
+
+
+def _gradient_programs():
+    """Every distinct adjoint and augmented program of the conformance
+    chains (k = 1..3 repeat the same sweeps, so k = 1 covers them)."""
+    progs = {}
+    for name, make in CONFORMANCE_2D.items():
+        q = make()
+        progs[f"{name}.adj"] = ir.adjoint(q)
+        if ir.cache_fields(q):
+            progs[f"{name}.aug"] = ir.augmented_forward(q)
+    return progs
+
+
+GRADIENT_PROGRAMS = sorted(_gradient_programs())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", GRADIENT_PROGRAMS)
+def test_k2_gradient_programs_bit_equal_to_plain(cuda, name, dtype):
+    """Each adjoint and augmented program (up to 9 inputs and 6 outputs),
+    on a ragged grid and on one of several tiles each way, unaligned
+    pointers too."""
+    prog = _gradient_programs()[name]
+    for shape in ((2, 37, 70), (1, 130, 152)):
+        arrays = tuple(_rand(shape, cuda, seed=i).to(dtype) for i in range(len(prog.inputs)))
+        want = ir.stencil_program_plain(prog, arrays)
+        _equal(ir.stencil_program_cuda(prog, arrays), want)
+    arrays = tuple(_offset_by_one(a) for a in arrays)
+    _equal(ir.stencil_program_cuda(prog, arrays), ir.stencil_program_plain(prog, arrays))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("name", sorted(CONFORMANCE_2D))
+def test_make_vjp_on_the_card_equals_the_cpu(cuda, name, k):
+    """The whole backward through K2 on the card, bit for bit against the
+    same call on the CPU (plain K2; pad, mask, crop and add are
+    elementwise)."""
+    prog = ir.repeat(CONFORMANCE_2D[name](), k)
+    shape = (2, 37, 70)
+    x = {f: _rand(shape, cuda, seed=i) for i, f in enumerate(prog.inputs)}
+    if "coeff" in x:
+        x["coeff"] = 0.025 * (1.0 + 0.25 * torch.tanh(x["coeff"]))
+    g = {f: _rand(shape, cuda, seed=40 + i) for i, f in enumerate(prog.outputs)}
+    g = g if len(prog.outputs) > 1 else g[prog.passthrough]
+    vjp = ir.make_vjp(prog, lambda p: ir.build_backend(p, "cuda"))
+    got = vjp(x, g)
+    host = {f: a.cpu() for f, a in x.items()}
+    want = vjp(host, {f: a.cpu() for f, a in g.items()} if isinstance(g, dict) else g.cpu())
+    _equal({f: a.cpu() for f, a in got.items()}, want)
+
+
+def test_assimilation_steps_launch_k2_exactly(cuda):
+    from repro_torch.train import (AssimilationConfig, fit_coefficient_field,
+                                   synthetic_observations, true_coefficients)
+
+    shape = (2, 40, 48)
+    u0 = _rand(shape, cuda, seed=7)
+    for k, per_step in ((1, 3), (2, 5)):
+        cfg = AssimilationConfig(steps=3, k=k)
+        obs = synthetic_observations(u0, true_coefficients(shape, seed=1), cfg).detach()
+        _build.reset_launches()
+        res = fit_coefficient_field(u0, obs, cfg)
+        assert _build.LAUNCHES == {"stencil_program_cuda": 3 * per_step,
+                                   KERNEL_N_OUT: 3 * (per_step - 1)}
+        host = fit_coefficient_field(u0.cpu(), obs.cpu(), AssimilationConfig(steps=1, k=k))
+        assert host.losses[0] == res.losses[0] or abs(host.losses[0] - res.losses[0]) <= (
+            1e-6 * host.losses[0])  # the mean is a reduction
+        assert torch.equal(res.coeff[..., :2, :].cpu(), torch.full((2, 2, 48), 0.025))
+
+
+def test_hdiff_fused_ad_launches_and_matches_the_cpu(cuda):
+    from repro_torch.kernels.hdiff import hdiff_fused_ad
+
+    psi = _rand((2, 40, 48), cuda, seed=8)
+    g = _rand((2, 40, 48), cuda, seed=9)
+    grads = []
+    for dev in (cuda, "cpu"):
+        p = psi.detach().to(dev).requires_grad_(True)
+        c = torch.tensor(0.03, device=dev, requires_grad=True)
+        _build.reset_launches()
+        hdiff_fused_ad(p, c).backward(g.to(dev))
+        if dev is cuda:
+            assert _build.LAUNCHES == {"hdiff_cuda": 1, "stencil_program_cuda": 2,
+                                       KERNEL_N_OUT: 2}
+        grads.append((p.grad.cpu(), c.grad.cpu()))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert abs(float(grads[0][1]) - float(grads[1][1])) <= 1e-5 * abs(float(grads[1][1]))
+
+
+def test_generic_rule_op_has_no_cuda_emitter(cuda):
+    from repro_torch.ir.graph import OpCost, Read, StencilOp, StencilProgram
+
+    # The forward op lowers (it has an emitter) but has no adjoint rule, so
+    # its adjoint's terms come from the generic rule, which K2 refuses.
+    op = StencilOp("sq", (Read("u", (0, 0)), Read("u", (0, 1))), lambda a, b: a * b,
+                   OpCost(macs=1), tag="custom-sq", emit=lambda a, b: f"({a} * {b})")
+    prog = StencilProgram("custom", ["u"], [op], ndim=2)
+    fn = ir.build_backend(prog, "cuda", differentiable=True)
+    x = _rand((1, 16, 16), cuda).requires_grad_(True)
+    y = fn(x)
+    with pytest.raises(ValueError, match="has no CUDA emitter"):
+        y.sum().backward()
