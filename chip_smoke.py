@@ -133,6 +133,36 @@ script's seconds so far when it was printed):
               adjoint at the padded 64x260x260 and 80x1028x1028, their bytes
               bound counting each input an op reads, the ring of an input
               that only seeds an output's ring, and each output
+  sharded     the rows x cols decomposition (``lower_sharded``) on the card.
+              (a) In this process, K2's offset mode shard by shard: hdiff
+              k = 1-3, shallow_water and hdiff_coupled at 64x256x256 on
+              the 2x4 and 4x2 partitions, every slab that ``lower_sharded``
+              launches on each shard (the halo-padded block with zeros past
+              the grid edge; under overlap the interior and the four edge
+              bands) launched with its global offsets, its kept region
+              bit-equal to the plain version with the same offsets and to
+              the same region of the unsharded launch; hdiff_coupled's
+              augmented forward and adjoint on each 2x4 shard's padded
+              block (the zero-boundary backward) bit-equal to their plain
+              versions; one shard's padded-block launch timed by CUDA-graph
+              replays, also at 80x1024x1024, against the bound of what the
+              shard keeps (the slab read once, the kept region written once,
+              each sweep's operations on the points later sweeps need).
+              (b) Eight gloo ranks spawned
+              after the build, all on the one card, each running
+              ``lower_sharded`` over ``make_mesh((2, 4), ("rows", "cols"),
+              backend="gloo")`` at 64x256x256 with the launch counters
+              reset just before: hdiff k = 1-3 (overlap off, then on),
+              shallow_water with the merged exchange, and two value-and-grad
+              steps of ``build_backend(hdiff_coupled, "sharded-cuda",
+              differentiable=True)``; every rank's K2 count must be exact.
+              The gathered results must be bit-equal to single-process
+              ``lower_cuda`` (gradients to single-process ``cuda``), overlap
+              bit-equal to no overlap, and the bytes every rank sent per
+              round equal to the wire models (1,060,864 B at hdiff k = 1).
+              Host seconds per step and per exchange round are 8 gloo ranks
+              time-sharing one H100 with the bands staged through host
+              memory: not a multi-GPU figure
 
 Then the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (each
 kernel's launches from the path that runs it), and last
@@ -147,6 +177,9 @@ import contextlib
 import dataclasses
 import gc
 import json
+import multiprocessing
+import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -185,6 +218,12 @@ SERVE_ARCHS = ("rwkv6-3b", "recurrentgemma-2b")
 SLICE_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3}
 SERVE_PROMPTS = (512, 256, 128, 64, 512, 256, 192, 100)
 SERVE_NEW = 16
+SHARD_MESH = (2, 4)  # the 8-rank run's rows x cols mesh
+SHARD_PARTITIONS = ((2, 4), (4, 2))  # the one-process offset-mode check's splits
+SHARD_STEPS = 5  # timed calls of each forward case on every rank
+SHARD_GRAD_STEPS = 2
+SHARD_TIMEOUT = 600  # seconds for the 8-rank spawn, start-up included
+GRAD_TOL = 1e-5  # tests/conformance.py's relative gradient bound
 T_START = time.perf_counter()
 
 
@@ -293,6 +332,243 @@ def moved_bytes(fn) -> int:
     with Count():
         fn()
     return Count.total
+
+
+def shard_slabs(i, j, rows, cols, h):
+    """Every K2 launch ``lower_sharded`` makes on shard ``(i, j)`` of
+    ``rows x cols`` blocks in column mode, as ``(name, row0, col0, R, C)``:
+    the slab's first global row and column and its extent. The halo-padded
+    block, and under overlap the unpadded interior and the four edge bands
+    (``_edge_bands``'s slices and offsets). Each keeps ``[h, R-h) x [h, C-h)``."""
+    r0, c0 = i * rows, j * cols
+    return [("block", r0 - h, c0 - h, rows + 2 * h, cols + 2 * h),
+            ("interior", r0, c0, rows, cols),
+            ("top", r0 - h, c0 - h, 3 * h, cols + 2 * h),
+            ("bottom", r0 + rows - 2 * h, c0 - h, 3 * h, cols + 2 * h),
+            ("left", r0, c0 - h, rows, 3 * h),
+            ("right", r0, c0 + cols - 2 * h, rows, 3 * h)]
+
+
+def shard_bound_work(prog, depth, slab, grid):
+    """``(bytes, operations)`` that one K2 launch on ``slab`` (``shard_slabs``'s
+    tuple, float32) must spend on the region the shard keeps: each input an
+    op reads over the whole slab once, an input that only seeds an output's
+    ring over the kept points on the grid's ring, each output over the kept
+    region once; and each sweep's operations on the points later sweeps need
+    (the kept region grown by the later sweeps' radii), less the grid's ring
+    of that sweep, which copies its input."""
+    _, row0, col0, rows, cols = slab
+    h = prog.radius
+
+    def span(lo, hi, a, b):
+        return max(0, min(hi, b) - max(lo, a))
+
+    kr = (row0 + h, row0 + rows - h)
+    kc = (col0 + h, col0 + cols - h)
+    kept = depth * (kr[1] - kr[0]) * (kc[1] - kc[0])
+    kept_ring = kept - depth * span(*kr, h, grid[0] - h) * span(*kc, h, grid[1] - h)
+    read = {r.field for op in prog.ops for r in op.reads}
+    words = sum(depth * rows * cols if f in read else kept_ring if f in prog.outputs else 0
+                for f in prog.inputs)
+    ops, later = 0, h
+    for q in prog.chain:
+        later -= q.radius
+        ops += (depth * span(kr[0] - later, kr[1] + later, q.radius, grid[0] - q.radius)
+                * span(kc[0] - later, kc[1] + later, q.radius, grid[1] - q.radius)
+                * q.spec().flops)
+    return 4 * (words + kept * len(prog.outputs)), ops
+
+
+def _sharded_rank(rank, world, store, out):
+    """One gloo rank of the sharded phase (run in a spawned process): writes
+    ``("ok", findings)`` or ``("error", traceback)`` to ``<out>.<rank>``."""
+    import traceback
+
+    try:
+        status = ("ok", _sharded_rank_body(rank, world, store))
+    except Exception:  # noqa: BLE001 - carried to the parent
+        status = ("error", traceback.format_exc())
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(status, f)
+    if status[0] != "ok":
+        os._exit(1)
+
+
+def _sharded_rank_body(rank, world, store):
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    import repro_torch.ir as ir
+    from repro_torch.dist import (count_wire, gather_blocks, gradient_halo_exchange_bytes,
+                                  program_halo_exchange_bytes, shard_block, start_exchange)
+    from repro_torch.ir.lower_cuda import KERNEL_N_OUT
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(SHARD_MESH, ("rows", "cols"), backend="gloo")
+    dev = mesh.device
+    depth, rows, cols = PAPER_GRID
+    # The global fields, the same on every rank (a CPU generator from the seed).
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(PAPER_GRID, generator=gen)
+    sw_prog, hc_prog = ir.shallow_water_program(), ir.hdiff_coupled_program()
+    sw = {f: torch.randn(PAPER_GRID, generator=gen) for f in sw_prog.inputs}
+    hc = {"u": torch.randn(PAPER_GRID, generator=gen),
+          "coeff": 0.025 * (1.0 + 0.25 * torch.tanh(torch.randn(PAPER_GRID, generator=gen)))}
+    wgt = torch.randn(PAPER_GRID, generator=gen)
+
+    def local(a):
+        return shard_block(a, mesh).to(dev)
+
+    xl, wl = local(x), local(wgt)
+    swl = {f: local(a) for f, a in sw.items()}
+    hcl = {f: local(a) for f, a in hc.items()}
+    hdiff = {k: ir.repeat(ir.hdiff_program(), k) for k in (1, 2, 3)}
+    axes = dict(depth_axis=None, row_axis="rows", col_axis="cols")
+    fwd = {(k, ov): ir.lower_sharded(hdiff[k], mesh, overlap=ov, **axes)
+           for k in (1, 2, 3) for ov in (False, True)}
+    sw_fn = ir.lower_sharded(sw_prog, mesh, merge_exchange=True, **axes)
+    grad_fn = ir.build_backend(hc_prog, "sharded-cuda", mesh=mesh, differentiable=True)
+
+    def grad_step():
+        leaves = {f: a.clone().requires_grad_(True) for f, a in hcl.items()}
+        (grad_fn(leaves) * wl).sum().backward()
+        return {f: a.grad for f, a in leaves.items()}
+
+    def timed(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, time.perf_counter() - t0
+
+    cases = [(f"hdiff k={k}" + (" overlap" if ov else ""), lambda f=f: f(xl), SHARD_STEPS)
+             for (k, ov), f in fwd.items()]
+    cases += [("shallow_water merged", lambda: sw_fn(swl), SHARD_STEPS),
+              ("hdiff_coupled value-and-grad", grad_step, SHARD_GRAD_STEPS)]
+    for _, fn, _ in cases:  # warm-up: libraries loaded, gloo pairs connected
+        fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    _build.reset_launches()
+    secs, outs = {}, {}
+    for label, fn, n in cases:
+        for _ in range(n):
+            outs[label], sec = timed(fn)
+            secs.setdefault(label, []).append(sec)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+
+    # Outside the count: bytes per round, exchange time, checks.
+    wire = {}
+    for label, fn, prog in [(f"hdiff k={k}", fwd[(k, False)], hdiff[k]) for k in (1, 2, 3)] + [
+            ("shallow_water merged", sw_fn, sw_prog)]:
+        arg = swl if prog is sw_prog else xl
+        with count_wire() as c:
+            fn(arg)
+        t = torch.tensor([c.sent_bytes, c.sent_messages, c.host_staged_bytes])
+        dist.all_reduce(t)
+        wire[label] = {"sent_bytes": int(t[0]), "messages": int(t[1]),
+                       "host_staged_bytes": int(t[2]),
+                       "model_bytes": program_halo_exchange_bytes(
+                           prog, depth, rows, cols, SHARD_MESH[0], col_shards=SHARD_MESH[1])}
+    with count_wire() as c:
+        grad_step()
+    t = torch.tensor([c.sent_bytes, c.sent_messages, c.host_staged_bytes])
+    dist.all_reduce(t)
+    wire["hdiff_coupled value-and-grad"] = {
+        "sent_bytes": int(t[0]), "messages": int(t[1]), "host_staged_bytes": int(t[2]),
+        "model_bytes": gradient_halo_exchange_bytes(hc_prog, depth, rows, cols,
+                                                    mesh_shape=SHARD_MESH)}
+    # One round of hdiff's halo-2 exchange alone: posting it (the bands'
+    # copies to pinned host memory, a stream sync, the isend/irecv calls),
+    # then waiting for it and copying the received bands back; and the same
+    # round on host copies of the blocks, which gloo moves without staging.
+    exchange_s = {"total": [], "post": [], "wait": [], "host_blocks": []}
+    xh = xl.cpu()
+    for _ in range(10):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rnd = start_exchange([(xl, 2)], mesh, "rows", "cols", pad_cols=True)
+        t1 = time.perf_counter()
+        rnd.wait()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        exchange_s["total"].append(t2 - t0)
+        exchange_s["post"].append(t1 - t0)
+        exchange_s["wait"].append(t2 - t1)
+        _, sec = timed(lambda: start_exchange([(xh, 2)], mesh, "rows", "cols",
+                                              pad_cols=True).wait())
+        exchange_s["host_blocks"].append(sec)
+    same = torch.tensor([int(all(torch.equal(outs[f"hdiff k={k} overlap"], outs[f"hdiff k={k}"])
+                                 for k in (1, 2, 3)))])
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    gathered = {k: gather_blocks(outs[f"hdiff k={k}"], mesh) for k in (1, 2, 3)}
+    sw_g = {f: gather_blocks(a, mesh) for f, a in outs["shallow_water merged"].items()}
+    grad_g = {f: gather_blocks(a, mesh) for f, a in outs["hdiff_coupled value-and-grad"].items()}
+    found = {"launches": launches, "secs": secs, "exchange_s": exchange_s}
+    if rank == 0:
+        checks = {"overlap_bit_equal": bool(same)}
+        for k in (1, 2, 3):
+            want = ir.lower_cuda(hdiff[k])(x.to(dev))
+            checks[f"hdiff k={k} bit_equal"] = torch.equal(gathered[k], want)
+        want = ir.lower_cuda(sw_prog)({f: a.to(dev) for f, a in sw.items()})
+        checks["shallow_water bit_equal"] = all(torch.equal(sw_g[f], want[f]) for f in want)
+        single = ir.build_backend(hc_prog, "cuda", differentiable=True)
+        leaves = {f: a.to(dev).requires_grad_(True) for f, a in hc.items()}
+        (single(leaves) * wgt.to(dev)).sum().backward()
+        checks["grad bit_equal"] = all(torch.equal(grad_g[f], leaves[f].grad) for f in leaves)
+        checks["grad max_rel_err"] = max(
+            ((grad_g[f] - leaves[f].grad).abs().max() / leaves[f].grad.abs().max()).item()
+            for f in leaves)
+        checks["finite"] = all(bool(torch.isfinite(a).all()) for a in
+                               (*gathered.values(), *sw_g.values(), *grad_g.values()))
+        found.update(checks=checks, wire=wire, n_out_key=KERNEL_N_OUT)
+    dist.barrier()
+    dist.destroy_process_group()
+    return found
+
+
+def run_sharded_ranks(world):
+    """Spawns the sharded phase's ``world`` gloo ranks and returns their
+    findings in rank order; raises with a failed rank's traceback, or when
+    the spawn outlives ``SHARD_TIMEOUT``."""
+    work = ROOT / "build" / "repro_torch" / f"sharded.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    store, out = str(work / "store"), str(work / "out")
+    for f in work.iterdir():
+        f.unlink()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_sharded_rank, args=(r, world, store, out)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_TIMEOUT
+    try:
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    results, errors = [], []
+    for r in range(world):
+        path = Path(f"{out}.{r}")
+        status, value = pickle.loads(path.read_bytes()) if path.exists() else (
+            "error", f"rank {r} left no result (exit code {procs[r].exitcode})")
+        if status != "ok":
+            errors.append(f"rank {r}: {value}")
+        results.append(value)
+    check(not errors, "sharded ranks failed:\n" + "\n".join(errors))
+    return results
 
 
 def main() -> int:
@@ -419,6 +695,23 @@ def main() -> int:
     for prog in (*jac.values(), *chains_1d.values()):
         for dtype in ("float32", "bfloat16"):  # one span for every row length
             sources.append(kernel_source(prog, (dtype,), tile_for(prog, *PAPER_ROWS)))
+    # The sharded phase's K2 launches: every block shape lower_sharded
+    # gives K2 on each partition (padded blocks, overlap's interiors and
+    # edge bands), and the gradient's zero-boundary sweeps on the 2x4 mesh.
+    coupled = ir.hdiff_coupled_program()
+    shard_progs = {f"hdiff k={k}": ir.repeat(ir.hdiff_program(), k) for k in (1, 2, 3)}
+    shard_progs.update({"shallow_water": ir.shallow_water_program(), "hdiff_coupled": coupled})
+    for grid in (PAPER_GRID, BIG_GRID):
+        for n_row, n_col in SHARD_PARTITIONS:
+            for prog in shard_progs.values():
+                for *_, rr, cc in shard_slabs(0, 0, grid[1] // n_row, grid[2] // n_col,
+                                              prog.radius):
+                    sources.append(kernel_source(prog, ("float32",) * len(prog.inputs),
+                                                 tile_for(prog, rr, cc)))
+    for q in (ir.augmented_forward(coupled), ir.adjoint(coupled)):
+        rr, cc = PAPER_GRID[1] // SHARD_MESH[0], PAPER_GRID[2] // SHARD_MESH[1]
+        sources.append(kernel_source(q, ("float32",) * len(q.inputs),
+                                     tile_for(q, rr + 2 * q.radius, cc + 2 * q.radius)))
     sources += [k6.source(), k7.source()]
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
@@ -1300,6 +1593,140 @@ def main() -> int:
         del a, b, h0
         torch.cuda.empty_cache()
 
+    # -- sharded: the rows x cols decomposition ------------------------------------
+    # (a) K2's offset mode, shard by shard, in this process: every slab that
+    # lower_sharded hands K2 on each shard (the halo-padded block, with zeros
+    # past the grid edge as the exchange gives an edge rank; under overlap the
+    # unpadded interior and the four edge bands), launched with its global
+    # offsets. Each slab's kept region must be bit-equal to the plain version
+    # on the same slab and to the same region of the unsharded launch. Then
+    # the gradient's zero-boundary launches (hdiff_coupled's augmented forward
+    # and adjoint, on each 2x4 shard's padded block, no offsets) against their
+    # plain versions. Errors are kept apart for the one- and N-output sites.
+    offset_checks, shard_timing = 0, {}
+    offset_err = {"stencil_program_cuda": 0.0, GRAD_K2: 0.0}
+
+    def hold(site, label, got, want):
+        nonlocal offset_checks
+        err = (got.double() - want.double()).abs().max().item()
+        offset_err[site] = max(offset_err[site], err)
+        check(torch.equal(got, want), f"K2 offset mode {label}: max abs error {err}")
+        offset_checks += 1
+
+    for grid in (PAPER_GRID, BIG_GRID):
+        gtag = "x".join(map(str, grid))
+        for label, prog in shard_progs.items():
+            arrays = tuple(fields(prog, grid).values())
+            outs = tuple(prog.outputs) if len(prog.outputs) > 1 else (prog.passthrough,)
+            site = GRAD_K2 if len(prog.outputs) > 1 else "stencil_program_cuda"
+
+            def by_field(y, outs=outs):
+                return y if isinstance(y, dict) else {outs[0]: y}
+
+            whole = by_field(ir.stencil_program_cuda(prog, arrays))
+            h = prog.radius
+            padded_g = [torch.nn.functional.pad(a, (h, h, h, h)) for a in arrays]
+            for n_row, n_col in SHARD_PARTITIONS:
+                r, c = grid[1] // n_row, grid[2] // n_col
+                # Every shard and slab at the paper grid; the timed block at the large.
+                slabs = ([(i, j, sl) for i in range(n_row) for j in range(n_col)
+                          for sl in shard_slabs(i, j, r, c, h)] if grid == PAPER_GRID
+                         else [(1, 1, shard_slabs(1, 1, r, c, h)[0])])
+                for i, j, sl in slabs:
+                    name, row0, col0, rr, cc = sl
+                    slab = tuple(a[:, row0 + h : row0 + h + rr, col0 + h : col0 + h + cc]
+                                 .contiguous() for a in padded_g)
+                    kw = dict(row_offset=row0, rows_global=grid[1], col_offset=col0,
+                              cols_global=grid[2])
+                    got = by_field(ir.stencil_program_cuda(prog, slab, **kw))
+                    plain = by_field(ir.stencil_program_plain(prog, slab, **kw))
+                    torch.cuda.synchronize()
+                    for f in outs:
+                        kept = got[f][:, h : rr - h, h : cc - h]
+                        tag = f"{gtag}/{label}/{n_row}x{n_col} shard ({i}, {j}) {name}[{f}]"
+                        hold(site, tag, kept, plain[f][:, h : rr - h, h : cc - h])
+                        hold(site, tag + " vs unsharded", kept,
+                             whole[f][:, row0 + h : row0 + rr - h, col0 + h : col0 + cc - h])
+                    if (i, j, name) == (1, 1, "block"):
+                        nbytes, ops = shard_bound_work(prog, grid[0], sl, grid[1:])
+                        bound_ms, bound_by = bound(nbytes, ops, H100_SXM.peak_flops_vpu_f32)
+                        row = {"kernel": "stencil_program_cuda", "case": f"{label} shard",
+                               "grid": gtag, "mesh": f"{n_row}x{n_col}",
+                               "block": "x".join(map(str, slab[0].shape)),
+                               "ms": graph_ms(lambda p=prog, b=slab, kw=kw:
+                                              ir.stencil_program_cuda(p, b, **kw)),
+                               "plain_ms": event_ms(lambda p=prog, b=slab, kw=kw:
+                                                    ir.stencil_program_plain(p, b, **kw)),
+                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                        shard_timing[(label, f"{n_row}x{n_col}", gtag)] = row
+            del arrays, whole, padded_g, slab, got, plain
+            torch.cuda.empty_cache()
+    rr, cc = PAPER_GRID[1] // SHARD_MESH[0], PAPER_GRID[2] // SHARD_MESH[1]
+    for q in (ir.augmented_forward(coupled), ir.adjoint(coupled)):
+        h = q.radius
+        padded_g = [torch.nn.functional.pad(a, (h, h, h, h))
+                    for a in fields(q, PAPER_GRID).values()]
+        for i in range(SHARD_MESH[0]):
+            for j in range(SHARD_MESH[1]):
+                slab = tuple(a[:, i * rr : i * rr + rr + 2 * h, j * cc : j * cc + cc + 2 * h]
+                             .contiguous() for a in padded_g)
+                got, plain = ir.stencil_program_cuda(q, slab), ir.stencil_program_plain(q, slab)
+                torch.cuda.synchronize()
+                for f in q.outputs:
+                    hold(GRAD_K2, f"{q.name} 2x4 shard ({i}, {j}) zero boundary[{f}]",
+                         got[f][:, h : h + rr, h : h + cc], plain[f][:, h : h + rr, h : h + cc])
+        del padded_g, slab, got, plain
+    # (b) Eight gloo ranks on the one card, spawned now that every kernel is built.
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    t0 = time.perf_counter()
+    ranks = run_sharded_ranks(world)
+    spawn_s = time.perf_counter() - t0
+    chk = ranks[0]["checks"]
+    for key in ("overlap_bit_equal", "hdiff k=1 bit_equal", "hdiff k=2 bit_equal",
+                "hdiff k=3 bit_equal", "shallow_water bit_equal", "finite"):
+        check(chk[key], f"sharded 8-rank run: {key} is false")
+    check(chk["grad bit_equal"] or chk["grad max_rel_err"] <= GRAD_TOL,
+          f"sharded gradient off by {chk['grad max_rel_err']} (relative)")
+    for label, w in ranks[0]["wire"].items():
+        check(w["sent_bytes"] == w["model_bytes"],
+              f"sharded {label}: {w['sent_bytes']} bytes sent != model {w['model_bytes']}")
+    check(ranks[0]["wire"]["hdiff k=1"]["sent_bytes"] == 1_060_864,
+          "hdiff k=1 round on 2x4 at 64x256x256 is not 1,060,864 bytes")
+    # Per rank: hdiff k = 1-3 one launch a call, five under overlap (the
+    # interior, then four edge bands); shallow_water one (three outputs);
+    # a value-and-grad step three (forward, then the augmented forward and
+    # the adjoint, both N-output).
+    per_rank = {"stencil_program_cuda": 3 * SHARD_STEPS * (1 + 5) + SHARD_STEPS
+                + 3 * SHARD_GRAD_STEPS,
+                KERNEL_N_OUT: SHARD_STEPS + 2 * SHARD_GRAD_STEPS}
+    for r, res in enumerate(ranks):
+        check(res["launches"] == per_rank, f"rank {r} launches {res['launches']} != {per_rank}")
+    # Summed over the ranks: every launch, and the N-output ones (which
+    # replace lower_pallas.py:273, the rest :263).
+    sharded_launches = {k: sum(res["launches"][k] for res in ranks) for k in per_rank}
+    host_label = ("8 gloo ranks time-sharing one H100, bands staged through host memory: "
+                  "not a multi-GPU figure")
+    step_s = {label: {"median_of_rank_medians": statistics.median(
+                          statistics.median(res["secs"][label]) for res in ranks),
+                      "slowest_rank_median": max(statistics.median(res["secs"][label])
+                                                 for res in ranks)}
+              for label in ranks[0]["secs"]}
+    exchange_s = {part: {"median_of_rank_medians": statistics.median(
+                             statistics.median(res["exchange_s"][part]) for res in ranks),
+                         "slowest_rank_median": max(statistics.median(res["exchange_s"][part])
+                                                    for res in ranks)}
+                  for part in ranks[0]["exchange_s"]}
+    emit({"phase": "sharded", "offset_mode": {
+              "checks_bit_equal": offset_checks, "max_abs_err": offset_err,
+              "partitions": ["x".join(map(str, m)) for m in SHARD_PARTITIONS],
+              "timing": list(shard_timing.values())},
+          "ranks": {"mesh": "x".join(map(str, SHARD_MESH)), "grid": list(PAPER_GRID),
+                    "backend": "gloo", "spawn_s": spawn_s, "k2_launches": sharded_launches,
+                    "checks": chk, "wire_per_round": ranks[0]["wire"],
+                    "host_s_per_step": {"label": host_label, **step_s},
+                    "exchange_s_per_round": {"label": host_label, "case": "hdiff halo 2",
+                                             **exchange_s}}})
+
     # -- result lines ----------------------------------------------------------
     # Launches: K1-K3 from the hdiff path (K2 runs on the hdiff, elementary
     # and grad paths; its one-output count here is the hdiff path's),
@@ -1345,6 +1772,25 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     })
+    # K2 on the sharded path, both sites: the 8-rank run's launches summed
+    # over the ranks, the one-output ones timed on one shard of hdiff at
+    # k = 1 on the 2x4 split, the N-output ones on shallow_water's; the
+    # errors are the offset mode's against the plain version and the
+    # unsharded launch (N outputs: and the zero-boundary gradient launches).
+    mesh_tag = "x".join(map(str, SHARD_MESH))
+    for label, site, replaces, count in (
+            ("hdiff k=1", "stencil_program_cuda", "src/repro/ir/lower_pallas.py:263",
+             sharded_launches["stencil_program_cuda"] - sharded_launches[KERNEL_N_OUT]),
+            ("shallow_water", GRAD_K2, "src/repro/ir/lower_pallas.py:273",
+             sharded_launches[KERNEL_N_OUT])):
+        t = shard_timing[(label, mesh_tag, paper)]
+        kernels.append({
+            "name": "stencil_program_cuda", "route": "cuda",
+            "source": "src/repro_torch/ir/codegen_cuda.py", "replaces": replaces,
+            "launches": count, "max_abs_err": offset_err[site],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+        })
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,12 @@ Both lowerings report per-call timers and counters through
 Derived adjoints (:mod:`repro_torch.ir.autodiff`): ``adjoint(p)`` is itself
 an IR program, so gradients run through the same lowerings;
 ``build_backend(p, backend, differentiable=True)`` attaches it as a
-``torch.autograd.Function``. The sharded and batched layers follow
-(ROADMAP M9-M10).
+``torch.autograd.Function``.
+
+        --> lower_sharded     (rows x cols domain decomposition on
+                               torch.distributed: per-field halo exchange,
+                               K2 in offset mode or the evaluator per shard;
+                               ``plan_partition`` picks the mesh shape)
 """
 
 from repro_torch.ir.graph import (
@@ -65,7 +69,13 @@ from repro_torch.ir.evaluate import (
     slab_sweep,
     thread_chain,
 )
-from repro_torch.ir.plan import SMEM_BLOCK_LIMIT, TilePlan, plan_fixed_tile
+from repro_torch.ir.plan import (
+    SMEM_BLOCK_LIMIT,
+    Partition2D,
+    TilePlan,
+    plan_fixed_tile,
+    plan_partition,
+)
 from repro_torch.ir.lower_reference import lower_reference
 from repro_torch.ir.lower_cuda import (
     lower_cuda,
@@ -74,6 +84,7 @@ from repro_torch.ir.lower_cuda import (
     stencil_program_cuda,
     stencil_program_plain,
 )
+from repro_torch.ir.lower_sharded import lower_sharded
 from repro_torch.ir.autodiff import (
     acc_field,
     adjoint,
@@ -85,4 +96,4 @@ from repro_torch.ir.autodiff import (
     pad_widths,
     seed_field,
 )
-from repro_torch.ir.lower_batched import BACKENDS, build_backend
+from repro_torch.ir.lower_batched import BACKENDS, SHARDED_BACKENDS, build_backend

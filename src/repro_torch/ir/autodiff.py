@@ -35,9 +35,12 @@ f^T(interior_mask * g)``, with ``f^T`` evaluated AT ring points too under
 zero extension beyond the grid. On one device (``build``): mask the ring of
 the output cotangent, zero-PAD every adjoint input by the radius per side,
 run the ring-semantics lowering of the adjoint program on the padded grid,
-CROP back and add the ring passthrough term. Any pad >= r is exact. The
-sharded form (``build_zero``, ``boundary="zero"``) needs ``lower_sharded``
-(ROADMAP M9); the signatures keep it.
+CROP back and add the ring passthrough term. Any pad >= r is exact.
+Sharded (``build_zero``): lower the adjoint and augmented sweeps with
+``lower_sharded(..., boundary="zero")``, which computes every owned point
+under zero extension from the exchanged block, so nothing is padded or
+cropped. The sharded step is SPMD (each rank holds its block), so the ring
+masks take each block's global placement (``placement``).
 
 Temporal blocking reverses sweep by sweep: the forward pass saves only the
 INPUT tensors, the backward recomputes the k-1 intermediate states with the
@@ -320,31 +323,34 @@ def pad_widths(
     return tuple((pr, pr) for _ in grid)
 
 
-def _interior_mask(shape: tuple[int, ...], r: int, device) -> Tensor:
+def _interior_mask(shape: tuple[int, ...], r: int, device, placement=None) -> Tensor:
     """Boolean mask of ``shape`` that is True on the radius-``r`` interior,
-    from per-dim index compares (elementwise: no slice-and-scatter)."""
+    from per-dim index compares (elementwise: no slice-and-scatter).
+    ``placement(shape) -> (offsets, global extents)`` puts a shard block in
+    its global grid, whose ring the mask then marks."""
+    offsets, extents = placement(shape) if placement else ((0,) * len(shape), shape)
     ok = None
     for d, s in enumerate(shape):
-        i = torch.arange(s, device=device).view((s,) + (1,) * (len(shape) - d - 1))
-        c = (i >= r) & (i < s - r)
+        i = offsets[d] + torch.arange(s, device=device).view((s,) + (1,) * (len(shape) - d - 1))
+        c = (i >= r) & (i < extents[d] - r)
         ok = c if ok is None else ok & c
     return ok
 
 
-def _mask_interior(g: Tensor, r: int, nd: int) -> Tensor:
+def _mask_interior(g: Tensor, r: int, nd: int, placement=None) -> Tensor:
     """Zeroes the square radius-``r`` boundary ring of ``g``."""
     if r == 0:
         return g
-    m = _interior_mask(tuple(g.shape[-nd:]), r, g.device)
+    m = _interior_mask(tuple(g.shape[-nd:]), r, g.device, placement)
     return torch.where(m, g, torch.zeros_like(g))
 
 
-def _ring_swap(prev: Tensor, new: Tensor, r: int, nd: int) -> Tensor:
+def _ring_swap(prev: Tensor, new: Tensor, r: int, nd: int, placement=None) -> Tensor:
     """``new`` on the radius-``r`` interior, ``prev`` on the ring — the
     full-shape sweep convention, reconstructed elementwise."""
     if r == 0:
         return new
-    m = _interior_mask(tuple(new.shape[-nd:]), r, new.device)
+    m = _interior_mask(tuple(new.shape[-nd:]), r, new.device, placement)
     return torch.where(m, new, prev)
 
 
@@ -375,26 +381,28 @@ def _apply_sweep(q: StencilProgram, step, state, shared):
     return step(sub)
 
 
-def _sweep_bwd(q, adj_fn, state, shared, gbar, acc, cache):
+def _sweep_bwd(q, adj_fn, state, shared, gbar, acc, cache, zero, placement):
     """One reverse sweep: mask ring, run the lowered adjoint, re-add the
     ring passthrough. ``state``/``gbar`` are ``{field: tensor}`` over
     ``q.outputs``; ``acc`` holds the running aux cotangents; ``cache`` maps
-    primal op name -> saved value in the sweep's layout (or None). Every
-    adjoint input is zero-padded and the result cropped, which emulates the
-    zero boundary on one device."""
+    primal op name -> saved value in the sweep's layout (or None). With
+    ``zero=False`` (one device) every adjoint input is zero-padded and the
+    result cropped, which emulates the zero boundary; with ``zero=True``
+    ``adj_fn`` is a ``boundary="zero"`` sharded lowering and the blocks pass
+    through unpadded."""
     nd = q.ndim
     r = q.radius
     adj = adjoint(q)
     grid = tuple(next(iter(gbar.values())).shape[-nd:])
-    pads = pad_widths(q, grid)
+    pads = None if zero else pad_widths(q, grid)
 
     def lift(a):
-        return _pad(a, pads, nd)
+        return a if zero else _pad(a, pads, nd)
 
     def unlift(a):
-        return _crop(a, pads, nd, grid)
+        return a if zero else _crop(a, pads, nd, grid)
 
-    g_int = {f: _mask_interior(g, r, nd) for f, g in gbar.items()}
+    g_int = {f: _mask_interior(g, r, nd, placement) for f, g in gbar.items()}
     args = {}
     for f in q.outputs:
         args[seed_field(f)] = lift(g_int[f])
@@ -419,19 +427,12 @@ def _sweep_bwd(q, adj_fn, state, shared, gbar, acc, cache):
     return new_g, new_acc
 
 
-def _no_zero_boundary(build_zero) -> None:
-    if build_zero is not None:
-        raise NotImplementedError(
-            "build_zero (the sharded boundary='zero' backward) needs "
-            "lower_sharded, which is ROADMAP M9 of the port"
-        )
-
-
 def make_vjp(
     program: StencilProgram,
     build: Callable[[StencilProgram], Callable],
     *,
     build_zero: Callable[[StencilProgram], Callable] | None = None,
+    placement: Callable | None = None,
 ) -> Callable:
     """``(x, g) -> input cotangents`` for ``program``, with every sweep —
     forward recompute and reverse adjoint — lowered through ``build`` (a
@@ -439,23 +440,29 @@ def make_vjp(
     partial). The cotangent mirrors ``x``: bare tensor in, bare tensor out;
     ``{field: tensor}`` in, a cotangent per declared input out.
 
-    Single-device backends emulate the zero boundary by local pad +
-    ring-semantics lowering + crop. ``build_zero`` (zero-boundary sweeps on
-    the unpadded grid) belongs to the sharded backends, whose lowering is
-    ROADMAP M9: it raises until then."""
-    _no_zero_boundary(build_zero)
+    ``build_zero`` switches the adjoint and augmented sweeps to
+    zero-boundary evaluation on the UNPADDED blocks: pass a
+    ``lower_sharded(..., boundary="zero")`` factory for the sharded
+    backends, with ``placement`` (a block's trailing shape -> ``(offsets,
+    global extents)``, :func:`repro_torch.ir.lower_sharded.block_placement`)
+    so that the ring masks mark the GLOBAL ring of each rank's block. Leave
+    both ``None`` on one device, where the zero boundary is emulated by a
+    local pad, the ring-semantics lowering and a crop. Forward
+    state-recompute sweeps always use ``build``."""
     chain = program.chain
     multi = len(program.outputs) > 1
     nd = program.ndim
+    zero = build_zero is not None
+    zbuild = build_zero if zero else build
     adj_fns: dict[str, Callable] = {}
     aug_fns: dict[str, Callable] = {}
     fwd_fns: dict[str, Callable] = {}
     for q in chain:
         fp = q.fingerprint()
         if fp not in adj_fns:
-            adj_fns[fp] = build(adjoint(q))
+            adj_fns[fp] = zbuild(adjoint(q))
             if cache_fields(q):
-                aug_fns[fp] = build(augmented_forward(q))
+                aug_fns[fp] = zbuild(augmented_forward(q))
     # Whether the backward needs the primal state at all: linear sweeps
     # cache nothing and their adjoints never read a primal field, so the
     # whole forward-recompute pass is skipped (the adjoint args still carry
@@ -494,11 +501,15 @@ def make_vjp(
             if needs_state and cf:
                 sd = state if multi else {q.passthrough: state}
                 grid = tuple(next(iter(sd.values())).shape[-nd:])
-                pads = pad_widths(q, grid)
-                args = {f: _pad(sd[f], pads, nd) for f in q.outputs}
+                pads = None if zero else pad_widths(q, grid)
+
+                def lift(a, pads=pads):
+                    return a if zero else _pad(a, pads, nd)
+
+                args = {f: lift(sd[f]) for f in q.outputs}
                 for c in q.inputs:
                     if c not in q.outputs:
-                        args[c] = _pad(shared[c], pads, nd)
+                        args[c] = lift(shared[c])
                 for n in cf:
                     args[cache_field(n)] = torch.zeros_like(args[q.passthrough])
                 out = aug_fns[fp](args)
@@ -506,8 +517,8 @@ def make_vjp(
                 if i < len(chain) - 1:
                     new = {}
                     for f in q.outputs:
-                        swept = _crop(out[f], pads, nd, grid)
-                        new[f] = _ring_swap(sd[f], swept, q.radius, nd)
+                        swept = out[f] if zero else _crop(out[f], pads, nd, grid)
+                        new[f] = _ring_swap(sd[f], swept, q.radius, nd, placement)
                     state = new if multi else new[q.passthrough]
             else:
                 caches.append(None)
@@ -526,6 +537,8 @@ def make_vjp(
                 gbar if multi else {q.passthrough: gbar},
                 acc,
                 caches[i],
+                zero,
+                placement,
             )
             gbar = g_d if multi else g_d[q.passthrough]
         if isinstance(x, Mapping):
@@ -576,6 +589,7 @@ def differentiable_lowering(
     build: Callable[[StencilProgram], Callable],
     *,
     build_zero: Callable[[StencilProgram], Callable] | None = None,
+    placement: Callable | None = None,
 ) -> Callable:
     """Attaches the derived adjoint to a lowered forward callable as a
     ``torch.autograd.Function``. The primal path is ``fwd_fn`` unchanged;
@@ -583,9 +597,9 @@ def differentiable_lowering(
     ``torch.no_grad()``. ``Function.apply`` takes positional tensors, so a
     ``{field: tensor}`` input goes in flattened in ``program.inputs`` order
     and a multi-output result is rebuilt as ``{field: tensor}`` here; a
-    bare tensor in gives a bare tensor out. ``build_zero`` is as in
-    :func:`make_vjp`."""
-    vjp_fn = make_vjp(program, build, build_zero=build_zero)
+    bare tensor in gives a bare tensor out. ``build_zero`` and
+    ``placement`` are as in :func:`make_vjp`."""
+    vjp_fn = make_vjp(program, build, build_zero=build_zero, placement=placement)
 
     def fn(x):
         if isinstance(x, Mapping):

@@ -15,10 +15,15 @@ conformance-style backend name becomes one unbatched lowered callable, and
     forward and adjoint are each one launch a sweep on CUDA tensors, and
     each the kernel's plain version on CPU tensors.
 
-The sharded backends (``sharded-reference``, ``sharded-cuda``) need the
-distributed lowering and raise until it is ported (ROADMAP M9);
-``lower_batched``, the ensemble lowering over a member axis, is ROADMAP
-M10.
+  * ``sharded-reference`` / ``sharded-cuda`` —
+    :func:`~repro_torch.ir.lower_sharded.lower_sharded` over ``mesh`` (or
+    ``mesh_shape=(R, C)``) with the evaluator or K2 inside each shard; the
+    callable is SPMD (this rank's block in, this rank's block out). Their
+    backward recomputes forward sweeps with the ring lowering and runs the
+    adjoint and augmented sweeps with ``boundary="zero"``.
+
+``lower_batched``, the ensemble lowering over a member axis, is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from repro_torch.ir.autodiff import differentiable_lowering
 from repro_torch.ir.graph import StencilProgram
 from repro_torch.ir.lower_cuda import lower_cuda
 from repro_torch.ir.lower_reference import lower_reference
+from repro_torch.ir.lower_sharded import lower_sharded
 
 BACKENDS = ("reference", "staged", "cuda")
 SHARDED_BACKENDS = ("sharded-reference", "sharded-cuda")
@@ -38,18 +44,42 @@ def build_backend(
     program: StencilProgram,
     backend: str,
     *,
+    mesh=None,
+    mesh_shape: tuple[int, int] | None = None,
+    device=None,
+    overlap: bool = False,
+    merge_exchange: bool = True,
     differentiable: bool = False,
 ) -> Callable:
-    """One lowered callable for ``backend`` (:data:`BACKENDS`).
+    """One lowered callable for ``backend`` (:data:`BACKENDS` or
+    :data:`SHARDED_BACKENDS`; the sharded ones take ``mesh`` — a
+    ("rows", "cols") mesh — or ``mesh_shape``, and ``device``, ``overlap``
+    and ``merge_exchange`` as :func:`lower_sharded` does).
 
     With ``differentiable=True`` the callable carries a
     ``torch.autograd.Function`` whose backward runs the program's ADJOINT IR
     through the same backend (``staged`` pairs with a ``reference``
     backward)."""
     if backend in SHARDED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} needs the distributed lowering "
-            "(lower_sharded), which is ROADMAP M9 of the port"
+        if mesh is None and mesh_shape is None:
+            raise ValueError(
+                f"backend {backend!r} needs mesh= or mesh_shape=(R, C) — the rows x "
+                "cols mesh the shards map onto"
+            )
+        where = (dict(mesh_shape=mesh_shape, device=device) if mesh is None else
+                 dict(mesh=mesh, depth_axis=None, row_axis="rows", col_axis="cols"))
+
+        def sharded(p, boundary="ring"):
+            return lower_sharded(p, inner=backend.removeprefix("sharded-"),
+                                 overlap=overlap and boundary == "ring",
+                                 merge_exchange=merge_exchange, boundary=boundary, **where)
+
+        fwd = sharded(program)
+        if not differentiable:
+            return fwd
+        return differentiable_lowering(
+            program, fwd, sharded, build_zero=lambda p: sharded(p, "zero"),
+            placement=fwd.placement,
         )
     if backend == "reference":
         fwd = lower_reference(program)

@@ -5,9 +5,16 @@ takes the same program and ``block_rows`` and returns ``x -> program(x)``
 for a bare ``(depth, rows, cols)`` tensor or a ``{field: tensor}`` mapping,
 returning a tensor or ``{field: tensor}`` like the JAX lowering. The
 Pallas-only knobs have no counterpart (``interpret``; ``vmem_budget``,
-which the shared-memory tile planner replaces), and the column-slab mode
-(``cols_global`` / ``col_offset``) arrives with the distributed lowering
-(ROADMAP M9): standalone calls pass ``(0, rows, 0, cols)`` to the kernel.
+which the shared-memory tile planner replaces). Like ``lower_pallas``'s,
+the callable takes keyword ``row_offset`` / ``rows_global`` /
+``col_offset`` / ``cols_global``: the global placement of the tensor's
+first row and column, for a halo-padded shard block of
+:mod:`repro_torch.ir.lower_sharded` (K2's offset mode). Standalone calls
+pass ``(0, rows, 0, cols)``. With offsets the contract is the kept region
+of the block: rows ``[h, R - h)`` over the full width (row mode, no
+``cols_global``) or ``[h, R - h) x [h, C - h)`` (column mode), ``h`` the
+chain radius, bit-equal to the same region of the unsharded launch; the
+caller slices the rest off.
 A single-input 1-D program (``jacobi1d``, any 1-D chain) lowers to K5'
 over a ``(batch, n)`` tensor, the port of ``_lower_pallas_1d``.
 
@@ -52,21 +59,32 @@ _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _KERNELS: dict[tuple, object] = {}
 
 
-def stencil_program_plain(program: StencilProgram, arrays) -> Tensor | dict[str, Tensor]:
+def stencil_program_plain(
+    program: StencilProgram, arrays, *, row_offset: int = 0, rows_global: int | None = None,
+    col_offset: int = 0, cols_global: int | None = None,
+) -> Tensor | dict[str, Tensor]:
     """K2's plain version: the program's chain over the whole grid via
-    ``slab_sweep`` in float32 (rows zero-padded by the chain radius, the
-    column ring local), each output cast to its field's dtype."""
+    ``slab_sweep`` in float32, each output cast to its field's dtype. Rows
+    are zero-padded by the chain radius and the ring kept at absolute row
+    ``row_offset + i`` of ``rows_global``; without ``cols_global`` the
+    column ring is local (row mode), with it columns are padded too and the
+    ring kept at absolute column ``col_offset + j`` (column mode)."""
     h = program.radius
     rows = arrays[0].shape[-2]
+    rows_global = rows if rows_global is None else rows_global
+    col_mode = cols_global is not None
+    pad = (h, h, h, h) if col_mode else (0, 0, h, h)
     padded = {
-        f: torch.nn.functional.pad(a.to(torch.float32), (0, 0, h, h))
+        f: torch.nn.functional.pad(a.to(torch.float32), pad)
         for f, a in zip(program.inputs, arrays)
     }
     dtypes = {f: a.dtype for f, a in zip(program.inputs, arrays)}
     out_fields = tuple(program.outputs)
     states = {f: padded.pop(f) for f in out_fields}
     state = states[program.passthrough] if len(out_fields) == 1 else states
-    vals = slab_sweep(program, state, -h, rows, extras=padded or None)
+    cols = (col_offset - h, cols_global) if col_mode else (None, None)
+    vals = slab_sweep(program, state, row_offset - h, rows_global, *cols,
+                      extras=padded or None)
     if len(out_fields) == 1:
         return vals.to(dtypes[program.passthrough])
     return {f: vals[f].to(dtypes[f]) for f in out_fields}
@@ -115,19 +133,28 @@ def _kernel(program: StencilProgram, dtypes: tuple[str, ...], tile: TilePlan):
 
 
 def stencil_program_cuda(
-    program: StencilProgram, arrays, *, block_rows: int | None = None
+    program: StencilProgram, arrays, *, block_rows: int | None = None, row_offset: int = 0,
+    rows_global: int | None = None, col_offset: int = 0, cols_global: int | None = None,
 ) -> Tensor | dict[str, Tensor]:
     """K2: one launch of the program's fused kernel over CUDA tensors
     ``arrays`` (one per ``program.inputs``, one grid, float32 or bfloat16,
-    contiguous). CPU tensors take :func:`stencil_program_plain`."""
+    contiguous), the ring kept at the absolute indices the offsets give
+    (:func:`stencil_program_plain`; in row mode the kernel's columns are
+    the global ones, ``(0, cols)``). CPU tensors take
+    :func:`stencil_program_plain`."""
     if arrays[0].device.type == "cpu":
-        return stencil_program_plain(program, arrays)
+        return stencil_program_plain(program, arrays, row_offset=row_offset,
+                                     rows_global=rows_global, col_offset=col_offset,
+                                     cols_global=cols_global)
     device = arrays[0].device
     for f, a in zip(program.inputs, arrays):
         _build.check_input(KERNEL, a, tuple(_DTYPE_NAMES), field=f"field {f!r}")
         if a.device != device:
             raise ValueError(f"{KERNEL}: field {f!r} is on {a.device}, not {device}")
     depth, rows, cols = arrays[0].shape
+    rows_global = rows if rows_global is None else rows_global
+    if cols_global is None:
+        col_offset, cols_global = 0, cols
     dtypes = tuple(_DTYPE_NAMES[a.dtype] for a in arrays)
     outs = {f: torch.empty_like(arrays[program.inputs.index(f)]) for f in program.outputs}
     if arrays[0].numel():
@@ -135,8 +162,8 @@ def stencil_program_cuda(
         fn = _kernel(program, dtypes, tile)
         ptrs = [a.data_ptr() for a in arrays] + [o.data_ptr() for o in outs.values()]
         with torch.cuda.device(device):
-            code = fn(*ptrs, depth, rows, cols, 0, rows, 0, cols,
-                      torch.cuda.current_stream().cuda_stream)
+            code = fn(*ptrs, depth, rows, cols, row_offset, rows_global, col_offset,
+                      cols_global, torch.cuda.current_stream().cuda_stream)
         _build.check_launch(KERNEL, code)
         if len(outs) > 1:
             _build.count_launch(KERNEL_N_OUT)
@@ -192,7 +219,11 @@ def lower_cuda(
     default planner's tiles need not divide the grid). A composed program
     (``repeat(p, k)``) runs all k sweeps in one launch. A 1-D program must
     have one input and takes a ``(batch, n)`` tensor (``block_rows`` does
-    not apply), as in ``lower_pallas``."""
+    not apply), as in ``lower_pallas``.
+
+    The 2-D callable takes keyword ``row_offset``, ``rows_global``,
+    ``col_offset`` and ``cols_global`` (K2's offset mode, see the module
+    docstring); ``cols_global`` selects the column mode."""
     name = f"ir.lower_cuda.{program.name}"
     if program.ndim == 1:
         if len(program.inputs) != 1:
@@ -211,7 +242,7 @@ def lower_cuda(
         raise ValueError(f"unsupported ndim {program.ndim}")
     min_block = max(program.radius, 1)
 
-    def fn(x):
+    def fn(x, *, row_offset=0, rows_global=None, col_offset=0, cols_global=None):
         arrays = resolve_field_arrays(program, x, ndim=3)
         rows = arrays[0].shape[1]
         if block_rows is not None:
@@ -222,6 +253,8 @@ def lower_cuda(
                     f"block_rows={block_rows} < inferred row halo {min_block} for "
                     f"program {program.name!r}"
                 )
-        return stencil_program_cuda(program, arrays, block_rows=block_rows)
+        return stencil_program_cuda(program, arrays, block_rows=block_rows,
+                                    row_offset=row_offset, rows_global=rows_global,
+                                    col_offset=col_offset, cols_global=cols_global)
 
     return metrics.instrument_call(fn, name)

@@ -23,9 +23,9 @@ inlined (:func:`program_frame_layout`), planned by
 :func:`plan_program_tile`. A 1-D program's kernel (K5') treats its
 ``(batch, n)`` field as one flat array cut into spans, one a warp (no
 frame) or one a block (one frame, or two taking turns for a chain of
-sweeps): :func:`plan_tile_1d` picks the span. The 2-D mesh planner (``plan_partition``)
-needs the halo wire model of the distributed layer and is ported with it
-(ROADMAP M9).
+sweeps): :func:`plan_tile_1d` picks the span. :func:`plan_partition`
+picks the rows x cols factorization of a mesh for ``lower_sharded`` by the
+halo wire model of :mod:`repro_torch.dist.halo`.
 """
 
 from __future__ import annotations
@@ -176,3 +176,81 @@ def plan_tile_1d(*, halo: int, steps: int) -> TilePlan:
         f"a chain halo of {halo} points is deeper than the 1-D kernel's widest span "
         f"({THREADS * 4 * VECTORS_1D[-1]} float32 points) allows"
     )
+
+
+# ---------------------------------------------------------------------------
+# 2-D (rows x cols) mesh factorization for lower_sharded.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition2D:
+    """A rows x cols shard factorization chosen by :func:`plan_partition`.
+
+    ``wire_bytes`` is the whole-mesh traffic of ONE halo-exchange round
+    under the exact 2-axis model (row bands + col bands + diagonal
+    corners), summed per input field; ``halo`` is the deepest exchanged band
+    (the program's chain radius, k*r for ``repeat(p, k)``)."""
+
+    row_shards: int
+    col_shards: int
+    halo: int
+    wire_bytes: int
+
+    @property
+    def mesh_shape(self) -> tuple[int, int]:
+        """Directly usable as ``lower_sharded(..., mesh_shape=...)``."""
+        return (self.row_shards, self.col_shards)
+
+
+def plan_partition(
+    program,
+    depth: int,
+    rows: int,
+    cols: int,
+    n_devices: int,
+    *,
+    itemsize: int = 4,
+) -> Partition2D:
+    """The rows x cols factorization of ``n_devices`` that minimizes the
+    modelled wire bytes per exchange round for ``program`` on a (depth,
+    rows, cols) grid — the JAX package's choice, ties included.
+
+    A factorization (R, C) is feasible when both grid dims divide evenly
+    and each sharded dim keeps at least the chain radius per shard (the
+    single-neighbour exchange floor ``lower_sharded`` enforces). Ties break
+    toward fewer column shards (rows are the paper's lane decomposition;
+    columns the contiguous dim)."""
+    from repro_torch.dist.halo import program_halo_exchange_bytes
+
+    halo = program.radius
+    if n_devices < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+    best: Partition2D | None = None
+    for r_sh in range(1, n_devices + 1):
+        if n_devices % r_sh:
+            continue
+        c_sh = n_devices // r_sh
+        if rows % r_sh or cols % c_sh:
+            continue
+        if halo > 0 and (
+            (r_sh > 1 and rows // r_sh < halo) or (c_sh > 1 and cols // c_sh < halo)
+        ):
+            continue
+        wire = program_halo_exchange_bytes(
+            program, depth, rows, cols, r_sh, itemsize=itemsize, col_shards=c_sh
+        )
+        cand = Partition2D(r_sh, c_sh, halo, wire)
+        if (
+            best is None
+            or cand.wire_bytes < best.wire_bytes
+            or (cand.wire_bytes == best.wire_bytes and c_sh < best.col_shards)
+        ):
+            best = cand
+    if best is None:
+        raise ValueError(
+            f"no rows x cols factorization of {n_devices} devices fits grid "
+            f"({rows}, {cols}) with halo {halo} (program {program.name!r}): "
+            f"every split leaves a shard thinner than the halo band"
+        )
+    return best

@@ -8,8 +8,8 @@ watches the *numbers*:
   * :func:`field_stats` — NaN/Inf counts, finite min/max/mean and the
     global L2 norm, computed with torch reductions where the tensor lives
     (only scalars ever cross to the host, and only when the caller asks).
-    The mesh-global form (``axis_names``) needs ``torch.distributed`` and
-    arrives with the multi-GPU layer (ROADMAP M9).
+    With ``axis_names`` the stats are mesh-global: one all-reduce per
+    statistic over the named axes' group of ranks.
   * :class:`HealthMonitor` — cadence-gated probing with one of three
     policies when a probe is unhealthy:
 
@@ -57,7 +57,7 @@ def _host_snapshot(tree: Any) -> Any:
     return tree
 
 
-def field_stats(x, *, axis_names: Sequence[str] = ()) -> dict[str, Any]:
+def field_stats(x, *, axis_names: Sequence[str] = (), mesh=None) -> dict[str, Any]:
     """Health statistics of one tensor (any shape/dtype), where it lives.
 
     Returns a dict of 0-d tensors: ``size``, ``nan_count``, ``inf_count``,
@@ -69,14 +69,13 @@ def field_stats(x, *, axis_names: Sequence[str] = ()) -> dict[str, Any]:
     ``inf_count`` carry the alarm. Nothing synchronises: convert with
     :func:`host_stats` when a Python-side decision is needed.
 
-    ``axis_names`` (mesh-global stats across shards) raises
-    ``NotImplementedError`` until the multi-GPU layer lands (ROADMAP M9).
+    ``axis_names`` names mesh axes to reduce across, as in a ``shard_map``
+    body of the JAX package: every rank of ``mesh`` (required with
+    ``axis_names``) calls this with its block, and the counts and moments
+    are all-reduced by sum (the int32 counts exactly), min and max by min
+    and max, over the group of ranks that differ only on those axes — so
+    GLOBAL statistics of the sharded field come back on every rank. This synchronises (it is a collective).
     """
-    if axis_names:
-        raise NotImplementedError(
-            "field_stats(axis_names=...) reduces across a device mesh; it needs "
-            "torch.distributed and arrives with ROADMAP M9"
-        )
     x = torch.as_tensor(x)
     finite = torch.isfinite(x)
     nan_count = torch.isnan(x).sum(dtype=torch.int32)
@@ -88,6 +87,26 @@ def field_stats(x, *, axis_names: Sequence[str] = ()) -> dict[str, Any]:
     mn = torch.where(finite, x, float("inf")).to(torch.float32).min()
     mx = torch.where(finite, x, float("-inf")).to(torch.float32).max()
     size = torch.tensor(x.numel(), dtype=torch.int32, device=x.device)
+    if axis_names:
+        import torch.distributed as dist
+
+        from repro_torch.dist.sharding import all_reduce
+
+        if mesh is None:
+            raise ValueError(
+                f"field_stats(axis_names={tuple(axis_names)}) needs the mesh those axes "
+                "belong to: pass mesh=..."
+            )
+        # Axes of one shard reduce nothing (and need no process group).
+        if any(mesh.axis_size(a) > 1 for a in axis_names):
+            group = mesh.axis_group(tuple(axis_names))
+            sums = all_reduce(torch.stack([nan_count, inf_count, n_finite, size]),
+                              dist.ReduceOp.SUM, mesh, group)
+            nan_count, inf_count, n_finite, size = sums.unbind()
+            total, sumsq = all_reduce(torch.stack([total, sumsq]), dist.ReduceOp.SUM, mesh,
+                                      group).unbind()
+            mn = all_reduce(mn, dist.ReduceOp.MIN, mesh, group)
+            mx = all_reduce(mx, dist.ReduceOp.MAX, mesh, group)
     mean = total / n_finite.clamp(min=1).to(torch.float32)
     return {
         "size": size,

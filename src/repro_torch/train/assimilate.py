@@ -40,8 +40,9 @@ class AssimilationConfig:
     """One coefficient-field fit.
 
     ``backend`` chooses the differentiable lowering of the forward model
-    (``reference``, ``staged`` or ``cuda``; the sharded backends are
-    ROADMAP M9); ``k`` temporally blocks it
+    (``reference``, ``staged`` or ``cuda``; the fit holds whole fields,
+    so it takes no sharded backend, whose callables are SPMD); ``k``
+    temporally blocks it
     (``repeat(p, k)``: the observation operator spans k sweeps and the
     adjoint reverses all of them)."""
 

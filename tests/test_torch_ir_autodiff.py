@@ -146,21 +146,61 @@ def test_make_vjp_mirrors_its_input():
     assert set(tir.make_vjp(pc, tir.lower_reference)(xc, g)) == set(pc.inputs)
 
 
+def _one_shard_mesh():
+    """A 1x1 rows x cols mesh: lower_sharded runs on it without a process
+    group (an axis of one shard moves nothing)."""
+    from repro_torch.dist import Mesh
+
+    return Mesh(("rows", "cols"), (1, 1), (0, 0), torch.device("cpu"), "gloo")
+
+
 def test_build_zero_waits_for_lower_sharded():
+    """``build_zero`` runs the adjoint and augmented sweeps through
+    ``lower_sharded(..., boundary="zero")`` on the unpadded blocks; on one
+    shard that equals the single-device pad / ring lowering / crop, bit for
+    bit."""
+    mesh = _one_shard_mesh()
+
+    def zero(q, inner):
+        return tir.lower_sharded(q, mesh, depth_axis=None, row_axis="rows", col_axis="cols",
+                                 inner=inner, boundary="zero")
+
+    for name, k in (("hdiff_coupled", 1), ("hdiff_coupled", 2), ("shallow_water", 2),
+                    ("hdiff", 3)):
+        p = tir.repeat(TORCH_PROGRAMS[name](), k)
+        x = _tensors(make_fields(name))
+        g = {f: torch.randn(GRID) for f in p.outputs}
+        g = g if len(g) > 1 else g[p.passthrough]
+        want = tir.make_vjp(p, tir.lower_reference)(x, g)
+        for inner, build in (("reference", tir.lower_reference), ("cuda", tir.lower_cuda)):
+            got = tir.make_vjp(p, build, build_zero=lambda q, i=inner: zero(q, i))(x, g)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
     p = tir.hdiff_coupled_program()
-    with pytest.raises(NotImplementedError, match="M9"):
-        tir.make_vjp(p, tir.lower_reference, build_zero=tir.lower_reference)
-    with pytest.raises(NotImplementedError, match="M9"):
-        tir.differentiable_lowering(
-            p, tir.lower_reference(p), tir.lower_reference, build_zero=tir.lower_reference
-        )
+    x = _tensors(make_fields("hdiff_coupled"))
+    fn = tir.differentiable_lowering(p, tir.lower_reference(p), tir.lower_reference,
+                                     build_zero=lambda q: zero(q, "reference"))
+    leaves = {f: a.clone().requires_grad_(True) for f, a in x.items()}
+    fn(leaves).sum().backward()
+    want = tir.make_vjp(p, tir.lower_reference)(x, torch.ones(GRID))
+    for f in p.inputs:
+        torch.testing.assert_close(leaves[f].grad, want[f], rtol=1e-6, atol=1e-6)
 
 
 def test_build_backend_rejects_unported_and_unknown_backends():
+    """The sharded backends need a mesh; on a one-shard mesh their gradient
+    is the single-device backend's. Unknown names still raise."""
     p = tir.hdiff_program()
     for name in ("sharded-reference", "sharded-cuda"):
-        with pytest.raises(NotImplementedError, match="M9"):
+        with pytest.raises(ValueError, match="mesh"):
             tir.build_backend(p, name, differentiable=True)
+    x = _tensors(make_fields("hdiff"))
+    want = x.clone().requires_grad_(True)
+    tir.build_backend(p, "reference", differentiable=True)(want).square().sum().backward()
+    for name in ("sharded-reference", "sharded-cuda"):
+        got = x.clone().requires_grad_(True)
+        fn = tir.build_backend(p, name, mesh=_one_shard_mesh(), differentiable=True)
+        fn(got).square().sum().backward()
+        torch.testing.assert_close(got.grad, want.grad, rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="unknown backend"):
         tir.build_backend(p, "pallas")
 

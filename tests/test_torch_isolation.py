@@ -38,7 +38,8 @@ def test_no_jax_or_repro_imports(path):
 def test_port_tree_is_scanned():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "lower_cuda.py", "codegen_cuda.py", "kernel.py", "lm.py",
-            "recurrent.py", "layers.py", "engine.py", "serve.py", "registry.py"} <= names
+            "recurrent.py", "layers.py", "engine.py", "serve.py", "registry.py",
+            "halo.py", "sharding.py", "lower_sharded.py", "mesh.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():

@@ -262,6 +262,50 @@ def test_k2_conformance_programs_bit_equal_to_plain(cuda, name, k, dtype):
         _equal(ir.stencil_program_cuda(prog, arrays), ir.stencil_program_plain(prog, arrays))
 
 
+def _kept(out, fields, index):
+    out = out if isinstance(out, dict) else {fields[0]: out}
+    return {f: out[f][index] for f in fields}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("name", sorted(CONFORMANCE_2D))
+def test_k2_offset_mode_shards_bit_equal_to_plain_and_unsharded(cuda, name, k, dtype):
+    """K2's offset mode on every shard of a 2x4 split (column mode) and a
+    2x1 split (row mode) of a ragged 2x134x268 grid (67-row, 67-column
+    shards: tiles that do not divide them, rows not a multiple of 4 words):
+    each shard's halo-padded block, zeros past the grid edge, launched with
+    its global offsets. The kept region is bit-equal to the plain version
+    with the same offsets and to the same region of the unsharded launch.
+    Every block is at least a tile each way, so the shards share the
+    unsharded launch's kernel."""
+    prog = ir.repeat(CONFORMANCE_2D[name](), k)
+    h = prog.radius
+    shape = (2, 134, 268)
+    _, rows, cols = shape
+    arrays = tuple(_rand(shape, cuda, seed=i).to(dtype) for i in range(len(prog.inputs)))
+    whole = ir.stencil_program_cuda(prog, arrays)
+    outs = tuple(prog.outputs) if len(prog.outputs) > 1 else (prog.passthrough,)
+    for n_row, n_col in ((2, 4), (2, 1)):
+        col_mode = n_col > 1
+        r, c = rows // n_row, cols // n_col
+        pad = (h, h, h, h) if col_mode else (0, 0, h, h)
+        padded = [torch.nn.functional.pad(a, pad) for a in arrays]
+        for i in range(n_row):
+            for j in range(n_col):
+                cs = slice(j * c, j * c + c + 2 * h) if col_mode else slice(None)
+                block = tuple(a[:, i * r : i * r + r + 2 * h, cs].contiguous() for a in padded)
+                kw = dict(row_offset=i * r - h, rows_global=rows)
+                if col_mode:
+                    kw.update(col_offset=j * c - h, cols_global=cols)
+                keep = (Ellipsis, slice(h, h + r), slice(h, h + c) if col_mode else slice(None))
+                got = _kept(ir.stencil_program_cuda(prog, block, **kw), outs, keep)
+                _equal(got, _kept(ir.stencil_program_plain(prog, block, **kw), outs, keep))
+                crop = (Ellipsis, slice(i * r, i * r + r),
+                        slice(j * c, j * c + c) if col_mode else slice(None))
+                _equal(got, _kept(whole, outs, crop))
+
+
 def test_k2_bf16_and_twostep(cuda):
     x = _rand((2, 64, 48), cuda, seed=5)
     _equal(hdiff_twostep(x, 0.05, block_rows=16), hdiff_fused(hdiff_fused(x, 0.05), 0.05))

@@ -234,8 +234,20 @@ def test_field_stats_counts_are_exact_past_float32_precision():
 
 
 def test_field_stats_mesh_axes_wait_for_m9():
-    with pytest.raises(NotImplementedError, match="M9"):
-        field_stats(torch.ones(3), axis_names=("rows",))
+    """``axis_names`` needs the mesh those axes belong to; axes of one shard
+    reduce nothing. The multi-rank all-reduce is tested on a 3x3 gloo mesh
+    (tests/test_torch_dist_halo.py)."""
+    from repro_torch.dist import Mesh
+
+    x = torch.tensor([[1.0, float("nan")], [-2.0, 4.0]])
+    with pytest.raises(ValueError, match="pass mesh="):
+        field_stats(x, axis_names=("rows",))
+    mesh = Mesh(("rows", "cols"), (1, 1), (0, 0), torch.device("cpu"), "gloo")
+    want = host_stats(field_stats(x))
+    assert host_stats(field_stats(x, axis_names=("rows", "cols"), mesh=mesh)) == want
+    assert host_stats(field_stats(x, axis_names=("rows",), mesh=mesh)) == want
+    with pytest.raises(ValueError, match="no axis 'depth'"):
+        field_stats(x, axis_names=("depth",), mesh=mesh)
 
 
 def test_is_healthy_max_abs_bound():
