@@ -4,14 +4,16 @@ NVIDIA H100.
 
     python3 chip_smoke.py
 
-Drives the port's four paths on one device — the paper's COSMO hdiff on
+Drives the port's paths on one device — the paper's COSMO hdiff on
 the full 64x256x256 float32 domain through the IR compiler, the §3.5
 elementary-stencil suite (fig11's domain) through the hand-written and the
 generated kernels, the gradient path (the data-assimilation trainer fitting
 ``hdiff_coupled``'s coefficient field through the derived adjoints, on the
-same domain) and the recurrent LMs (RWKV-6 3B, RecurrentGemma 2B, at
+same domain), the recurrent LMs (RWKV-6 3B, RecurrentGemma 2B, at
 their published shapes) served by ``BatchedServer`` through the WKV-6 and
-RG-LRU kernels — and holds every hand-written kernel against its plain
+RG-LRU kernels, the rows x cols decomposition on 8 gloo ranks, and
+forecast serving (``ForecastServer``: ensemble members folded into one K2
+launch a batch) — and holds every hand-written kernel against its plain
 PyTorch version on the card. Each phase prints one JSON line (``t_s``: the
 script's seconds so far when it was printed):
 
@@ -160,9 +162,40 @@ script's seconds so far when it was printed):
               ``lower_cuda`` (gradients to single-process ``cuda``), overlap
               bit-equal to no overlap, and the bytes every rank sent per
               round equal to the wire models (1,060,864 B at hdiff k = 1).
+              Also 3 ensemble members of hdiff k = 1 through
+              ``lower_batched(backend="sharded-cuda", mesh_shape=(2, 4))``,
+              folded into each block's depth: one K2 launch a step on every
+              rank, each member bit-equal to the unbatched sharded call and
+              to one-process ``lower_cuda``, 3 x 1,060,864 = 3,182,592 B a
+              round; its shard's batched launch timed in this process.
               Host seconds per step and per exchange round are 8 gloo ranks
               time-sharing one H100 with the bands staged through host
               memory: not a multi-GPU figure
+  forecast    ensemble batching and forecast serving. (a) Parity:
+              ``lower_batched(backend="cuda")`` on hdiff k = 1 and 2,
+              shallow_water and hdiff_coupled at N = 1, 3, 8 members of
+              64x256x256 f32, N = 3 in bf16 and on 3x250x190: one K2 launch
+              a call (N outputs for shallow_water), bit-equal to the plain
+              version on the folded fields and, member by member, to
+              unbatched launches; K1, K2 (hdiff x2, shallow_water), K3 and
+              K4 at 65537x12x12, past the grid's 65535 planes: two launches
+              each, bit-equal. (b) Serving, counted: ForecastServer(
+              backend="cuda") serves 8 forecasts of repeat(hdiff, 2) at
+              max_batch 1, 2, 4, 8 at the paper grid and at fig14's nowcast
+              tile (1, 64, 64), rounds interleaving the batch sizes (best
+              round each, every result released after its drain, then
+              every result kept as the server keeps its retired requests:
+              forecasts/s, ms per step, its device work (the batched K2
+              launch's µs from CUDA-graph replays against its bytes bound,
+              the stack's copy by CUDA events) and the host's, the rest;
+              submit ms a forecast), then 8 members
+              each of shallow_water and
+              hdiff_coupled; K2 must count one launch a batch; every served
+              result bit-equal to lower_cuda on that member alone. (c)
+              fig14's cache schedule on a fresh cache: 4 misses, 4 hits,
+              rate 0.5, 4 signatures, no kernel loaded or built in the warm
+              wave. (d) 8 members, one NaN-poisoned: it fails alone with
+              NumericsError, the other 7 bit-equal to a run without it
 
 Then the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (each
 kernel's launches from the path that runs it), and last
@@ -223,6 +256,14 @@ SHARD_PARTITIONS = ((2, 4), (4, 2))  # the one-process offset-mode check's split
 SHARD_STEPS = 5  # timed calls of each forward case on every rank
 SHARD_GRAD_STEPS = 2
 SHARD_TIMEOUT = 600  # seconds for the 8-rank spawn, start-up included
+SHARD_MEMBERS = 3  # ensemble members of the sharded batched case
+NOWCAST_GRID = (1, 64, 64)  # fig14's nowcast tile: (1, rows / 4, cols / 4) of the paper grid
+DEEP_GRID = (65537, 12, 12)  # past the grid's 65535 planes: two launches of K1-K4
+FORECAST_K = 2  # fig14 serves repeat(hdiff, 2)
+N_FORECASTS = 8
+BATCH_SIZES = (1, 2, 4, 8)
+FORECAST_WARMUP, FORECAST_ROUNDS = 2, 20  # fig14: rounds interleave the batch sizes
+FORECAST_MEMBERS = (1, 3, 8)  # the batched parity cells at the paper grid
 GRAD_TOL = 1e-5  # tests/conformance.py's relative gradient bound
 T_START = time.perf_counter()
 
@@ -432,6 +473,12 @@ def _sharded_rank_body(rank, world, store):
     fwd = {(k, ov): ir.lower_sharded(hdiff[k], mesh, overlap=ov, **axes)
            for k in (1, 2, 3) for ov in (False, True)}
     sw_fn = ir.lower_sharded(sw_prog, mesh, merge_exchange=True, **axes)
+    # The ensemble: SHARD_MEMBERS members of hdiff k = 1, folded into each
+    # block's depth, through the mesh_shape route of lower_batched.
+    members = torch.stack([torch.randn(PAPER_GRID, generator=gen)
+                           for _ in range(SHARD_MEMBERS)])
+    ml = local(members)
+    batched_fn = ir.lower_batched(hdiff[1], backend="sharded-cuda", mesh_shape=SHARD_MESH)
     grad_fn = ir.build_backend(hc_prog, "sharded-cuda", mesh=mesh, differentiable=True)
 
     def grad_step():
@@ -450,17 +497,21 @@ def _sharded_rank_body(rank, world, store):
     cases = [(f"hdiff k={k}" + (" overlap" if ov else ""), lambda f=f: f(xl), SHARD_STEPS)
              for (k, ov), f in fwd.items()]
     cases += [("shallow_water merged", lambda: sw_fn(swl), SHARD_STEPS),
-              ("hdiff_coupled value-and-grad", grad_step, SHARD_GRAD_STEPS)]
+              ("hdiff_coupled value-and-grad", grad_step, SHARD_GRAD_STEPS),
+              (f"hdiff k=1 batched x{SHARD_MEMBERS}", lambda: batched_fn(ml), SHARD_STEPS)]
     for _, fn, _ in cases:  # warm-up: libraries loaded, gloo pairs connected
         fn()
     torch.cuda.synchronize()
     dist.barrier()
     _build.reset_launches()
-    secs, outs = {}, {}
+    secs, outs, by_case = {}, {}, {}
     for label, fn, n in cases:
+        before = dict(_build.LAUNCHES)
         for _ in range(n):
             outs[label], sec = timed(fn)
             secs.setdefault(label, []).append(sec)
+        by_case[label] = {key: c - before.get(key, 0) for key, c in _build.LAUNCHES.items()
+                          if c != before.get(key, 0)}
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
 
@@ -485,6 +536,22 @@ def _sharded_rank_body(rank, world, store):
         "sent_bytes": int(t[0]), "messages": int(t[1]), "host_staged_bytes": int(t[2]),
         "model_bytes": gradient_halo_exchange_bytes(hc_prog, depth, rows, cols,
                                                     mesh_shape=SHARD_MESH)}
+    # The batched round: every member's bands in the same messages.
+    with count_wire() as c:
+        batched_fn(ml)
+    t = torch.tensor([c.sent_bytes, c.sent_messages, c.host_staged_bytes])
+    dist.all_reduce(t)
+    wire[f"hdiff k=1 batched x{SHARD_MEMBERS}"] = {
+        "sent_bytes": int(t[0]), "messages": int(t[1]), "host_staged_bytes": int(t[2]),
+        "model_bytes": program_halo_exchange_bytes(hdiff[1], SHARD_MEMBERS * depth, rows,
+                                                   cols, SHARD_MESH[0],
+                                                   col_shards=SHARD_MESH[1])}
+    # Each member of the batched result against the unbatched sharded call.
+    batched_out = outs[f"hdiff k=1 batched x{SHARD_MEMBERS}"]
+    members_same = torch.tensor([int(all(torch.equal(batched_out[i], fwd[(1, False)](ml[i]))
+                                         for i in range(SHARD_MEMBERS)))])
+    dist.all_reduce(members_same, op=dist.ReduceOp.MIN)
+    batched_g = gather_blocks(batched_out, mesh)
     # One round of hdiff's halo-2 exchange alone: posting it (the bands'
     # copies to pinned host memory, a stream sync, the isend/irecv calls),
     # then waiting for it and copying the received bands back; and the same
@@ -512,9 +579,13 @@ def _sharded_rank_body(rank, world, store):
     gathered = {k: gather_blocks(outs[f"hdiff k={k}"], mesh) for k in (1, 2, 3)}
     sw_g = {f: gather_blocks(a, mesh) for f, a in outs["shallow_water merged"].items()}
     grad_g = {f: gather_blocks(a, mesh) for f, a in outs["hdiff_coupled value-and-grad"].items()}
-    found = {"launches": launches, "secs": secs, "exchange_s": exchange_s}
+    found = {"launches": launches, "by_case": by_case, "secs": secs, "exchange_s": exchange_s}
     if rank == 0:
-        checks = {"overlap_bit_equal": bool(same)}
+        checks = {"overlap_bit_equal": bool(same),
+                  "batched members bit_equal to unbatched sharded": bool(members_same)}
+        one = ir.lower_cuda(hdiff[1])
+        checks["batched bit_equal to one-process lower_cuda"] = all(
+            torch.equal(batched_g[i], one(members[i].to(dev))) for i in range(SHARD_MEMBERS))
         for k in (1, 2, 3):
             want = ir.lower_cuda(hdiff[k])(x.to(dev))
             checks[f"hdiff k={k} bit_equal"] = torch.equal(gathered[k], want)
@@ -528,7 +599,8 @@ def _sharded_rank_body(rank, world, store):
             ((grad_g[f] - leaves[f].grad).abs().max() / leaves[f].grad.abs().max()).item()
             for f in leaves)
         checks["finite"] = all(bool(torch.isfinite(a).all()) for a in
-                               (*gathered.values(), *sw_g.values(), *grad_g.values()))
+                               (*gathered.values(), *sw_g.values(), *grad_g.values(),
+                                batched_g))
         found.update(checks=checks, wire=wire, n_out_key=KERNEL_N_OUT)
     dist.barrier()
     dist.destroy_process_group()
@@ -608,7 +680,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import build_cache, build_lm, lm_decode, lm_prefill
     from repro_torch.obs import MetricsRegistry, metrics, profiler_trace, runtime_metadata
-    from repro_torch.serve import BatchedServer
+    from repro_torch.ir.lower_cuda import _KERNELS
+    from repro_torch.obs.health import HealthMonitor, NumericsError
+    from repro_torch.serve import BatchedServer, CompileCache, ForecastServer
     from repro_torch.train import (AssimilationConfig, fit_coefficient_field, forward_model,
                                    synthetic_observations, true_coefficients)
 
@@ -712,6 +786,13 @@ def main() -> int:
         rr, cc = PAPER_GRID[1] // SHARD_MESH[0], PAPER_GRID[2] // SHARD_MESH[1]
         sources.append(kernel_source(q, ("float32",) * len(q.inputs),
                                      tile_for(q, rr + 2 * q.radius, cc + 2 * q.radius)))
+    # The forecast phase's K2 programs beyond the parity set: fig14's nowcast
+    # tile, and the grid past 65535 planes (a member fold gives the same
+    # rows and columns, so the batched launches reuse the unbatched kernels).
+    sources.append(kernel_source(hdiff2, ("float32",), tile_for(hdiff2, *NOWCAST_GRID[1:])))
+    for prog in (hdiff2, ir.shallow_water_program()):
+        sources.append(kernel_source(prog, ("float32",) * len(prog.inputs),
+                                     tile_for(prog, *DEEP_GRID[1:])))
     sources += [k6.source(), k7.source()]
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
@@ -1676,6 +1757,27 @@ def main() -> int:
                     hold(GRAD_K2, f"{q.name} 2x4 shard ({i}, {j}) zero boundary[{f}]",
                          got[f][:, h : h + rr, h : h + cc], plain[f][:, h : h + rr, h : h + cc])
         del padded_g, slab, got, plain
+    # The batched ensemble's launch on shard (1, 1) of 2x4: SHARD_MEMBERS
+    # members of hdiff k = 1 folded into the padded block's depth.
+    prog, h = shard_progs["hdiff k=1"], shard_progs["hdiff k=1"].radius
+    rr, cc = PAPER_GRID[1] // SHARD_MESH[0], PAPER_GRID[2] // SHARD_MESH[1]
+    sl = shard_slabs(1, 1, rr, cc, h)[0]
+    slab = (randn((SHARD_MEMBERS * PAPER_GRID[0], sl[3], sl[4])),)
+    kw = dict(row_offset=sl[1], rows_global=PAPER_GRID[1], col_offset=sl[2],
+              cols_global=PAPER_GRID[2])
+    hold("stencil_program_cuda", f"batched x{SHARD_MEMBERS} shard (1, 1) block",
+         ir.stencil_program_cuda(prog, slab, **kw)[:, h:-h, h:-h],
+         ir.stencil_program_plain(prog, slab, **kw)[:, h:-h, h:-h])
+    nbytes, ops = shard_bound_work(prog, SHARD_MEMBERS * PAPER_GRID[0], sl, PAPER_GRID[1:])
+    bound_ms, bound_by = bound(nbytes, ops, H100_SXM.peak_flops_vpu_f32)
+    shard_timing[(f"hdiff k=1 batched x{SHARD_MEMBERS}", "2x4", "x".join(map(str, PAPER_GRID)))] = {
+        "kernel": "stencil_program_cuda", "case": f"hdiff k=1 batched x{SHARD_MEMBERS} shard",
+        "grid": "x".join(map(str, PAPER_GRID)), "mesh": "2x4",
+        "block": "x".join(map(str, slab[0].shape)),
+        "ms": graph_ms(lambda: ir.stencil_program_cuda(prog, slab, **kw)),
+        "plain_ms": event_ms(lambda: ir.stencil_program_plain(prog, slab, **kw)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    del slab
     # (b) Eight gloo ranks on the one card, spawned now that every kernel is built.
     world = SHARD_MESH[0] * SHARD_MESH[1]
     t0 = time.perf_counter()
@@ -1683,7 +1785,9 @@ def main() -> int:
     spawn_s = time.perf_counter() - t0
     chk = ranks[0]["checks"]
     for key in ("overlap_bit_equal", "hdiff k=1 bit_equal", "hdiff k=2 bit_equal",
-                "hdiff k=3 bit_equal", "shallow_water bit_equal", "finite"):
+                "hdiff k=3 bit_equal", "shallow_water bit_equal", "finite",
+                "batched members bit_equal to unbatched sharded",
+                "batched bit_equal to one-process lower_cuda"):
         check(chk[key], f"sharded 8-rank run: {key} is false")
     check(chk["grad bit_equal"] or chk["grad max_rel_err"] <= GRAD_TOL,
           f"sharded gradient off by {chk['grad max_rel_err']} (relative)")
@@ -1692,15 +1796,23 @@ def main() -> int:
               f"sharded {label}: {w['sent_bytes']} bytes sent != model {w['model_bytes']}")
     check(ranks[0]["wire"]["hdiff k=1"]["sent_bytes"] == 1_060_864,
           "hdiff k=1 round on 2x4 at 64x256x256 is not 1,060,864 bytes")
+    batched_label = f"hdiff k=1 batched x{SHARD_MEMBERS}"
+    check(ranks[0]["wire"][batched_label]["sent_bytes"] == SHARD_MEMBERS * 1_060_864,
+          f"the batched round is not {SHARD_MEMBERS} x 1,060,864 bytes")
     # Per rank: hdiff k = 1-3 one launch a call, five under overlap (the
     # interior, then four edge bands); shallow_water one (three outputs);
     # a value-and-grad step three (forward, then the augmented forward and
-    # the adjoint, both N-output).
+    # the adjoint, both N-output); the batched ensemble one (its members
+    # folded into the block's depth).
     per_rank = {"stencil_program_cuda": 3 * SHARD_STEPS * (1 + 5) + SHARD_STEPS
-                + 3 * SHARD_GRAD_STEPS,
+                + 3 * SHARD_GRAD_STEPS + SHARD_STEPS,
                 KERNEL_N_OUT: SHARD_STEPS + 2 * SHARD_GRAD_STEPS}
     for r, res in enumerate(ranks):
         check(res["launches"] == per_rank, f"rank {r} launches {res['launches']} != {per_rank}")
+        check(res["by_case"][batched_label] == {"stencil_program_cuda": SHARD_STEPS},
+              f"rank {r}: batched launches {res['by_case'][batched_label]}")
+    batched_sharded = sum(res["by_case"][batched_label]["stencil_program_cuda"]
+                          for res in ranks)
     # Summed over the ranks: every launch, and the N-output ones (which
     # replace lower_pallas.py:273, the rest :263).
     sharded_launches = {k: sum(res["launches"][k] for res in ranks) for k in per_rank}
@@ -1722,10 +1834,280 @@ def main() -> int:
               "timing": list(shard_timing.values())},
           "ranks": {"mesh": "x".join(map(str, SHARD_MESH)), "grid": list(PAPER_GRID),
                     "backend": "gloo", "spawn_s": spawn_s, "k2_launches": sharded_launches,
+                    "k2_launches_batched": batched_sharded,
                     "checks": chk, "wire_per_round": ranks[0]["wire"],
                     "host_s_per_step": {"label": host_label, **step_s},
                     "exchange_s_per_round": {"label": host_label, "case": "hdiff halo 2",
                                              **exchange_s}}})
+
+    # -- forecast: ensemble batching and forecast serving (M10) ---------------------
+    # (a) Parity: a batched K2 launch (lower_batched, members folded into
+    # depth) bit-equal to its plain version on the folded fields and, member
+    # by member, to unbatched launches; one launch a batched call. Then K1-K4
+    # past the grid's 65535 planes: two launches each, bit-equal.
+    t_phase = time.perf_counter()
+    fprog = ir.repeat(ir.hdiff_program(), FORECAST_K)
+    batched_progs = {"hdiff k=1": ir.hdiff_program(), "hdiff k=2": fprog,
+                     "shallow_water": ir.shallow_water_program(), "hdiff_coupled": coupled}
+    fc_err = {"stencil_program_cuda": 0.0, GRAD_K2: 0.0}
+    fc_checks = 0
+
+    def counted(fn):
+        """``fn()`` and the launches it made, by counter."""
+        before = dict(_build.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {key: c - before.get(key, 0) for key, c in _build.LAUNCHES.items()
+                     if c != before.get(key, 0)}
+
+    def fc_hold(site, label, got, want):
+        nonlocal fc_checks
+        for f in want:
+            err = (got[f].double() - want[f].double()).abs().max().item()
+            fc_err[site] = max(fc_err[site], err)
+            check(got[f].dtype == want[f].dtype and torch.equal(got[f], want[f]),
+                  f"{label}[{f}]: max abs error {err}")
+            fc_checks += 1
+
+    def one_launch(prog):
+        return {"stencil_program_cuda": 1, **({KERNEL_N_OUT: 1} if len(prog.outputs) > 1 else {})}
+
+    cells = [(name, n, PAPER_GRID, torch.float32) for name in batched_progs
+             for n in FORECAST_MEMBERS]
+    cells += [(name, 3, shape, dtype) for name in batched_progs
+              for shape, dtype in ((PAPER_GRID, torch.bfloat16), (RAGGED_GRID, torch.float32))]
+    for name, n, shape, dtype in cells:
+        prog = batched_progs[name]
+        outs = tuple(prog.outputs) if len(prog.outputs) > 1 else (prog.passthrough,)
+        site = GRAD_K2 if len(prog.outputs) > 1 else "stencil_program_cuda"
+
+        def by_field(y, outs=outs):
+            return y if isinstance(y, dict) else {outs[0]: y}
+
+        x = fields(prog, (n, *shape), dtype)
+        arg = x if len(prog.inputs) > 1 else x[prog.inputs[0]]
+        label = f"{'x'.join(map(str, shape))}/{name}/N={n}/{str(dtype)[6:]}"
+        got, used = counted(lambda: ir.lower_batched(prog, backend="cuda")(arg))
+        check(used == one_launch(prog), f"batched {label}: launches {used}")
+        got = by_field(got)
+        plain = by_field(ir.stencil_program_plain(
+            prog, tuple(a.reshape(-1, *shape[1:]) for a in x.values())))
+        fc_hold(site, f"batched {label} vs plain", got,
+                {f: v.reshape(n, *shape) for f, v in plain.items()})
+        single = ir.lower_cuda(prog)
+        for i in range(n):
+            xi = {f: a[i] for f, a in x.items()}
+            fc_hold(site, f"batched {label} member {i} vs unbatched",
+                    {f: v[i] for f, v in got.items()},
+                    by_field(single(xi if len(prog.inputs) > 1 else xi[prog.inputs[0]])))
+        del x, arg, got, plain
+    torch.cuda.empty_cache()
+    xd = randn(DEEP_GRID)
+    xq = (xd * scale).to(torch.int32)
+    w9 = masks["jacobi2d_9pt"]
+    sw_prog = ir.shallow_water_program()
+    sw_deep = tuple(randn(DEEP_GRID) for _ in sw_prog.inputs)
+    deep_cases = [
+        ("hdiff_cuda", "K1", lambda: k13.hdiff_cuda(xd, COEFF), lambda: k13.hdiff_plain(xd, COEFF)),
+        ("hdiff_fixed_cuda", "K3", lambda: k13.hdiff_fixed_cuda(xq),
+         lambda: hdiff_fixed_point_ref(xq, 26, 10)),
+        ("stencil2d_cuda", "K4 jacobi2d_9pt", lambda: k45.stencil2d_cuda(xd, w9),
+         lambda: k45.stencil2d_plain(xd, w9)),
+        ("stencil_program_cuda", "K2 hdiff", lambda: ir.stencil_program_cuda(hdiff2, (xd,)),
+         lambda: ir.stencil_program_plain(hdiff2, (xd,))),
+        ("stencil_program_cuda", "K2 shallow_water",
+         lambda: ir.stencil_program_cuda(sw_prog, sw_deep),
+         lambda: ir.stencil_program_plain(sw_prog, sw_deep)),
+    ]
+    deep = {}
+    for key, label, kernel, plain in deep_cases:
+        got, used = counted(kernel)
+        want = {key: 2, **({KERNEL_N_OUT: 2} if label.endswith("shallow_water") else {})}
+        check(used == want, f"{label} at {DEEP_GRID}: launches {used} != {want}")
+        got, ref = (got, plain()) if isinstance(got, dict) else ({"": got}, {"": plain()})
+        check(all(torch.equal(got[f], ref[f]) for f in ref),
+              f"{label} at {DEEP_GRID} differs from its plain version")
+        deep[label] = {"launches": used[key], "bit_equal": True}
+    del xd, xq, sw_deep, got, ref
+    torch.cuda.empty_cache()
+
+    # (b) Serving, counted: ForecastServer(backend="cuda") serves 8 forecasts
+    # of repeat(hdiff, 2) at max_batch 1, 2, 4 and 8, at the paper grid and at
+    # fig14's nowcast tile; rounds interleave the batch sizes, each reports its
+    # best round (fig14_serving.py). Then 8 members each of shallow_water (K2's
+    # N-output site) and hdiff_coupled (multi-field) at max_batch 8. The
+    # counters must read one K2 launch a batch.
+    def drain(srv, prog, members):
+        """Submits ``members`` and drains the server: (wall s, {rid:
+        request}, rids, s of the submits)."""
+        t0 = time.perf_counter()
+        rids = [srv.submit(prog, m) for m in members]
+        t1 = time.perf_counter()
+        done = srv.run_until_idle()
+        dt = time.perf_counter() - t0
+        check(sorted(r.rid for r in done) == sorted(rids) and not any(r.failed for r in done),
+              "a served forecast failed or went missing")
+        return dt, {r.rid: r for r in done}, rids, t1 - t0
+
+    serve_grids = {"paper": PAPER_GRID, "nowcast": NOWCAST_GRID}
+    serve_members = {g: [randn(shape) for _ in range(N_FORECASTS)]
+                     for g, shape in serve_grids.items()}
+    servers = {}
+    for g in serve_grids:
+        shared = CompileCache(capacity=16)  # the batch size is part of the key
+        servers[g] = {n: ForecastServer(backend="cuda", max_batch=n, cache=shared)
+                      for n in BATCH_SIZES}
+    coupled_members = {name: [fields(batched_progs[name], PAPER_GRID)
+                              for _ in range(N_FORECASTS)]
+                       for name in ("shallow_water", "hdiff_coupled")}
+    coupled_srv = ForecastServer(backend="cuda", max_batch=N_FORECASTS)
+    for _ in range(FORECAST_WARMUP):  # lowering and kernel loads land here
+        for g in serve_grids:
+            for srv in servers[g].values():
+                drain(srv, fprog, serve_members[g])
+        for name, ms in coupled_members.items():
+            drain(coupled_srv, batched_progs[name], ms)
+    # Each curve twice: with every result released after its drain (a client
+    # that takes its forecasts), then kept, as the server keeps every retired
+    # request in ``completed``: each step then allocates fresh device memory.
+    for srv in (*servers["paper"].values(), *servers["nowcast"].values(), coupled_srv):
+        srv.completed.clear()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    best = {(g, n, kept): float("inf") for g in serve_grids for n in BATCH_SIZES
+            for kept in (False, True)}
+    best_submit = dict(best)
+    for g in serve_grids:
+        for kept in (False, True):
+            for _ in range(FORECAST_ROUNDS):
+                for n, srv in servers[g].items():
+                    dt, _, _, submit_s = drain(srv, fprog, serve_members[g])
+                    if not kept:
+                        srv.completed.clear()
+                    best[(g, n, kept)] = min(best[(g, n, kept)], dt)
+                    best_submit[(g, n, kept)] = min(best_submit[(g, n, kept)], submit_s)
+            for srv in servers[g].values():
+                srv.completed.clear()
+    coupled_s = {name: drain(coupled_srv, batched_progs[name], ms)[0]
+                 for name, ms in coupled_members.items()}
+    torch.cuda.synchronize()
+    forecast_launches = dict(_build.LAUNCHES)
+    steps = {n: -(-N_FORECASTS // n) for n in BATCH_SIZES}
+    want = {"stencil_program_cuda": 2 * len(serve_grids) * FORECAST_ROUNDS
+            * sum(steps.values()) + len(coupled_members), KERNEL_N_OUT: 1}
+    check(forecast_launches == want, f"forecast launches {forecast_launches} != {want}")
+    # Outside the count: every served result bit-equal to lower_cuda on that
+    # member alone; a step's device work timed apart, its K2 launch from
+    # graph replays and its stack's copy by CUDA events (at the nowcast tile
+    # that is the copy's launch latency more than its work), the rest of a
+    # step's wall time being the host's.
+    single = ir.lower_cuda(fprog)
+    serving = {}
+    for g, shape in serve_grids.items():
+        singles = [single(m) for m in serve_members[g]]
+        rows = []
+        for n, srv in servers[g].items():
+            _, done, rids, _ = drain(srv, fprog, serve_members[g])
+            for rid, want_i in zip(rids, singles):
+                check(torch.equal(done[rid].result, want_i),
+                      f"served {g} max_batch={n} rid {rid} != lower_cuda on that member")
+            xb = torch.stack(serve_members[g][:n]).reshape(n * shape[0], *shape[1:])
+            k2_ms = graph_ms(lambda xb=xb: ir.stencil_program_cuda(fprog, (xb,)))
+            bound_ms, bound_by = bound(2 * xb.numel() * 4,
+                                       n * interior(shape, 2, sweeps=FORECAST_K) * flops_pt,
+                                       H100_SXM.peak_flops_vpu_f32)
+            stack_ms = event_ms(lambda n=n: torch.stack(serve_members[g][:n]))
+            ms_step = best[(g, n, False)] * 1e3 / steps[n]
+            rows.append({"max_batch": n, "steps": steps[n],
+                         "forecasts_per_s": N_FORECASTS / best[(g, n, False)],
+                         "forecasts_per_s_results_kept": N_FORECASTS / best[(g, n, True)],
+                         "ms_per_step": ms_step,
+                         "ms_per_step_results_kept": best[(g, n, True)] * 1e3 / steps[n],
+                         "device_ms_per_step": k2_ms + stack_ms,
+                         "host_ms_per_step": ms_step - k2_ms - stack_ms,
+                         "submit_ms_per_forecast":
+                             best_submit[(g, n, False)] * 1e3 / N_FORECASTS,
+                         "stack_us": stack_ms * 1e3,
+                         "k2_us": k2_ms * 1e3, "k2_bound_us": bound_ms * 1e3,
+                         "k2_bound_by": bound_by, "k2_us_per_member": k2_ms * 1e3 / n})
+            del xb
+            srv.completed.clear()
+        serving[g] = {"grid": list(shape), "rows": rows,
+                      "speedup_8_vs_1": rows[-1]["forecasts_per_s"] / rows[0]["forecasts_per_s"]}
+    for name, ms in coupled_members.items():
+        prog = batched_progs[name]
+        srv = ForecastServer(backend="cuda", max_batch=N_FORECASTS)
+        _, done, rids, _ = drain(srv, prog, ms)
+        one = ir.lower_cuda(prog)
+        for rid, m in zip(rids, ms):
+            got = done[rid].result
+            fc_hold(GRAD_K2 if len(prog.outputs) > 1 else "stencil_program_cuda",
+                    f"served {name} rid {rid}", got if isinstance(got, dict) else {"": got},
+                    one(m) if isinstance(got, dict) else {"": one(m)})
+    # The kernels line's batched rows: K2 at N = 8 on the paper grid, hdiff x2
+    # (one output) and shallow_water (N outputs), against their plain versions.
+    fc_timing = {}
+    for name, prog in (("hdiff k=2", fprog), ("shallow_water", sw_prog)):
+        x8 = tuple(a.reshape(-1, *PAPER_GRID[1:]) for a in fields(
+            prog, (N_FORECASTS, *PAPER_GRID)).values())
+        shape8 = x8[0].shape
+        bound_ms, bound_by = bound(k2_bytes(prog, shape8),
+                                   interior(shape8, prog.chain[0].radius, sweeps=prog.steps)
+                                   * prog.chain[0].spec().flops, H100_SXM.peak_flops_vpu_f32)
+        fc_timing[name] = {
+            "ms": graph_ms(lambda p=prog, a=x8: ir.stencil_program_cuda(p, a)),
+            "plain_ms": event_ms(lambda p=prog, a=x8: ir.stencil_program_plain(p, a), reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "grid": "x".join(map(str, shape8))}
+        del x8
+    torch.cuda.empty_cache()
+
+    # (c) The compile cache on fig14's deterministic schedule (two waves over
+    # the four batch sizes, a fresh cache): 4 misses, then 4 hits; one
+    # signature an entry; the warm wave loads no kernel and runs no nvcc.
+    cache = CompileCache(capacity=16)
+    sched = [randn(NOWCAST_GRID) for _ in range(max(BATCH_SIZES))]
+    waves = []
+    for _ in range(2):
+        k0, b0 = len(_KERNELS), len(_build.NVCC_RUNS)
+        for n in BATCH_SIZES:
+            drain(ForecastServer(backend="cuda", max_batch=n, cache=cache), fprog, sched[:n])
+        waves.append({"kernels_loaded": len(_KERNELS) - k0,
+                      "nvcc_builds": len(_build.NVCC_RUNS) - b0})
+    stats = cache.stats()
+    check(stats == {"hits": 4, "misses": 4, "evictions": 0, "size": 4, "capacity": 16},
+          f"cache schedule: {stats}")
+    check(cache.hit_rate == 0.5 and cache.total_traces() == 4,
+          f"cache: hit rate {cache.hit_rate}, signatures {cache.total_traces()}")
+    check(waves[1] == {"kernels_loaded": 0, "nvcc_builds": 0}, f"warm wave built {waves[1]}")
+
+    # (d) The NaN drill: 8 members, one poisoned; it fails alone and the
+    # other 7 equal a run without it.
+    clean = [randn(PAPER_GRID) for _ in range(N_FORECASTS)]
+    poisoned = clean[3].clone()
+    poisoned[0, 100, 100] = float("nan")
+    srv = ForecastServer(backend="cuda", max_batch=N_FORECASTS,
+                         monitor=HealthMonitor(policy="abort"))
+    rids = [srv.submit(fprog, poisoned if i == 3 else m) for i, m in enumerate(clean)]
+    done = {r.rid: r for r in srv.run_until_idle()}
+    check(srv.stats == {"batches": 1, "members": 8, "completed": 7, "failed": 1},
+          f"NaN drill: {srv.stats}")
+    check(isinstance(done[rids[3]].error, NumericsError) and done[rids[3]].result is None,
+          "the poisoned member did not fail with NumericsError")
+    _, ref, ref_rids, _ = drain(ForecastServer(backend="cuda", max_batch=N_FORECASTS), fprog,
+                                [m for i, m in enumerate(clean) if i != 3])
+    for rid, ref_rid in zip([r for i, r in enumerate(rids) if i != 3], ref_rids):
+        check(torch.equal(done[rid].result, ref[ref_rid].result),
+              f"NaN drill: member {rid} differs from the run without the poison")
+    emit({"phase": "forecast", "program": f"repeat(hdiff, {FORECAST_K})",
+          "parity": {"cells": len(cells), "checks_bit_equal": fc_checks,
+                     "max_abs_err": fc_err, "deep": {"grid": list(DEEP_GRID), **deep}},
+          "launches": forecast_launches, "serving": serving,
+          "coupled_drain_s": coupled_s, "k2_batched_n8": fc_timing,
+          "cache": {**stats, "hit_rate": cache.hit_rate, "signatures": cache.total_traces(),
+                    "waves": waves},
+          "nan_drill": {"failed": [r for r in rids if done[r].failed], "completed": 7,
+                        "bit_equal_to_clean_run": True},
+          "seconds": time.perf_counter() - t_phase})
 
     # -- result lines ----------------------------------------------------------
     # Launches: K1-K3 from the hdiff path (K2 runs on the hdiff, elementary
@@ -1780,14 +2162,34 @@ def main() -> int:
     mesh_tag = "x".join(map(str, SHARD_MESH))
     for label, site, replaces, count in (
             ("hdiff k=1", "stencil_program_cuda", "src/repro/ir/lower_pallas.py:263",
-             sharded_launches["stencil_program_cuda"] - sharded_launches[KERNEL_N_OUT]),
+             sharded_launches["stencil_program_cuda"] - sharded_launches[KERNEL_N_OUT]
+             - batched_sharded),
             ("shallow_water", GRAD_K2, "src/repro/ir/lower_pallas.py:273",
-             sharded_launches[KERNEL_N_OUT])):
+             sharded_launches[KERNEL_N_OUT]),
+            (batched_label, "stencil_program_cuda", "src/repro/ir/lower_pallas.py:263",
+             batched_sharded)):
         t = shard_timing[(label, mesh_tag, paper)]
         kernels.append({
             "name": "stencil_program_cuda", "route": "cuda",
             "source": "src/repro_torch/ir/codegen_cuda.py", "replaces": replaces,
             "launches": count, "max_abs_err": offset_err[site],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+        })
+    # K2 on the forecast path, both sites: the counted serving run's launches
+    # (one a batch: N members folded into depth), each timed on 8 members of
+    # the paper grid; the errors are the batched parity cells' and served
+    # results' against the plain version and unbatched launches.
+    for name, site, replaces, count in (
+            ("hdiff k=2", "stencil_program_cuda", "src/repro/ir/lower_pallas.py:263",
+             forecast_launches["stencil_program_cuda"] - forecast_launches[KERNEL_N_OUT]),
+            ("shallow_water", GRAD_K2, "src/repro/ir/lower_pallas.py:273",
+             forecast_launches[KERNEL_N_OUT])):
+        t = fc_timing[name]
+        kernels.append({
+            "name": "stencil_program_cuda", "route": "cuda",
+            "source": "src/repro_torch/ir/codegen_cuda.py", "replaces": replaces,
+            "launches": count, "max_abs_err": fc_err[site],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })

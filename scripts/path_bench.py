@@ -18,9 +18,14 @@ and, with no registry, 10 sweeps of ``lower_cuda(jacobi1d)`` and 5 calls of
 ``fit_coefficient_field`` on ``hdiff_coupled`` at k = 1 and at k = 2 (K2
 forward, augmented forward and adjoint a sweep, AdamW), whose device time
 per step (the kernels' busy time in one ``torch.profiler`` window of the
-leg after the samples) is printed beside the host time. Prints one JSON line per leg: the median and quartiles of
-µs per step or sweep and every sample, with the card's name and power
-limit. ``--src`` names the ``src/`` directory whose ``repro_torch`` is
+leg after the samples) is printed beside the host time; and, where the
+tree has ``repro_torch.serve.ForecastServer``, the forecast path: 8
+forecasts of ``repeat(hdiff, 2)`` served through
+``ForecastServer(backend="cuda")`` at max_batch 1 and 8, on the paper grid
+and on fig14's (1, 64, 64) nowcast tile, each result released after its
+drain (µs per forecast). Prints one JSON line per leg: the median and
+quartiles of µs per step, sweep or forecast and every sample, with the
+card's name and power limit. ``--src`` names the ``src/`` directory whose ``repro_torch`` is
 imported (default: this checkout's), so two trees can be timed in turns
 on one card; one chip_smoke window gives one sample per leg, and host
 times on a shared machine spread by more than the kernels' own.
@@ -102,6 +107,22 @@ def main() -> int:
             fits[f"assimilate_k{k}_5"] = (
                 lambda cfg=cfg, obs=obs: fit_coefficient_field(x, obs, cfg), 5)
         legs.update(fits)
+    try:
+        from repro_torch.serve import ForecastServer
+    except ImportError:  # a tree from before the forecast path
+        ForecastServer = None
+    if ForecastServer is not None:
+        fprog = ir.repeat(ir.hdiff_program(), 2)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        for grid, shape in (("paper", (64, 256, 256)), ("nowcast", (1, 64, 64))):
+            members = [torch.randn(shape, generator=gen, device="cuda") for _ in range(8)]
+            for n in (1, 8):
+                def drain(srv=ForecastServer(backend="cuda", max_batch=n), members=members):
+                    for m in members:
+                        srv.submit(fprog, m)
+                    srv.run_until_idle()
+                    srv.completed.clear()
+                legs[f"forecast_{grid}_8_b{n}"] = (drain, 8)
     samples: dict[str, list[float]] = {name: [] for name in legs}
     for fn, _ in legs.values():  # warm-up: builds, loads and first-use costs
         fn()

@@ -23,7 +23,9 @@ buffers (gloo is handed CPU tensors only); under nccl they stay on the
 device. :func:`count_wire` is the port's counterpart of the JAX package's
 ``measured_collective_permute_bytes``: it counts the bytes and messages
 this rank sends, the bytes it receives, and the bytes staged through the
-host.
+host. A batched step (:func:`repro_torch.ir.lower_batched` on a sharded
+backend) folds N members into the block's depth, so its round moves
+exactly N times an unbatched member's bytes in the same messages.
 
 The byte models are the JAX package's, unchanged. Two exact equalities tie
 them to the counter: the bytes sent, summed over the mesh, equal

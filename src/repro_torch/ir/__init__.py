@@ -25,6 +25,8 @@ an IR program, so gradients run through the same lowerings;
                                torch.distributed: per-field halo exchange,
                                K2 in offset mode or the evaluator per shard;
                                ``plan_partition`` picks the mesh shape)
+        --> lower_batched     (an ensemble-member axis folded into depth:
+                               one call of any backend for N members)
 """
 
 from repro_torch.ir.graph import (
@@ -96,4 +98,10 @@ from repro_torch.ir.autodiff import (
     pad_widths,
     seed_field,
 )
-from repro_torch.ir.lower_batched import BACKENDS, SHARDED_BACKENDS, build_backend
+from repro_torch.ir.lower_batched import (
+    BACKENDS,
+    BATCHED_BACKENDS,
+    SHARDED_BACKENDS,
+    build_backend,
+    lower_batched,
+)

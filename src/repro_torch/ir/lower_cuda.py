@@ -140,7 +140,9 @@ def stencil_program_cuda(
     ``arrays`` (one per ``program.inputs``, one grid, float32 or bfloat16,
     contiguous), the ring kept at the absolute indices the offsets give
     (:func:`stencil_program_plain`; in row mode the kernel's columns are
-    the global ones, ``(0, cols)``). CPU tensors take
+    the global ones, ``(0, cols)``). A field deeper than the grid's 65535
+    planes takes consecutive launches, each counted
+    (:func:`repro_torch.kernels._build.plane_chunks`). CPU tensors take
     :func:`stencil_program_plain`."""
     if arrays[0].device.type == "cpu":
         return stencil_program_plain(program, arrays, row_offset=row_offset,
@@ -160,13 +162,16 @@ def stencil_program_cuda(
     if arrays[0].numel():
         tile = tile_for(program, rows, cols, block_rows)
         fn = _kernel(program, dtypes, tile)
-        ptrs = [a.data_ptr() for a in arrays] + [o.data_ptr() for o in outs.values()]
+        bases = [(t.data_ptr(), rows * cols * t.element_size())
+                 for t in (*arrays, *outs.values())]
         with torch.cuda.device(device):
-            code = fn(*ptrs, depth, rows, cols, row_offset, rows_global, col_offset,
-                      cols_global, torch.cuda.current_stream().cuda_stream)
-        _build.check_launch(KERNEL, code)
-        if len(outs) > 1:
-            _build.count_launch(KERNEL_N_OUT)
+            stream = torch.cuda.current_stream().cuda_stream
+            for first, planes in _build.plane_chunks(depth):
+                code = fn(*(p + first * plane for p, plane in bases), planes, rows, cols,
+                          row_offset, rows_global, col_offset, cols_global, stream)
+                _build.check_launch(KERNEL, code)
+                if len(outs) > 1:
+                    _build.count_launch(KERNEL_N_OUT)
     if len(outs) == 1:
         return outs[program.passthrough]
     return outs

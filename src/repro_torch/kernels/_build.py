@@ -18,7 +18,13 @@ one ``nvcc`` process each, all started together.
 The launch counters live here too: every kernel wrapper calls
 :func:`count_launch` right after a successful launch (and nowhere else), so
 a caller can reset the counts, run a path, and read which kernels it went
-through.
+through. :data:`NVCC_RUNS` lists every library :func:`build` compiled in
+this process, so a caller can tell whether a run built anything.
+
+The stencil kernels map depth planes to a grid dimension, which holds at
+most :data:`MAX_PLANES` blocks. Their wrappers cut a deeper field into
+consecutive launches of at most that many planes (:func:`plane_chunks`),
+each with its pointers offset by the planes before it.
 """
 
 from __future__ import annotations
@@ -38,7 +44,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+# The most blocks a grid's y or z dimension holds.
+MAX_PLANES = 65535
+
 LAUNCHES: dict[str, int] = {}
+NVCC_RUNS: list[str] = []
 _LOADED: dict[Path, ctypes.CDLL] = {}
 
 
@@ -48,6 +58,12 @@ def count_launch(kernel: str) -> None:
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def plane_chunks(depth: int) -> list[tuple[int, int]]:
+    """``(first plane, planes)`` of each launch over a ``depth``-plane
+    field: consecutive runs of at most :data:`MAX_PLANES` planes."""
+    return [(p, min(MAX_PLANES, depth - p)) for p in range(0, depth, MAX_PLANES)]
 
 
 def nvcc() -> str:
@@ -93,6 +109,7 @@ def build(sources: Sequence[tuple[str, str]]) -> list[Path]:
         cu.write_text(text)
         cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(cu)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        NVCC_RUNS.append(name)
         jobs.append((name, proc, so, tmp, cu))
     failures = []
     for name, proc, so, tmp, cu in jobs:
@@ -123,8 +140,9 @@ def check_input(kernel: str, x, dtypes, *, field: str = "input", ndim: int = 3,
     laid out as ``kernel`` takes it. With ``shape`` (the recurrences' several
     inputs), it must have exactly that shape and lie on ``device``, the
     device the kernel launches on. Without, it is a stencil field:
-    ``(depth, rows, cols)`` with a depth that fits the grid's z dimension
-    (65535 blocks) or, for ``ndim=2``, ``(batch, n)`` with ``n`` below 2**31."""
+    ``(depth, rows, cols)`` of any depth (the wrappers launch
+    :func:`plane_chunks`) or, for ``ndim=2``, ``(batch, n)`` with ``n``
+    below 2**31."""
     if x.device.type != "cuda" or (device is not None and x.device != device):
         on = f"the CUDA device {device}" if device is not None else "a CUDA device"
         raise ValueError(f"{kernel}: {field} is on {x.device}; it must be on {on} "
@@ -140,11 +158,7 @@ def check_input(kernel: str, x, dtypes, *, field: str = "input", ndim: int = 3,
         raise ValueError(f"{kernel}: {field} must be {want}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{kernel}: {field} must be contiguous")
-    if shape is not None:
-        return
-    if ndim == 3 and x.shape[0] > 65535:
-        raise ValueError(f"{kernel}: depth {x.shape[0]} exceeds the 65535-block grid limit")
-    if ndim == 2 and (x.shape[1] >= 2**31 or x.shape[0] >= 2**31):
+    if shape is None and ndim == 2 and (x.shape[1] >= 2**31 or x.shape[0] >= 2**31):
         raise ValueError(f"{kernel}: {field} shape {tuple(x.shape)} exceeds int32 indexing")
 
 

@@ -12,8 +12,10 @@ plain PyTorch versions.
 
 A wrapper given a CPU tensor computes the plain version; given a CUDA
 tensor it launches the kernel on the current stream or raises — it never
-falls back. The kernel source's header says what bounds it on the card and
-what its design does about that.
+falls back. A field deeper than the grid's 65535 planes takes consecutive
+launches (:func:`repro_torch.kernels._build.plane_chunks`), each counted.
+The kernel source's header says what bounds it on the card and what its
+design does about that.
 """
 
 from __future__ import annotations
@@ -84,12 +86,15 @@ def hdiff_cuda(
     fn = lib.hdiff_f32 if psi.dtype == torch.float32 else lib.hdiff_bf16
     tile = _tile(psi, block_rows)
     depth, rows, cols = psi.shape
+    plane = rows * cols * psi.element_size()
     with torch.cuda.device(psi.device):
-        code = fn(
-            psi.data_ptr(), out.data_ptr(), depth, rows, cols, tile.rows, tile.cols,
-            float(coeff), int(limit), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check_launch("hdiff_cuda", code)
+        stream = torch.cuda.current_stream().cuda_stream
+        for first, planes in _build.plane_chunks(depth):
+            code = fn(
+                psi.data_ptr() + first * plane, out.data_ptr() + first * plane, planes, rows,
+                cols, tile.rows, tile.cols, float(coeff), int(limit), stream,
+            )
+            _build.check_launch("hdiff_cuda", code)
     return out
 
 
@@ -114,10 +119,13 @@ def hdiff_fixed_cuda(
         return out
     depth, rows, cols = psi_q.shape
     tile = plan_fixed_tile(rows, cols, halo=HALO, block_rows=block_rows)
+    plane = rows * cols * psi_q.element_size()
     with torch.cuda.device(psi_q.device):
-        code = _library().hdiff_fixed_i32(
-            psi_q.data_ptr(), out.data_ptr(), depth, rows, cols, tile.rows, tile.cols,
-            int(coeff_num), int(coeff_shift), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check_launch("hdiff_fixed_cuda", code)
+        stream = torch.cuda.current_stream().cuda_stream
+        for first, planes in _build.plane_chunks(depth):
+            code = _library().hdiff_fixed_i32(
+                psi_q.data_ptr() + first * plane, out.data_ptr() + first * plane, planes,
+                rows, cols, tile.rows, tile.cols, int(coeff_num), int(coeff_shift), stream,
+            )
+            _build.check_launch("hdiff_fixed_cuda", code)
     return out

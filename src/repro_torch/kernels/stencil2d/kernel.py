@@ -10,8 +10,10 @@
 
 A wrapper given a CPU tensor computes the plain version; given a CUDA
 tensor it launches the kernel on the current stream or raises — it never
-falls back. The kernel source's header says what bounds it on the card and
-what its design does about that.
+falls back. K4 takes a field deeper than the grid's 65535 planes in
+consecutive launches (:func:`repro_torch.kernels._build.plane_chunks`),
+each counted. The kernel source's header says what bounds it on the card
+and what its design does about that.
 """
 
 from __future__ import annotations
@@ -97,10 +99,13 @@ def stencil2d_cuda(
     lib = _library()
     fn = lib.stencil2d_f32 if x.dtype == torch.float32 else lib.stencil2d_bf16
     mask = (ctypes.c_float * 9)(*w.ravel().tolist())
+    plane = rows * cols * x.element_size()
     with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), out.data_ptr(), depth, rows, cols, tile.rows, tile.cols,
-                  mask, torch.cuda.current_stream().cuda_stream)
-    _build.check_launch("stencil2d_cuda", code)
+        stream = torch.cuda.current_stream().cuda_stream
+        for first, planes in _build.plane_chunks(depth):
+            code = fn(x.data_ptr() + first * plane, out.data_ptr() + first * plane, planes,
+                      rows, cols, tile.rows, tile.cols, mask, stream)
+            _build.check_launch("stencil2d_cuda", code)
     return out
 
 

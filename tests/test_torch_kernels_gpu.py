@@ -754,3 +754,84 @@ def test_generic_rule_op_has_no_cuda_emitter(cuda):
     y = fn(x)
     with pytest.raises(ValueError, match="has no CUDA emitter"):
         y.sum().backward()
+
+
+# -- the member axis (lower_batched) and grids deeper than 65535 planes --------
+
+BATCHED = {
+    "hdiff": ir.hdiff_program,
+    "hdiff_x2": lambda: ir.repeat(ir.hdiff_program(), 2),
+    "shallow_water": ir.shallow_water_program,
+    "hdiff_coupled": ir.hdiff_coupled_program,
+}
+
+
+def _members(prog, n, shape, device, dtype=torch.float32, seed=0):
+    out = {}
+    for i, f in enumerate(prog.inputs):
+        a = _rand((n, *shape), device, seed=seed + i)
+        out[f] = (0.025 * (1.0 + 0.25 * torch.tanh(a)) if f == "coeff" else a).to(dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("name", sorted(BATCHED))
+def test_k2_batched_one_launch_bit_equal_to_plain_and_unbatched(cuda, name, n, dtype):
+    """A batched step of the cuda backend is ONE K2 launch over n*D planes
+    (an N-output one for shallow_water), bit-equal to the plain version on
+    the folded fields and, member by member, to n unbatched launches."""
+    prog = BATCHED[name]()
+    shape = (2, 37, 70)
+    x = _members(prog, n, shape, cuda, dtype)
+    arg = x if len(prog.inputs) > 1 else x[prog.inputs[0]]
+    fn = ir.lower_batched(prog, backend="cuda")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = fn(arg)
+    torch.cuda.synchronize()
+    want = {"stencil_program_cuda": 1}
+    if len(prog.outputs) > 1:
+        want[KERNEL_N_OUT] = 1
+    assert _build.LAUNCHES == want
+    folded = tuple(a.reshape(-1, *shape[1:]) for a in x.values())
+    plain = ir.stencil_program_plain(prog, folded)
+    as_dict = (lambda y: y if isinstance(y, dict) else {prog.passthrough: y})
+    got, plain = as_dict(got), as_dict(plain)
+    _equal(got, {f: v.reshape(n, *shape) for f, v in plain.items()})
+    for i in range(n):
+        single = as_dict(ir.lower_cuda(prog)({f: a[i] for f, a in x.items()}
+                                             if len(prog.inputs) > 1 else x[prog.inputs[0]][i]))
+        _equal({f: v[i] for f, v in got.items()}, single)
+
+
+DEEP = (65537, 12, 12)  # two launches: 65535 planes, then 2
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2_hdiff", "k2_shallow_water", "k3", "k4"])
+def test_grids_deeper_than_the_grid_limit_bit_equal_to_plain(cuda, kernel):
+    """K1-K4 map depth to a grid dimension of at most 65535 blocks: a deeper
+    field goes in consecutive launches, each counted, bit-equal to the
+    plain version (the last planes included)."""
+    x = _rand(DEEP, cuda, seed=3)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    if kernel == "k1":
+        got, want, key = k13.hdiff_cuda(x, 0.025), k13.hdiff_plain(x, 0.025), "hdiff_cuda"
+    elif kernel == "k3":
+        xq = (x * 2**16).to(torch.int32)
+        got, want = k13.hdiff_fixed_cuda(xq), hdiff_fixed_point_ref(xq, 26, 10)
+        key = "hdiff_fixed_cuda"
+    elif kernel == "k4":
+        w = weights_for("jacobi2d_9pt")
+        got, want, key = stencil2d_cuda(x, w), stencil2d_plain(x, w), "stencil2d_cuda"
+    else:
+        prog = ir.hdiff_program() if kernel == "k2_hdiff" else ir.shallow_water_program()
+        arrays = tuple(_rand(DEEP, cuda, seed=i) for i in range(len(prog.inputs)))
+        got = ir.stencil_program_cuda(prog, arrays)
+        want, key = ir.stencil_program_plain(prog, arrays), "stencil_program_cuda"
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == 2
+    if kernel == "k2_shallow_water":
+        assert _build.LAUNCHES[KERNEL_N_OUT] == 2
+    _equal(got, want)

@@ -425,3 +425,71 @@ def halo_suite(rank, world, x, poisoned, programs):
     except ValueError as e:
         out["bad_mesh"] = str(e)
     return out
+
+
+BATCHED_NAMES = ("hdiff", "shallow_water", "hdiff_coupled")
+
+
+def lower_batched_suite(rank, world, inputs, members):
+    """Every sharded ``lower_batched`` cell of the CPU matrix on 8 gloo ranks:
+    ``BATCHED_NAMES`` x k = 1, 2 x both inners on the 2x4 rows x cols mesh
+    (``inputs[name]`` is the global ``(members, D, R, C)`` field or mapping),
+    k = 1 also on a 2x2x2 data x rows x cols mesh and through
+    ``mesh_shape=(2, 4)``. Rank 0 returns, per cell, the gathered batched
+    result (numpy), whether each member equals the unbatched sharded call
+    on it, and the bytes sent per round summed over the ranks: batched, and
+    one unbatched member's."""
+    import torch
+
+    from repro_torch import ir
+    from repro_torch.dist import count_wire
+    from repro_torch.launch.mesh import make_mesh
+
+    meshes = {m: make_mesh(*MESHES[m], backend="gloo", device="cpu") for m in ("2x4", "2x2x2")}
+    out = {"fwd": {}, "members_equal": {}, "wire": {}}
+    cells = [("2x4", name, k, inner) for name in BATCHED_NAMES for k in (1, 2)
+             for inner in ("reference", "cuda")]
+    cells += [(m, name, 1, inner) for m in ("2x2x2", "mesh_shape") for name in BATCHED_NAMES
+              for inner in ("reference", "cuda")]
+    for m, name, k, inner in cells:
+        mesh = meshes["2x4" if m == "mesh_shape" else m]
+        spec = ("data", "rows", "cols") if m == "2x2x2" else SPEC
+        p = ir.repeat(program(name), k)
+        backend = f"sharded-{inner}"
+        where = dict(mesh_shape=(2, 4), device="cpu") if m == "mesh_shape" else dict(mesh=mesh)
+        fn = ir.lower_batched(p, backend=backend, **where)
+        base = ir.build_backend(p, backend, **where)
+        xl = _shard(_tensors(inputs[name]), mesh, spec)
+        with count_wire() as c:
+            y = fn(xl)
+        batched_sent = _mesh_sent(c, mesh)
+        same, member_sent = True, []
+        for i in range(members):
+            xi = {f: a[i] for f, a in xl.items()} if isinstance(xl, dict) else xl[i]
+            with count_wire() as c:
+                yi = base(xi)
+            member_sent.append(_mesh_sent(c, mesh))
+            got = {f: a[i] for f, a in y.items()} if isinstance(y, dict) else y[i]
+            same = same and _equal(got, yi)
+        flag = torch.tensor([int(same)])
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
+        g = _gather(y, mesh, spec)
+        if rank == 0:
+            key = (m, name, k, inner)
+            out["fwd"][key] = _numpy(g)
+            out["members_equal"][key] = bool(flag)
+            out["wire"][key] = (batched_sent, member_sent)
+    # ForecastServer on a sharded backend: each rank submits its blocks of
+    # the members; the served results are the batched lowering's.
+    from repro_torch.serve import ForecastServer
+
+    srv = ForecastServer(backend="sharded-cuda", mesh_shape=(2, 4), device="cpu")
+    xl = _shard(_tensors(inputs["hdiff"]), meshes["2x4"], SPEC)
+    rids = [srv.submit(program("hdiff"), xl[i]) for i in range(members)]
+    done = {r.rid: r for r in srv.run_until_idle()}
+    want = ir.lower_batched(program("hdiff"), backend="sharded-cuda", mesh=meshes["2x4"])(xl)
+    flag = torch.tensor([int(srv.stats["batches"] == 1 and all(
+        torch.equal(done[rid].result, want[i]) for i, rid in enumerate(rids)))])
+    torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
+    out["served"] = bool(flag)
+    return out if rank == 0 else None
