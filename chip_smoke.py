@@ -13,7 +13,9 @@ same domain), the recurrent LMs (RWKV-6 3B, RecurrentGemma 2B, at
 their published shapes) served by ``BatchedServer`` through the WKV-6 and
 RG-LRU kernels, the rows x cols decomposition on 8 gloo ranks, and
 forecast serving (``ForecastServer``: ensemble members folded into one K2
-launch a batch) — and holds every hand-written kernel against its plain
+launch a batch), the shallow-water weather driver with its checkpoint
+store, and LM training on RecurrentGemma 2B at its published widths with
+K6 forward and backward — and holds every hand-written kernel against its plain
 PyTorch version on the card. Each phase prints one JSON line (``t_s``: the
 script's seconds so far when it was printed):
 
@@ -196,6 +198,41 @@ script's seconds so far when it was printed):
               rate 0.5, 4 signatures, no kernel loaded or built in the warm
               wave. (d) 8 members, one NaN-poisoned: it fails alone with
               NumericsError, the other 7 bit-equal to a run without it
+  driver      the shallow-water weather driver
+              (``examples/torch_weather_simulation.py``, M12) at 64x256x256,
+              50 steps: (a) ``--devices 1 --inner cuda`` through its
+              ``run`` entry point with the counters reset just before: one
+              N-output K2 launch a step, exactly; the step it builds
+              (``lower_sharded`` on a one-rank mesh) bit-equal to
+              ``lower_cuda`` at every step (and to the plain version on the
+              first two), its final fields equal; the 50 MB {u, v, h}
+              checkpoint's write and read seconds. (b) The ``--health``
+              drill of the reference test on 2 gloo ranks through the
+              command line: exit 3, ``BLOWUP_DETECTED step=9 field=h
+              nan_count=1``, a COMMITted step-6 checkpoint equal to the
+              6-step state, probes of u, v, h and one blow-up in the flight
+              recorder. (c) ``--devices 8``: 8 gloo ranks time-sharing the
+              card, 50 K2 launches each (offset mode), the gathered fields
+              equal to ``--devices 1``'s; host ms a step (one exchange round
+              a step): not a multi-GPU figure
+  train       LM training (M13b.1) with K6 differentiable: (a) K6 under
+              autograd at (4, 256, 2560) and (8, 4096, 2560): the forward
+              bit-equal to the plain version, the backward (K6 on reversed,
+              shifted time) bit-equal to the plain reverse recurrence and
+              within 1e-5 relative of autograd through the plain forward,
+              timed; K6 at 65537x4x32 and K7 at batch and heads 65537, two
+              launches each; (b) a RecurrentGemma smoke-config train step at
+              f32 on the card within 2e-4 of the CPU's; (c) ``train()`` on
+              ``recurrentgemma-2b`` at its published widths (26 layers,
+              f32 masters, bf16 compute, remat), 4 steps of batch 4 x 256
+              tokens with the counters reset just before: K6 exactly 3
+              launches per RG-LRU layer a step (forward, recompute,
+              backward), finite losses and grad norms, host ms a step, peak
+              memory, one profiled step's busy share; (d) the resume drill
+              (6 steps, ``ckpt_every=2``, a rerun runs no step) and the
+              SIGTERM drill (a checkpoint at step 3, the resumed run
+              bit-equal to an uninterrupted one) at the smoke config; (e)
+              RWKV-6 under gradients on the card raises NotImplementedError
 
 Then the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (each
 kernel's launches from the path that runs it), and last
@@ -210,9 +247,7 @@ import contextlib
 import dataclasses
 import gc
 import json
-import multiprocessing
 import os
-import pickle
 import re
 import statistics
 import subprocess
@@ -265,6 +300,17 @@ BATCH_SIZES = (1, 2, 4, 8)
 FORECAST_WARMUP, FORECAST_ROUNDS = 2, 20  # fig14: rounds interleave the batch sizes
 FORECAST_MEMBERS = (1, 3, 8)  # the batched parity cells at the paper grid
 GRAD_TOL = 1e-5  # tests/conformance.py's relative gradient bound
+DRIVER_STEPS = 50  # the weather driver's default forecast length
+DRIVER_RANKS = 8  # its default --devices: gloo ranks time-sharing the one card
+DRILL = ("--steps", "12", "--health", "--health-every", "3", "--inject-nan", "7",
+         "--health-policy", "checkpoint-then-abort")  # the reference test's drill
+TRAIN_ARCH = "recurrentgemma-2b"
+TRAIN_STEPS = 4  # full-width trainer steps; the first includes the warm-up
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+K6_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 2560)  # the trainer's RG-LRU scan: (B, T, rnn_width)
+K6_WIDE = (65537, 4, 32)  # past the grid's 65535 batch rows: two launches
+K7_WIDE = ((65537, 16, 1, 8), (1, 16, 65537, 4))  # batch, then heads, past 65535
+TRAIN_TOL = 2e-4  # a trainer step, card vs CPU at float32 (tests/test_torch_train_lm.py)
 T_START = time.perf_counter()
 
 
@@ -418,21 +464,6 @@ def shard_bound_work(prog, depth, slab, grid):
                 * span(kc[0] - later, kc[1] + later, q.radius, grid[1] - q.radius)
                 * q.spec().flops)
     return 4 * (words + kept * len(prog.outputs)), ops
-
-
-def _sharded_rank(rank, world, store, out):
-    """One gloo rank of the sharded phase (run in a spawned process): writes
-    ``("ok", findings)`` or ``("error", traceback)`` to ``<out>.<rank>``."""
-    import traceback
-
-    try:
-        status = ("ok", _sharded_rank_body(rank, world, store))
-    except Exception:  # noqa: BLE001 - carried to the parent
-        status = ("error", traceback.format_exc())
-    with open(f"{out}.{rank}", "wb") as f:
-        pickle.dump(status, f)
-    if status[0] != "ok":
-        os._exit(1)
 
 
 def _sharded_rank_body(rank, world, store):
@@ -607,42 +638,6 @@ def _sharded_rank_body(rank, world, store):
     return found
 
 
-def run_sharded_ranks(world):
-    """Spawns the sharded phase's ``world`` gloo ranks and returns their
-    findings in rank order; raises with a failed rank's traceback, or when
-    the spawn outlives ``SHARD_TIMEOUT``."""
-    work = ROOT / "build" / "repro_torch" / f"sharded.{os.getpid()}"
-    work.mkdir(parents=True, exist_ok=True)
-    store, out = str(work / "store"), str(work / "out")
-    for f in work.iterdir():
-        f.unlink()
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_sharded_rank, args=(r, world, store, out)) for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + SHARD_TIMEOUT
-    try:
-        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
-            if any(p.exitcode not in (None, 0) for p in procs):
-                break
-            time.sleep(0.1)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join()
-    results, errors = [], []
-    for r in range(world):
-        path = Path(f"{out}.{r}")
-        status, value = pickle.loads(path.read_bytes()) if path.exists() else (
-            "error", f"rank {r} left no result (exit code {procs[r].exitcode})")
-        if status != "ok":
-            errors.append(f"rank {r}: {value}")
-        results.append(value)
-    check(not errors, "sharded ranks failed:\n" + "\n".join(errors))
-    return results
-
-
 def main() -> int:
     import numpy as np
     import torch
@@ -667,6 +662,7 @@ def main() -> int:
         run_simulation,
     )
     from repro_torch.kernels import _build
+    from repro_torch.launch.spawn import run_ranks
     from repro_torch.kernels.hdiff import hdiff_fixed, hdiff_fused, hdiff_fused_ad, hdiff_twostep
     from repro_torch.kernels.hdiff import hdiff_fixed_point_ref
     from repro_torch.kernels.hdiff import kernel as k13
@@ -793,6 +789,14 @@ def main() -> int:
     for prog in (hdiff2, ir.shallow_water_program()):
         sources.append(kernel_source(prog, ("float32",) * len(prog.inputs),
                                      tile_for(prog, *DEEP_GRID[1:])))
+    # The driver phase's shallow_water blocks: each plan_partition split it
+    # runs (rows x cols blocks, padded by the halo on every split axis).
+    sw = ir.shallow_water_program()
+    for n in (2, DRIVER_RANKS):
+        plan = ir.plan_partition(sw, *PAPER_GRID, n)
+        rr = PAPER_GRID[1] // plan.row_shards + (2 * sw.radius if plan.row_shards > 1 else 0)
+        cc = PAPER_GRID[2] // plan.col_shards + (2 * sw.radius if plan.col_shards > 1 else 0)
+        sources.append(kernel_source(sw, ("float32",) * len(sw.inputs), tile_for(sw, rr, cc)))
     sources += [k6.source(), k7.source()]
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
@@ -1780,8 +1784,9 @@ def main() -> int:
     del slab
     # (b) Eight gloo ranks on the one card, spawned now that every kernel is built.
     world = SHARD_MESH[0] * SHARD_MESH[1]
+    work = ROOT / "build" / "repro_torch"
     t0 = time.perf_counter()
-    ranks = run_sharded_ranks(world)
+    ranks = run_ranks(_sharded_rank_body, world, work, timeout=SHARD_TIMEOUT)
     spawn_s = time.perf_counter() - t0
     chk = ranks[0]["checks"]
     for key in ("overlap_bit_equal", "hdiff k=1 bit_equal", "hdiff k=2 bit_equal",
@@ -2109,6 +2114,338 @@ def main() -> int:
                         "bit_equal_to_clean_run": True},
           "seconds": time.perf_counter() - t_phase})
 
+    # -- driver: the shallow-water weather driver (M12) -----------------------------
+    # (a) --devices 1 --inner cuda on the paper grid, through the example's
+    # own entry point, counted: one N-output K2 launch a step. Then the
+    # step it builds (lower_sharded on a one-rank mesh) held step by step
+    # against lower_cuda (and the first steps against the plain version),
+    # the final fields against the driver's, and the 50 MB {u, v, h}
+    # checkpoint's write and read-back timed. (b) The --health drill on 2
+    # gloo ranks through the command line, its lines and checkpoint held to
+    # the reference test's. (c) --devices 8: gloo ranks time-sharing the
+    # card, their host ms a step and round (one exchange round a step).
+    import shutil
+    import signal
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_weather_simulation as drv
+    from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "repro_torch" / f"driver.{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    depth, size = PAPER_GRID[0], PAPER_GRID[1]
+    grid_args = ["--depth", str(depth), "--size", str(size)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    one = drv.run(drv.parse_args([*grid_args, "--steps", str(DRIVER_STEPS), "--devices", "1",
+                                  "--inner", "cuda"]))
+    torch.cuda.synchronize()
+    driver_launches = dict(_build.LAUNCHES)
+    check(one["code"] == 0, f"driver --devices 1 exited {one['code']}")
+    check(driver_launches == {"stencil_program_cuda": DRIVER_STEPS, KERNEL_N_OUT: DRIVER_STEPS},
+          f"driver --devices 1 launches {driver_launches}")
+    h0 = make_initial_field(depth, size, size, kind="gaussian", device=dev)
+    state = {"u": torch.zeros_like(h0), "v": torch.zeros_like(h0), "h": h0}
+    dist.init_process_group("gloo", store=dist.FileStore(str(work / "store"), 1), rank=0,
+                            world_size=1)
+    drv_step = ir.lower_sharded(sw, make_mesh((1, 1), ("rows", "cols"), backend="gloo",
+                                              device=dev),
+                                depth_axis=None, row_axis="rows", col_axis="cols", inner="cuda")
+    lc = ir.lower_cuda(sw)
+    driver_err, at_step = 0.0, {}
+    for i in range(DRIVER_STEPS):
+        got, want = drv_step(state), lc(state)
+        for f in sw.outputs:
+            check(torch.equal(got[f], want[f]), f"driver step {i + 1} field {f} != lower_cuda")
+        if i < 2:
+            plain = ir.stencil_program_plain(sw, tuple(state[f] for f in sw.inputs))
+            for f in sw.outputs:
+                driver_err = max(driver_err, (got[f] - plain[f]).abs().max().item())
+                check(torch.equal(got[f], plain[f]), f"driver step {i + 1} {f}: K2 != plain")
+        state = want
+        at_step[i + 1] = state
+    dist.destroy_process_group()
+    for f in sw.outputs:
+        check(np.array_equal(one["final"][f], state[f].cpu().numpy()),
+              f"driver final {f} != {DRIVER_STEPS} lower_cuda steps")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(work / "ckpt", DRIVER_STEPS, state, {"step": DRIVER_STEPS})
+    ckpt_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _ = restore_checkpoint(work / "ckpt", None, state)
+    torch.cuda.synchronize()
+    ckpt_read_s = time.perf_counter() - t0
+    check(all(torch.equal(back[f], state[f]) for f in sw.outputs), "checkpoint round trip")
+    ckpt_mb = sum(a.numel() * a.element_size() for a in state.values()) / 1e6
+    # (b) The drill, as the reference test runs it, at the paper grid.
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    log = work / "events.jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_weather_simulation.py"), *grid_args,
+         "--devices", "2", *DRILL, "--ckpt-dir", str(work / "drill"), "--event-log", str(log)],
+        capture_output=True, text=True, env=env, timeout=600)
+    drill_s = time.perf_counter() - t0
+    check(proc.returncode == 3, f"drill exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    check("BLOWUP_DETECTED step=9 field=h nan_count=1" in proc.stdout, proc.stdout)
+    check(latest_step(work / "drill") == 6, "drill: latest step != 6")
+    saved, extra = restore_checkpoint(work / "drill", 6, {f: torch.zeros(PAPER_GRID)
+                                                          for f in sw.outputs})
+    check(extra["fields"] == list(sw.outputs), f"drill checkpoint extra {extra}")
+    for f in sw.outputs:
+        check(torch.equal(saved[f], at_step[6][f].cpu()), f"drill checkpoint {f} != step 6")
+    kinds = [json.loads(line) for line in log.read_text().splitlines()]
+    check({e["data"]["field"] for e in kinds if e["kind"] == "health.probe"} == set(sw.outputs)
+          and [e["data"]["step"] for e in kinds if e["kind"] == "health.blowup"] == [9],
+          "drill flight recorder")
+    # (c) --devices 8 on the one card.
+    eight = drv.run(drv.parse_args([*grid_args, "--steps", str(DRIVER_STEPS), "--devices",
+                                    str(DRIVER_RANKS), "--inner", "cuda"]))
+    check(eight["code"] == 0, f"driver --devices {DRIVER_RANKS} exited {eight['code']}")
+    for r, rank_counts in enumerate(eight["launches"]):
+        check(rank_counts == driver_launches, f"driver rank {r} launches {rank_counts}")
+    for f in sw.outputs:
+        check(np.array_equal(eight["final"][f], one["final"][f]),
+              f"driver --devices {DRIVER_RANKS} {f} != --devices 1")
+    driver_ranks_n_out = sum(rank_counts[KERNEL_N_OUT] for rank_counts in eight["launches"])
+    one_ms, rank_ms = one["ms_per_step"], eight["rank_ms_per_step"]
+    shutil.rmtree(work, ignore_errors=True)
+    del state, at_step, back, saved, one, eight, h0
+    # The driver's N-output launch on the whole paper grid, timed.
+    swx = tuple(fields(sw, PAPER_GRID).values())
+    n_pts = PAPER_GRID[0] * PAPER_GRID[1] * PAPER_GRID[2]
+    sw_bound, sw_by = bound(k2_bytes(sw, PAPER_GRID), interior(PAPER_GRID, 1) * sw.spec().flops,
+                            H100_SXM.peak_flops_vpu_f32)
+    sw_timing = {"ms": graph_ms(lambda: ir.stencil_program_cuda(sw, swx)),
+                 "plain_ms": event_ms(lambda: ir.stencil_program_plain(sw, swx)),
+                 "bound_ms": sw_bound, "bound_by": sw_by, "library_ms": None}
+    del swx
+    emit({"phase": "driver", "grid": list(PAPER_GRID), "steps": DRIVER_STEPS,
+          "program": sw.name, "points": n_pts,
+          "devices_1": {"launches": driver_launches, "host_us_per_step": one_ms * 1e3,
+                        "bit_equal_to_lower_cuda_each_step": True,
+                        "k2_n_out_us": sw_timing["ms"] * 1e3,
+                        "k2_n_out_bound_us": sw_bound * 1e3},
+          "checkpoint": {"mb": ckpt_mb, "write_s": ckpt_write_s, "read_s": ckpt_read_s},
+          "drill": {"ranks": 2, "seconds": drill_s, "blowup_line": "BLOWUP_DETECTED step=9 "
+                    "field=h nan_count=1", "exit_code": 3, "latest_step": 6,
+                    "checkpoint_equals_step_6": True},
+          "devices_8": {"ranks": DRIVER_RANKS, "backend": "gloo",
+                        "host_ms_per_step_by_rank": rank_ms,
+                        "host_ms_per_step_median": statistics.median(rank_ms),
+                        "host_ms_per_round_median": statistics.median(rank_ms),
+                        "k2_n_out_launches": driver_ranks_n_out,
+                        "note": "gloo ranks time-sharing one card, bands staged through host "
+                                "memory: not a multi-GPU figure; one exchange round a step"},
+          "seconds": time.perf_counter() - t_phase})
+
+    # -- train: LM training on RecurrentGemma (M13b.1), K6 forward and backward -------
+    # (a) K6 under autograd at the trainer's shape and the large one: the
+    # forward bit-equal to the plain version, the backward (K6 on reversed,
+    # shifted time) bit-equal to the plain reverse recurrence on the same
+    # glue and within GRAD_TOL of autograd through the plain forward; K6 and
+    # K7 past 65535 batch rows (and K7's heads), two launches each. (b) A
+    # smoke-config step at f32 on the card against the CPU's. (c) The
+    # full-width trainer, counted. (d) The resume and SIGTERM drills at the
+    # smoke config. (e) RWKV-6 under gradients raises on the card.
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.rglru import rglru_backward, rglru_reverse_ref, rglru_scan
+    from repro_torch.models import lm_loss
+    from repro_torch.checkpoint import tree_flatten, tree_map
+    from repro_torch.optim import optimizer_config_from_model
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step, train
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    k6_err, k6_autograd = 0.0, {}
+
+    def plain_backward(a, h, h0, dh, dlast):
+        d = torch.cat([dh[:, :-1], (dh[:, -1] + dlast)[:, None]], dim=1)
+        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        g = rglru_reverse_ref(a_next, d)
+        h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
+        return g * h_prev, g, a[:, 0] * g[:, 0]
+
+    for shape in (K6_TRAIN, K6_BIG):
+        a = (0.5 + 0.499 * torch.rand(shape, generator=gen, device=dev)).requires_grad_()
+        b, h0 = randn(shape).requires_grad_(), randn((shape[0], shape[2])).requires_grad_()
+        dh, dlast = randn(shape), randn((shape[0], shape[2]))
+        h, last = rglru_scan(a, b, h0)
+        h_p, last_p = rglru_seq_ref(a, b, h0)
+        check(torch.equal(h, h_p) and torch.equal(last, last_p), f"K6 forward {shape}")
+        got = torch.autograd.grad((h * dh).sum() + (last * dlast).sum(), (a, b, h0))
+        ref = plain_backward(a.detach(), h.detach(), h0.detach(), dh, dlast)
+        for x, y in zip(got, ref):
+            k6_err = max(k6_err, (x - y).abs().max().item())
+            check(torch.equal(x, y), f"K6 backward {shape} != plain reverse recurrence")
+        want = torch.autograd.grad((h_p * dh).sum() + (last_p * dlast).sum(), (a, b, h0))
+        rel = max(((x - y).abs().max() / y.abs().max()).item() for x, y in zip(got, want))
+        check(rel <= GRAD_TOL, f"K6 backward {shape}: {rel} relative to autograd")
+        args = (a.detach(), h.detach(), h0.detach(), dh, dlast)
+        k6_autograd["x".join(map(str, shape))] = {
+            "relative_to_autograd": rel, "bit_equal_to_plain_reverse": True,
+            "backward_ms": event_ms(lambda: rglru_backward(*args), reps=5),
+            "plain_backward_ms": event_ms(lambda: plain_backward(*args), reps=2)}
+        del a, b, h0, dh, dlast, h, last, h_p, last_p, got, ref, want, args
+    wide = {}
+    a = 0.5 + 0.499 * torch.rand(K6_WIDE, generator=gen, device=dev)
+    b, h0 = randn(K6_WIDE), randn((K6_WIDE[0], K6_WIDE[2]))
+    _build.reset_launches()
+    got = k6.rglru_scan_cuda(a, b, h0)
+    torch.cuda.synchronize()
+    wide["rglru_scan_cuda"] = dict(_build.LAUNCHES)
+    for x, y in zip(got, rglru_seq_ref(a, b, h0)):
+        check(torch.equal(x, y), f"K6 at {K6_WIDE}")
+    for shape in K7_WIDE:
+        r, k, v, w, u, s0 = wkv_inputs(shape)
+        _build.reset_launches()
+        got = k7.wkv6_cuda(r, k, v, w, u, s0, chunk=16)
+        torch.cuda.synchronize()
+        wide["x".join(map(str, shape))] = dict(_build.LAUNCHES)
+        for x, y in zip(got, wkv6_plain(r, k, v, w, u, s0, chunk=16)):
+            check((x - y).abs().max().item() <= K7_TOL * y.abs().max().item() + 1e-6,
+                  f"K7 at {shape}")
+    check(wide == {"rglru_scan_cuda": {"rglru_scan_cuda": 2},
+                   **{"x".join(map(str, sh)): {"wkv6_cuda": 2} for sh in K7_WIDE}},
+          f"launches past 65535: {wide}")
+    del a, b, h0, got, r, k, v, w, u, s0
+    # K6 at the trainer's shape, timed (the train path's row).
+    a = 0.5 + 0.499 * torch.rand(K6_TRAIN, generator=gen, device=dev)
+    b, h0 = randn(K6_TRAIN), randn((K6_TRAIN[0], K6_TRAIN[2]))
+    k6_train_bound = bound(4 * (3 * a.numel() + 2 * h0.numel()), 2 * a.numel(),
+                           H100_SXM.peak_flops_vpu_f32)
+    k6_train_timing = {"ms": graph_ms(lambda: k6.rglru_scan_cuda(a, b, h0)),
+                       "plain_ms": event_ms(lambda: rglru_seq_ref(a, b, h0), reps=5),
+                       "bound_ms": k6_train_bound[0], "bound_by": k6_train_bound[1],
+                       "library_ms": None}
+    del a, b, h0
+    # (b) One smoke-config step, card against CPU, at float32 compute.
+    small = dataclasses.replace(get_smoke_config(TRAIN_ARCH), compute_dtype="float32")
+    sbatch = SyntheticLM(DataConfig(seq_len=32, global_batch=4, vocab_size=small.vocab_size,
+                                    seed=SEED)).batch_at(0)
+    sstep = make_train_step(small, optimizer_config_from_model(small))
+    host_state = init_train_state(small, "cpu", seed=SEED)
+    card_state = tree_map(lambda t: t.to(dev), host_state)
+    *card_state, m_card = sstep(*card_state, sbatch)
+    *host_state, m_host = sstep(*host_state, sbatch)
+    step_err = max([abs(float(m_card["loss"]) - float(m_host["loss"]))] + [
+        (x.cpu() - y).abs().max().item()
+        for x, y in zip(tree_flatten(card_state)[0], tree_flatten(host_state)[0])])
+    check(step_err <= TRAIN_TOL, f"smoke train step, card vs CPU: {step_err}")
+    del card_state, host_state
+    # (c) The full-width trainer, counted.
+    full = get_config(TRAIN_ARCH)
+    ds = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                vocab_size=full.vocab_size, seed=SEED))
+    logs = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    params, opt_state, hist = train(full, TrainConfig(steps=TRAIN_STEPS, log_every=1), ds,
+                                    device=dev, seed=SEED, log_fn=logs.append)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_rglru = full.layer_kinds.count("rglru")
+    check(train_launches == {"rglru_scan_cuda": 3 * n_rglru * TRAIN_STEPS},
+          f"trainer launches {train_launches} (want forward, recompute and backward of "
+          f"{n_rglru} RG-LRU layers a step)")
+    gnorms = [float(m) for m in re.findall(r"gnorm ([-+0-9.eEnaif]+)", " ".join(logs))]
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)) and len(gnorms) == TRAIN_STEPS
+          and all(np.isfinite(gnorms)), f"trainer: losses {losses}, grad norms {gnorms}")
+    n_params = sum(p.numel() for p in tree_flatten(params)[0])
+    # One step more, profiled: the device's busy share of a full-width step.
+    fstep = make_train_step(full, optimizer_config_from_model(full))
+    fbatch = ds.batch_at(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, _ = fstep(params, opt_state, fbatch)
+        torch.cuda.synchronize()
+        prof_us = (time.perf_counter() - t0) * 1e6
+    seen = device_kernels(prof)
+    busy_us = sum(v["device_us"] for v in seen.values())
+    top = sorted(seen.items(), key=lambda kv: -kv[1]["device_us"])[:6]
+    k6_us = sum(v["device_us"] for key, v in seen.items() if "rglru" in key)
+    del params, opt_state, fstep, prof, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) Resume and SIGTERM drills at the smoke config (bf16 compute, as published).
+    small = get_smoke_config(TRAIN_ARCH)
+    sds = SyntheticLM(DataConfig(seq_len=32, global_batch=4, vocab_size=small.vocab_size,
+                                 seed=SEED))
+
+    def quiet(*_):
+        return None
+
+    ref_state = train(small, TrainConfig(steps=6, log_every=100), sds, device=dev, seed=SEED,
+                      log_fn=quiet)[:2]
+    work = ROOT / "build" / "repro_torch" / f"train.{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    tc = TrainConfig(steps=6, ckpt_every=2, ckpt_dir=str(work / "resume"), log_every=100)
+    first = train(small, tc, sds, device=dev, seed=SEED, log_fn=quiet)[2]
+    again = train(small, tc, sds, device=dev, seed=SEED, log_fn=quiet)[2]
+    check([h["step"] for h in first] == list(range(6)) and again == []
+          and latest_step(work / "resume") == 5, "resume drill")
+
+    def preempt(msg):
+        if "step 3 " in msg:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    tc = TrainConfig(steps=6, ckpt_every=2, ckpt_dir=str(work / "sigterm"), log_every=1)
+    cut = train(small, tc, sds, device=dev, seed=SEED, log_fn=preempt)[2]
+    check([h["step"] for h in cut] == [0, 1, 2, 3] and latest_step(work / "sigterm") == 3,
+          f"SIGTERM drill: steps {[h['step'] for h in cut]}")
+    *resumed, rest = train(small, tc, sds, device=dev, seed=SEED, log_fn=preempt)
+    check([h["step"] for h in rest] == [4, 5], "SIGTERM drill: resume")
+    resume_err = max((x - y).abs().max().item() for x, y in
+                     zip(tree_flatten(resumed)[0], tree_flatten(ref_state)[0]))
+    check(resume_err == 0.0, f"resumed run differs from the uninterrupted one by {resume_err}")
+    shutil.rmtree(work, ignore_errors=True)
+    # (e) RWKV-6 under gradients on the card: K7 has no backward yet.
+    rsmall = get_smoke_config("rwkv6-3b")
+    rparams = tree_map(lambda t: t.requires_grad_(), init_train_state(rsmall, dev, SEED)[0])
+    rbatch = tree_map(lambda x: torch.as_tensor(x).to(dev), SyntheticLM(DataConfig(
+        seq_len=rsmall.rwkv_chunk, global_batch=2, vocab_size=rsmall.vocab_size)).batch_at(0))
+    try:
+        lm_loss(rsmall, rparams, rbatch)
+        raised = False
+    except NotImplementedError:
+        raised = True
+    check(raised, "RWKV-6 under gradients on the card did not raise NotImplementedError")
+    del rparams
+    emit({"phase": "train", "arch": TRAIN_ARCH,
+          "k6_autograd": k6_autograd, "k6_k7_past_65535": wide,
+          "smoke_step_card_vs_cpu_max_err": step_err,
+          "full_width": {"layers": full.n_layers, "params": n_params, "batch": TRAIN_BATCH,
+                         "seq": TRAIN_SEQ, "compute": full.compute_dtype, "remat": full.remat,
+                         "steps": TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
+                         "host_ms_per_step": [h["dt"] * 1e3 for h in hist],
+                         "train_s": train_s, "launches": train_launches,
+                         "k6_launches_per_step": train_launches["rglru_scan_cuda"] / TRAIN_STEPS,
+                         "peak_memory_gb": peak_gb,
+                         "profiled_step": {"window_us": prof_us, "device_busy_us": busy_us,
+                                           "busy_share": busy_us / prof_us, "k6_device_us": k6_us,
+                                           "top": {k: v for k, v in top}}},
+          "resume": {"steps": 6, "ckpt_every": 2, "rerun_steps": 0, "sigterm_at": 3,
+                     "resumed_max_abs_diff": resume_err},
+          "rwkv6_grad_on_card_raises": True,
+          "seconds": time.perf_counter() - t_phase})
+
     # -- result lines ----------------------------------------------------------
     # Launches: K1-K3 from the hdiff path (K2 runs on the hdiff, elementary
     # and grad paths; its one-output count here is the hdiff path's),
@@ -2165,7 +2502,7 @@ def main() -> int:
              sharded_launches["stencil_program_cuda"] - sharded_launches[KERNEL_N_OUT]
              - batched_sharded),
             ("shallow_water", GRAD_K2, "src/repro/ir/lower_pallas.py:273",
-             sharded_launches[KERNEL_N_OUT]),
+             sharded_launches[KERNEL_N_OUT] + driver_ranks_n_out),
             (batched_label, "stencil_program_cuda", "src/repro/ir/lower_pallas.py:263",
              batched_sharded)):
         t = shard_timing[(label, mesh_tag, paper)]
@@ -2193,6 +2530,20 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
+    # The driver's path (--devices 1: the whole grid, one N-output launch a
+    # step; its --devices 8 launches are offset-mode and join the sharded
+    # N-output row above) and the trainer's K6 launches (forward, remat
+    # recompute and backward), each timed at its own shape.
+    for site, replaces, count, err, t in (
+            ("stencil_program_cuda", "src/repro/ir/lower_pallas.py:273",
+             driver_launches[KERNEL_N_OUT], driver_err, sw_timing),
+            ("rglru_scan_cuda", "src/repro/kernels/rglru/kernel.py:49",
+             train_launches["rglru_scan_cuda"], k6_err, k6_train_timing)):
+        kernels.append({
+            "name": site, "route": "cuda",
+            "source": ("src/repro_torch/csrc/rglru.cu" if site == "rglru_scan_cuda"
+                       else "src/repro_torch/ir/codegen_cuda.py"),
+            "replaces": replaces, "launches": count, "max_abs_err": err, **t})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,18 +15,22 @@ _ARCH_MODULES: dict[str, str] = {
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
-_NOT_PORTED = (
-    "llama-3.2-vision-90b", "starcoder2-3b", "nemotron-4-15b", "glm4-9b",
-    "qwen1.5-0.5b", "qwen3-moe-235b-a22b", "arctic-480b", "hubert-xlarge",
-)
+# The ROADMAP item that ports each other architecture of the JAX registry.
+_NOT_PORTED = {
+    "qwen1.5-0.5b": "M13b.2 (dense attention)", "starcoder2-3b": "M13b.2 (dense attention)",
+    "nemotron-4-15b": "M13b.2 (dense attention)", "glm4-9b": "M13b.2 (dense attention)",
+    "qwen3-moe-235b-a22b": "M13b.3 (MoE)", "arctic-480b": "M13b.3 (MoE)",
+    "llama-3.2-vision-90b": "M13b.4 (cross-attention)",
+    "hubert-xlarge": "M13b.4 (audio frontend)",
+}
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def _module(arch: str):
     if arch in _NOT_PORTED:
-        raise KeyError(f"arch {arch!r} is not ported to repro_torch yet (ROADMAP M13); "
-                       f"ported: {sorted(_ARCH_MODULES)}")
+        raise KeyError(f"arch {arch!r} is not ported to repro_torch yet (ROADMAP "
+                       f"{_NOT_PORTED[arch]}); ported: {sorted(_ARCH_MODULES)}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; ported: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[arch])

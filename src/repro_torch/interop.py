@@ -17,7 +17,9 @@ state in both packages.
 LMs. :func:`lm_params_from_numpy` takes the JAX ``build_lm`` parameter
 pytree as numpy (``jax.tree.map(np.asarray, params)``), unstacks its
 scanned superblocks (leading axis ``n_super``) and its tail into the
-port's per-layer blocks, and returns an :class:`~repro_torch.models.LM`;
+port's per-layer blocks (:func:`lm_tree_from_numpy`, which
+``optimizer_state_from_numpy(..., cfg=...)`` applies to an LM's moments),
+and returns an :class:`~repro_torch.models.LM`;
 :func:`lm_cache_to_numpy` turns the port's per-layer cache back into the
 JAX package's ``{"scan": ..., "tail": [...]}`` layout, for comparison.
 """
@@ -58,12 +60,14 @@ def to_numpy(result):
     return result.detach().cpu().numpy()
 
 
-def optimizer_state_from_numpy(state, device=None):
+def optimizer_state_from_numpy(state, device=None, cfg: ModelConfig | None = None):
     """The JAX package's ``AdamWState`` (``step, mu, nu``) or
     ``AdafactorState`` (``step, vr, vc``), its leaves numpy arrays (a tensor
     or a dict of them per field, bfloat16 moments as float32 or ml_dtypes
     bfloat16), as the port's state of the same name on ``device`` (``None``
-    means the card)."""
+    means the card). With ``cfg``, the state is an LM's: each moment tree
+    is unstacked into the port's per-layer layout, as
+    :func:`lm_params_from_numpy` unstacks the parameters."""
     from repro_torch.optim import AdafactorState, AdamWState
 
     dev = resolve_device(device)
@@ -78,7 +82,13 @@ def optimizer_state_from_numpy(state, device=None):
             return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
         return torch.from_numpy(np.array(a)).to(dev)
 
-    return cls(*(_tree_map(tensor, getattr(state, f)) for f in cls._fields))
+    def field(name):
+        tree = getattr(state, name)
+        if cfg is not None and name != "step":
+            tree = lm_tree_from_numpy(cfg, tree)
+        return _tree_map(tensor, tree)
+
+    return cls(*(field(f) for f in cls._fields))
 
 
 def _tree_map(fn, tree):
@@ -87,6 +97,22 @@ def _tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return [_tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def lm_tree_from_numpy(cfg: ModelConfig, tree) -> dict:
+    """A tree in the JAX package's LM parameter layout (scanned superblocks
+    stacked on a leading ``n_super`` axis, then the tail) in the port's:
+    ``{"embed", "blocks": [one per layer], "final_norm", "head"?}``, leaves
+    left as they are."""
+    blocks = []
+    for s in range(cfg.n_super):
+        for i in range(len(cfg.block_pattern)):
+            blocks.append(_tree_map(lambda a, s=s: a[s], tree["scan"][f"b{i}"]))
+    blocks += list(tree["tail"])
+    out = {"embed": tree["embed"], "blocks": blocks, "final_norm": tree["final_norm"]}
+    if not cfg.tied_embeddings:
+        out["head"] = tree["head"]
+    return out
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
@@ -102,15 +128,7 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
     def tensor(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype)
 
-    blocks = []
-    for s in range(cfg.n_super):
-        for i in range(len(cfg.block_pattern)):
-            blocks.append(_tree_map(lambda a, s=s: a[s], tree["scan"][f"b{i}"]))
-    blocks += list(tree["tail"])
-    params = {"embed": tree["embed"], "blocks": blocks, "final_norm": tree["final_norm"]}
-    if not cfg.tied_embeddings:
-        params["head"] = tree["head"]
-    return LM(cfg, _tree_map(tensor, params))
+    return LM(cfg, _tree_map(tensor, lm_tree_from_numpy(cfg, tree)))
 
 
 def lm_cache_to_numpy(cfg: ModelConfig, cache) -> dict:

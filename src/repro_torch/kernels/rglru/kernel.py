@@ -10,7 +10,11 @@ A CPU tensor gets the plain version
 launches the kernel on the current stream or raises — it never falls
 back. One block runs the recurrence for a tile of channels of one batch
 row, with a and b streamed through a ring of shared-memory stages;
-:func:`plan_scan` picks the tile and the stage length. The kernel source's
+:func:`plan_scan` picks the tile and the stage length. The batch is the
+grid's y dimension, which holds at most 65535 blocks, so a larger batch
+takes consecutive launches of at most that many rows
+(:func:`plan_launches`), each with its pointers offset by the rows before
+it and each counted. The kernel source's
 header says what bounds it on the card and what its design does about that.
 """
 
@@ -82,6 +86,15 @@ def plan_scan(batch: int, steps: int, width: int, itemsize: int, sms: int, *,
     return ScanPlan(tile, stage_steps, vec, batch * -(-width // tile), smem)
 
 
+def plan_launches(batch: int, steps: int, width: int, itemsize: int, sms: int, *,
+                  vec: bool) -> list[tuple[int, int, ScanPlan]]:
+    """``(first row, rows, plan)`` of each K6 launch over a ``batch``-row
+    input: consecutive runs of at most ``_build.MAX_PLANES`` rows, each
+    planned by :func:`plan_scan`."""
+    return [(b0, nb, plan_scan(nb, steps, width, itemsize, sms, vec=vec))
+            for b0, nb in _build.plane_chunks(batch)]
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -114,7 +127,6 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
                                     ("h0", h0, (torch.float32,), (batch, width))):
         _build.check_input("rglru_scan_cuda", x, dtypes, field=field, shape=shape,
                            device=a.device)
-    check_shape(batch, steps, width)
     h = torch.empty((batch, steps, width), dtype=torch.float32, device=a.device)
     h_last = torch.empty((batch, width), dtype=torch.float32, device=a.device)
     if batch == 0 or width == 0:
@@ -122,12 +134,16 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
     size = a.element_size()
     vec = width % GROUP == 0 and a.data_ptr() % (GROUP * size) == 0 \
         and b.data_ptr() % (GROUP * size) == 0
-    plan = plan_scan(batch, steps, width, size, _sm_count(a.device.index), vec=vec)
+    plans = plan_launches(batch, steps, width, size, _sm_count(a.device.index), vec=vec)
     lib = _library()
     fn = lib.rglru_f32 if a.dtype == torch.float32 else lib.rglru_bf16
+    row_in, row_out = steps * width * size, steps * width * 4
     with torch.cuda.device(a.device):
-        code = fn(a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(), h_last.data_ptr(),
-                  batch, steps, width, plan.tile, plan.stage_steps, int(plan.vec),
-                  torch.cuda.current_stream().cuda_stream)
-    _build.check_launch("rglru_scan_cuda", code)
+        stream = torch.cuda.current_stream().cuda_stream
+        for b0, nb, plan in plans:
+            code = fn(a.data_ptr() + b0 * row_in, b.data_ptr() + b0 * row_in,
+                      h0.data_ptr() + b0 * width * 4, h.data_ptr() + b0 * row_out,
+                      h_last.data_ptr() + b0 * width * 4, nb, steps, width, plan.tile,
+                      plan.stage_steps, int(plan.vec), stream)
+            _build.check_launch("rglru_scan_cuda", code)
     return h, h_last

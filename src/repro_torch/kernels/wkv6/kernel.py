@@ -11,6 +11,13 @@ never falls back. One call is three launches (chunk-local state products,
 the scan over chunks, the chunk outputs) into scratch the wrapper
 allocates, and counts as one launch of K7. The kernel source's header says
 what bounds it on the card and what its design does about that.
+
+The grid is ``(chunks, heads, batch)``, and its y and z dimensions hold at
+most 65535 blocks each, so a larger batch or head count takes several
+calls (:func:`plan_launches`), each counted: a run of batch rows is a
+contiguous block of every input, addressed by offset pointers; a run of
+heads is strided in ``(B, T, H, N)``, so its inputs are copied to
+contiguous tensors and its outputs copied back.
 """
 
 from __future__ import annotations
@@ -44,6 +51,14 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def plan_launches(batch: int, heads: int) -> list[tuple[int, int, int, int]]:
+    """``(first row, rows, first head, heads)`` of each K7 call: the batch
+    and the heads each cut into consecutive runs of at most
+    ``_build.MAX_PLANES``."""
+    return [(b0, nb, h0, nh) for b0, nb in _build.plane_chunks(batch)
+            for h0, nh in _build.plane_chunks(heads)]
+
+
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
               u: torch.Tensor, state0: torch.Tensor, *, chunk: int = 64
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -62,8 +77,6 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     if c < 1 or t % c:
         raise ValueError(f"wkv6_cuda: sequence length {t} is not a positive multiple of "
                          f"chunk {c}")
-    if b > 65535 or h > 65535:
-        raise ValueError(f"wkv6_cuda: batch {b} or heads {h} exceeds the 65535-block grid")
     lib = _library()
     smem = lib.wkv6_smem_bytes(n, c)
     if smem > MAX_SMEM:
@@ -73,6 +86,25 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     s_out = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     if y.numel() == 0:
         return y, state0.clone()
+    for b0, nb, h0, nh in plan_launches(b, h):
+        rows = slice(b0, b0 + nb)
+        if nh == h:  # whole rows: offset views of the contiguous inputs
+            _launch(lib, r[rows], k[rows], v[rows], w[rows], u, state0[rows], y[rows],
+                    s_out[rows], c)
+            continue
+        hs = slice(h0, h0 + nh)
+        ys, ss = (torch.empty((nb, t, nh, n), dtype=torch.float32, device=r.device),
+                  torch.empty((nb, nh, n, n), dtype=torch.float32, device=r.device))
+        _launch(lib, *(x[rows, :, hs].contiguous() for x in (r, k, v, w)), u[hs].contiguous(),
+                state0[rows, hs].contiguous(), ys, ss, c)
+        y[rows, :, hs] = ys
+        s_out[rows, hs] = ss
+    return y, s_out
+
+
+def _launch(lib, r, k, v, w, u, state0, y, s_out, c: int) -> None:
+    """One K7 call (three launches, one count) on contiguous tensors."""
+    b, t, h, n = r.shape
     # Scratch: each chunk's k_tail^T v, replaced by the scan with the state
     # entering the next chunk, and each chunk's exp(total).
     kv = torch.empty((b, h, t // c, n, n), dtype=torch.float32, device=r.device)
@@ -83,4 +115,3 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
                             kv.data_ptr(), decay.data_ptr(), b, t, h, n, c,
                             torch.cuda.current_stream().cuda_stream)
     _build.check_launch("wkv6_cuda", code)
-    return y, s_out

@@ -6,5 +6,8 @@ from repro_torch.models.lm import (
     build_lm,
     lm_decode,
     lm_forward,
+    lm_forward_train,
+    lm_loss,
+    lm_params,
     lm_prefill,
 )

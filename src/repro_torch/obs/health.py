@@ -52,6 +52,8 @@ def _host_snapshot(tree: Any) -> Any:
         return tree.detach().cpu().clone()
     if isinstance(tree, Mapping):
         return {k: _host_snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple state
+        return type(tree)(*(_host_snapshot(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_host_snapshot(v) for v in tree)
     return tree
@@ -170,6 +172,12 @@ class HealthMonitor:
 
     While a CUDA graph is being captured the probe steps aside entirely,
     exactly like ``metrics.instrument_call``.
+
+    ``axis_names`` and ``mesh`` make the probe mesh-global (SPMD: every rank
+    of ``mesh`` checks its block of the field at the same step, and
+    :func:`field_stats` all-reduces over the named axes), so every rank
+    sees the same verdict and raises at the same step. The probe is then a
+    collective: every rank must call :meth:`check` in the same order.
     """
 
     def __init__(
@@ -182,6 +190,8 @@ class HealthMonitor:
         checkpoint_fn: Callable[[int, Any], Any] | None = None,
         snapshot_state: bool = False,
         log_fn: Callable[[str], Any] = print,
+        axis_names: Sequence[str] = (),
+        mesh=None,
     ) -> None:
         if cadence < 1:
             raise ValueError(f"cadence must be >= 1, got {cadence}")
@@ -196,6 +206,8 @@ class HealthMonitor:
         self.checkpoint_fn = checkpoint_fn
         self.snapshot_state = snapshot_state
         self.log_fn = log_fn
+        self.axis_names = tuple(axis_names)
+        self.mesh = mesh
         self.probes = 0
         self.blowups = 0
         self.last_healthy: tuple[int, Any] | None = None
@@ -214,7 +226,7 @@ class HealthMonitor:
         if not force and not self.due(step):
             return None
         name = name or self.name
-        stats = host_stats(field_stats(x))
+        stats = host_stats(field_stats(x, axis_names=self.axis_names, mesh=self.mesh))
         self.probes += 1
         metrics.inc("health.probes")
         for k, v in stats.items():

@@ -10,5 +10,6 @@ from repro_torch.optim.optimizers import (
     adamw_update,
     clip_by_global_norm,
     make_optimizer,
+    optimizer_config_from_model,
     schedule_lr,
 )

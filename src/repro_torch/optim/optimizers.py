@@ -4,12 +4,16 @@ The PyTorch counterpart of ``repro/optim/optimizers.py``, written from the
 reference's own formulas (not ``torch.optim``) so the two packages' loss
 trajectories compare step for step. Parameters, gradients and moments are a
 tensor or a (nested) dict of tensors; every update is a pure function that
-returns new tensors, as in the JAX package. All arithmetic is float32 (the
+returns new tensors, as in the JAX package (lists, such as an LM's
+per-layer blocks, are trees too). All arithmetic is float32 (the
 moments are stored in ``moment_dtype``), with the reference's operand order.
 
 Adafactor (Shazeer & Stern 2018) keeps a FACTORED second moment (row + col
-vectors) and no first moment. The logical-axis helpers of the LM substrate
-(``opt_state_axes``, ``optimizer_config_from_model``) are ROADMAP M13b.
+vectors) and no first moment. :func:`optimizer_config_from_model` reads a
+model config's training defaults, as in the JAX package. ``opt_state_axes``
+(the optimizer state's logical sharding axes) has no counterpart while the
+LM trainer runs on one device: it waits for the LM sharding slice (ROADMAP
+M13b.3).
 """
 
 from __future__ import annotations
@@ -42,15 +46,20 @@ class OptimizerConfig:
 
 
 def _map(fn, *trees):
-    """``fn`` over the leaves of tensors or (nested) dicts of one structure."""
+    """``fn`` over the leaves of tensors or (nested) dicts and lists of one
+    structure."""
     if isinstance(trees[0], Mapping):
         return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_map(fn, *(t[i] for t in trees)) for i in range(len(trees[0]))]
     return fn(*trees)
 
 
 def _leaves(tree) -> list[Tensor]:
     if isinstance(tree, Mapping):
         return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
     return [tree]
 
 
@@ -59,6 +68,9 @@ def _unzip(tree, n: int):
     if isinstance(tree, Mapping):
         parts = {k: _unzip(v, n) for k, v in tree.items()}
         return tuple({k: p[i] for k, p in parts.items()} for i in range(n))
+    if isinstance(tree, list):
+        parts = [_unzip(v, n) for v in tree]
+        return tuple([p[i] for p in parts] for i in range(n))
     return tree
 
 
@@ -205,3 +217,14 @@ def make_optimizer(cfg: OptimizerConfig):
     if cfg.name == "adafactor":
         return (lambda p: adafactor_init(cfg, p)), (lambda g, s, p: adafactor_update(cfg, g, s, p))
     raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+
+def optimizer_config_from_model(model_cfg) -> OptimizerConfig:
+    """The optimizer a model config names, with its training defaults."""
+    return OptimizerConfig(
+        name=model_cfg.optimizer,
+        learning_rate=model_cfg.learning_rate,
+        weight_decay=model_cfg.weight_decay,
+        grad_clip=model_cfg.grad_clip,
+        moment_dtype=model_cfg.moment_dtype,
+    )

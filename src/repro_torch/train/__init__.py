@@ -1,4 +1,4 @@
-"""repro_torch.train — the assimilation trainer and its loss monitor."""
+"""repro_torch.train — the LM training loop and the assimilation trainer."""
 
 from repro_torch.train.assimilate import (
     AssimilationConfig,
@@ -8,4 +8,12 @@ from repro_torch.train.assimilate import (
     synthetic_observations,
     true_coefficients,
 )
-from repro_torch.train.loop import SpikeDetector
+from repro_torch.train.loop import (
+    SpikeDetector,
+    StepWatchdog,
+    TrainConfig,
+    init_train_state,
+    make_train_step,
+    shape_for_microbatches,
+    train,
+)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``, and
-importing every port module leaves ``jax`` out of ``sys.modules``."""
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and no port example (``examples/torch_*.py``) imports JAX
+or anything of the JAX package ``repro``, and importing every port module
+leaves ``jax`` out of ``sys.modules``."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -39,7 +41,9 @@ def test_port_tree_is_scanned():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "lower_cuda.py", "codegen_cuda.py", "kernel.py", "lm.py",
             "recurrent.py", "layers.py", "engine.py", "serve.py", "registry.py",
-            "halo.py", "sharding.py", "lower_sharded.py", "mesh.py"} <= names
+            "halo.py", "sharding.py", "lower_sharded.py", "mesh.py", "store.py",
+            "pipeline.py", "reduce.py", "loop.py", "train.py", "torch_weather_simulation.py",
+            "torch_train_lm.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():

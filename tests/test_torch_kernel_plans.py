@@ -25,6 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.hdiff import kernel as k13
 from repro_torch.kernels.rglru import kernel as k6
 from repro_torch.kernels.stencil2d import kernel as k45
+from repro_torch.kernels.wkv6 import kernel as k7
 
 H100_SMS = 132
 
@@ -79,6 +80,29 @@ def test_k6_plan_clamps_tiny_shapes_and_rejects_huge_ones():
         k6.plan_scan(1, 4, 4, 4, 0, vec=True)
     with pytest.raises(ValueError, match="no lanes"):
         k6.plan_scan(1, 4, 4, 8, H100_SMS, vec=True)
+
+
+@pytest.mark.parametrize("batch,cuts", [(1, [(0, 1)]), (65535, [(0, 65535)]),
+                                        (65537, [(0, 65535), (65535, 2)]),
+                                        (131071, [(0, 65535), (65535, 65535), (131070, 1)])])
+def test_k6_cuts_a_batch_past_the_grid_into_launches(batch, cuts):
+    """The batch is the grid's y dimension (at most 65535 blocks): the
+    wrapper launches consecutive runs of rows, each planned alone."""
+    launches = k6.plan_launches(batch, 4, 32, 4, H100_SMS, vec=True)
+    assert [(b0, nb) for b0, nb, _ in launches] == cuts
+    for _, nb, plan in launches:
+        assert plan == k6.plan_scan(nb, 4, 32, 4, H100_SMS, vec=True)
+    with pytest.raises(ValueError, match="int32 indexing"):
+        k6.plan_launches(65537, 2**20, 2**11, 4, H100_SMS, vec=True)
+
+
+def test_k7_cuts_batch_and_heads_past_the_grid_into_calls():
+    """K7's grid is (chunks, heads, batch): each of batch and heads is cut
+    into runs of at most 65535, every pair one call."""
+    assert k7.plan_launches(4, 40) == [(0, 4, 0, 40)]
+    assert k7.plan_launches(65537, 40) == [(0, 65535, 0, 40), (65535, 2, 0, 40)]
+    assert k7.plan_launches(1, 65537) == [(0, 1, 0, 65535), (0, 1, 65535, 2)]
+    assert len(k7.plan_launches(65536, 65536)) == 4
 
 
 def test_k6_constants_match_the_cuda_source():

@@ -835,3 +835,132 @@ def test_grids_deeper_than_the_grid_limit_bit_equal_to_plain(cuda, kernel):
     if kernel == "k2_shallow_water":
         assert _build.LAUNCHES[KERNEL_N_OUT] == 2
     _equal(got, want)
+
+
+# -- batches past the grid's 65535 blocks (K6, K7) and K6's backward --------------
+
+
+def test_k6_batch_past_the_grid_limit_bit_equal_to_plain(cuda):
+    """K6 maps the batch to the grid's y dimension: 65537 rows go in two
+    launches with offset pointers, each counted, bit-equal to the plain
+    version (the last rows included)."""
+    a, b, h0 = _k6_inputs((65537, 4, 32), cuda, torch.float32, 11)
+    _build.reset_launches()
+    h, last = rglru_scan_cuda(a, b, h0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"rglru_scan_cuda": 2}
+    h_p, last_p = rglru_seq_ref(a, b, h0)
+    _equal(h, h_p)
+    _equal(last, last_p)
+
+
+@pytest.mark.parametrize("shape", [(65537, 16, 1, 8), (1, 16, 65537, 4)])
+def test_k7_batch_and_heads_past_the_grid_limit_match_plain(cuda, shape):
+    """K7's grid is (chunks, heads, batch): a batch or a head count past
+    65535 goes in two calls, each counted; within K7's bound of its plain
+    version."""
+    r, k, v, w, u, s0 = _wkv_inputs(shape, cuda, seed=5)
+    _build.reset_launches()
+    y, s = wkv6_cuda(r, k, v, w, u, s0, chunk=16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"wkv6_cuda": 2}
+    y_p, s_p = wkv6_plain(r, k, v, w, u, s0, chunk=16)
+    for got, plain in ((y, y_p), (s, s_p)):
+        assert (got - plain).abs().max().item() <= 1e-5 * plain.abs().max().item() + 1e-6
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 2560), (2, 37, 102), (3, 1, 8)])
+def test_k6_backward_bit_equal_to_plain_reverse_and_near_autograd(cuda, shape):
+    """K6's backward runs K6 on the reversed, shifted time axis: one launch
+    a backward, bit-equal to the plain reverse recurrence, within GRAD_TOL
+    (relative) of autograd through the plain forward."""
+    from repro_torch.kernels.rglru import rglru_backward, rglru_reverse_ref
+
+    a, b, h0 = _k6_inputs(shape, cuda, torch.float32, 12)
+    a, b, h0 = (x.requires_grad_() for x in (a, b, h0))
+    g = torch.Generator(device=cuda).manual_seed(13)
+    dh = torch.randn(shape, generator=g, device=cuda)
+    dlast = torch.randn((shape[0], shape[2]), generator=g, device=cuda)
+    h, last = rglru_scan(a, b, h0)
+    _build.reset_launches()
+    got = torch.autograd.grad((h * dh).sum() + (last * dlast).sum(), (a, b, h0))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"rglru_scan_cuda": 1}
+    # The plain reverse recurrence on the same glue.
+    d = torch.cat([dh[:, :-1], (dh[:, -1] + dlast)[:, None]], dim=1)
+    a_next = torch.cat([a.detach()[:, 1:], torch.zeros_like(a.detach()[:, :1])], dim=1)
+    g_ref = rglru_reverse_ref(a_next, d)
+    _equal(got[1], g_ref)
+    for x, y in zip(got, rglru_backward(a.detach(), h.detach(), h0.detach(), dh, dlast)):
+        _equal(x, y)
+    h_p, last_p = rglru_seq_ref(a, b, h0)
+    want = torch.autograd.grad((h_p * dh).sum() + (last_p * dlast).sum(), (a, b, h0))
+    for x, y in zip(got, want):
+        assert (x - y).abs().max().item() <= 1e-5 * y.abs().max().item()
+
+
+def test_trainer_step_on_the_card_matches_the_cpu(cuda):
+    """One RecurrentGemma smoke-config train step (f32 compute) on the card
+    against the same step on the CPU, within 2e-4; K6 runs forward and
+    backward. RWKV-6 at a chunked length raises under gradients on the
+    card (K7 has no backward yet)."""
+    import dataclasses
+
+    from repro_torch.checkpoint import tree_flatten, tree_map
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import lm_loss
+    from repro_torch.optim import optimizer_config_from_model
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"), compute_dtype="float32")
+    batch = SyntheticLM(DataConfig(seq_len=32, global_batch=4, vocab_size=cfg.vocab_size)
+                        ).batch_at(0)
+    step = make_train_step(cfg, optimizer_config_from_model(cfg))
+    host = init_train_state(cfg, "cpu", seed=3)
+    card = tree_map(lambda t: t.to(cuda), host)
+    _build.reset_launches()
+    _, _, m_card = step(*card, batch)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"rglru_scan_cuda": 4}  # 2 rglru layers, forward + backward
+    _, _, m_host = step(*host, batch)
+    assert abs(float(m_card["loss"]) - float(m_host["loss"])) <= 2e-4
+    for x, y in zip(tree_flatten(card)[0], tree_flatten(host)[0]):
+        assert (x.cpu() - y).abs().max().item() <= 2e-4
+    rcfg = get_smoke_config("rwkv6-3b")
+    params, _ = init_train_state(rcfg, cuda)
+    rb = SyntheticLM(DataConfig(seq_len=64, global_batch=2, vocab_size=rcfg.vocab_size)
+                     ).batch_at(0)
+    params = tree_map(lambda t: t.requires_grad_(), params)
+    with pytest.raises(NotImplementedError, match="K7's backward"):
+        lm_loss(rcfg, params, tree_map(lambda a: torch.as_tensor(a).to(cuda), rb))
+
+
+@pytest.mark.parametrize("devices", [1, 2])
+def test_weather_driver_inner_cuda_equals_lower_cuda(cuda, devices, tmp_path):
+    """The port's weather driver with --inner cuda on the card: one N-output
+    K2 launch a step on each rank, the gathered fields bit-equal to
+    lower_cuda stepped in this process."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
+    import torch_weather_simulation as drv
+
+    from repro_torch.core import make_initial_field
+
+    steps, depth, size = 5, 4, 64
+    _build.reset_launches()
+    res = drv.run(drv.parse_args(["--steps", str(steps), "--devices", str(devices),
+                                  "--depth", str(depth), "--size", str(size)]))
+    assert res["code"] == 0
+    for launches in res["launches"]:
+        assert launches["stencil_program_cuda"] == steps
+        assert launches[KERNEL_N_OUT] == steps
+    h0 = make_initial_field(depth, size, size, kind="gaussian", device=cuda)
+    state = {"u": torch.zeros_like(h0), "v": torch.zeros_like(h0), "h": h0}
+    step = ir.lower_cuda(ir.shallow_water_program())
+    for _ in range(steps):
+        state = step(state)
+    _equal({f: torch.from_numpy(a) for f, a in res["final"].items()},
+           {f: a.cpu() for f, a in state.items()})

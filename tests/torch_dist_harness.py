@@ -493,3 +493,36 @@ def lower_batched_suite(rank, world, inputs, members):
     torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
     out["served"] = bool(flag)
     return out if rank == 0 else None
+
+
+def reduce_suite(rank, world, grads):
+    """``reduce_gradients`` on this rank's ``grads[rank]`` (numpy leaves) over
+    the default group and over a one-rank subgroup, every method and
+    reduction; returns ``{(method, mean): numpy tree}`` and the wire."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import tree_map
+    from repro_torch.dist import compress_bf16, reduce_gradients
+
+    mine = tree_map(lambda a: torch.from_numpy(a.copy()), grads[rank])
+    out = {}
+    for method in ("none", "bf16"):
+        for mean in (True, False):
+            red = reduce_gradients(mine, method=method, mean=mean)
+            out[(method, mean)] = tree_map(
+                lambda t: (t.float() if t.dtype == torch.bfloat16 else t).numpy(), red)
+    # new_group is collective: every rank creates every one-rank group, in order.
+    alone = [dist.new_group([r]) for r in range(world)][rank]
+    out["alone"] = tree_map(lambda t: t.numpy(),
+                            reduce_gradients(mine, group=alone, method="none"))
+    out["wire"] = compress_bf16(mine["w"]).float().numpy()
+    return out
+
+
+def failing_rank(rank, world, store):
+    """Rank 1 raises before joining any group; rank 0 waits to be killed."""
+    if rank == 1:
+        raise ValueError("rank 1 failed on purpose")
+    time.sleep(60)
+    return rank
