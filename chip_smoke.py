@@ -124,9 +124,13 @@ script's seconds so far when it was printed):
               runtime_metadata()
   timing      per kernel, at 64x256x256 / (16384, 256) and at 80x1024x1024 /
               (81920, 1024) (which exceed the 50 MB L2): device time per
-              launch (median of 25 CUDA-graph replays of 10 launches, after
-              warm-up), the plain version's time (median of 20 event-timed
-              calls), the least time the card could take (bytes over
+              launch (a launch that moves under twice the L2 is timed cold:
+              median of 25 event-timed launches, each after a 200 MB read
+              that evicts L2, so the device-memory bound holds; a larger one
+              by the median of 25 CUDA-graph replays of 10 launches, after
+              warm-up; every row of the kernels line is held to be no faster
+              than its bound), the plain version's time (median of 20
+              event-timed calls), the least time the card could take (bytes over
               3.35 TB/s or operations over the peak rate, whichever is
               larger), the achieved bytes/s and, for K4/K5/K5', one library
               call computing the same interior (conv2d / conv1d, TF32 off);
@@ -214,7 +218,9 @@ script's seconds so far when it was printed):
               recorder. (c) ``--devices 8``: 8 gloo ranks time-sharing the
               card, 50 K2 launches each (offset mode), the gathered fields
               equal to ``--devices 1``'s; host ms a step (one exchange round
-              a step): not a multi-GPU figure
+              a step), and the round alone (posting, then waiting; median
+              of 20 a rank) on the same 4x2 plan in 8 ranks of its own: not
+              a multi-GPU figure
   train       LM training (M13b.1) with K6 differentiable: (a) K6 under
               autograd at (4, 256, 2560) and (8, 4096, 2560): the forward
               bit-equal to the plain version, the backward (K6 on reversed,
@@ -222,7 +228,9 @@ script's seconds so far when it was printed):
               within 1e-5 relative of autograd through the plain forward,
               timed; K6 at 65537x4x32 and K7 at batch and heads 65537, two
               launches each; (b) a RecurrentGemma smoke-config train step at
-              f32 on the card within 2e-4 of the CPU's; (c) ``train()`` on
+              f32 on the card (the second, at the full learning rate) within
+              2e-4 of the CPU's, each parameter's step delta within 1e-2 of
+              its largest on the CPU; (c) ``train()`` on
               ``recurrentgemma-2b`` at its published widths (26 layers,
               f32 masters, bf16 compute, remat), 4 steps of batch 4 x 256
               tokens with the counters reset just before: K6 exactly 3
@@ -311,6 +319,8 @@ K6_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 2560)  # the trainer's RG-LRU scan: (B, T, r
 K6_WIDE = (65537, 4, 32)  # past the grid's 65535 batch rows: two launches
 K7_WIDE = ((65537, 16, 1, 8), (1, 16, 65537, 4))  # batch, then heads, past 65535
 TRAIN_TOL = 2e-4  # a trainer step, card vs CPU at float32 (tests/test_torch_train_lm.py)
+DELTA_TOL = 1e-2  # each leaf's step delta, as a share of its largest (the same file)
+L2_BYTES = 50 * 2**20  # the H100's L2 (data sheet)
 T_START = time.perf_counter()
 
 
@@ -348,6 +358,41 @@ def graph_ms(fn, launches_per_graph=10, replays=25):
         times.append(a.elapsed_time(b) / launches_per_graph)
     del graph
     return statistics.median(times)
+
+
+def cold_ms(fn, reps=25):
+    """Device ms of one call of ``fn`` with nothing of its inputs in L2:
+    the median over ``reps`` event-timed calls, each after a read of a
+    buffer of four times the L2 (it leaves L2 holding clean lines of that
+    buffer) and a spin of the card that outlasts the host's enqueueing of
+    the call, so the events time the device alone. For launches whose
+    inputs would otherwise stay in L2 between CUDA-graph replays, where the
+    device-memory bound would not hold."""
+    import torch
+
+    flush = torch.empty(4 * L2_BYTES // 4, dtype=torch.float32, device="cuda").normal_()
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        flush.sum()
+        torch.cuda._sleep(1_000_000)  # about 0.5 ms at the card's clock
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del flush
+    return statistics.median(times)
+
+
+def kernel_ms(fn, nbytes, **graph_kw):
+    """Device ms per launch of a kernel that moves ``nbytes``: cold
+    (:func:`cold_ms`) when they fit in twice the L2, so the time is one the
+    device-memory bound holds for; else from CUDA-graph replays
+    (:func:`graph_ms`), whose launches evict each other's inputs."""
+    return cold_ms(fn) if nbytes < 2 * L2_BYTES else graph_ms(fn, **graph_kw)
 
 
 def event_ms(fn, reps=20):
@@ -464,6 +509,51 @@ def shard_bound_work(prog, depth, slab, grid):
                 * span(kc[0] - later, kc[1] + later, q.radius, grid[1] - q.radius)
                 * q.spec().flops)
     return 4 * (words + kept * len(prog.outputs)), ops
+
+
+def _driver_round_body(rank, world, store, rounds=20):
+    """Host seconds of the weather driver's exchange round alone on ``world``
+    gloo ranks: its partition plan's mesh, its {u, v, h} blocks of the
+    paper grid stacked into one message a direction (``lower_sharded``'s
+    merged exchange, all three at radius 1), posted (the stack, the bands'
+    copies to host memory, the isend/irecv calls), then waited for and the
+    received bands copied back, after a barrier each round."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    import repro_torch.ir as ir
+    from repro_torch.dist import shard_block, start_exchange
+    from repro_torch.dist.halo import program_exchange_radii
+    from repro_torch.launch.mesh import make_mesh
+
+    prog = ir.shallow_water_program()
+    plan = ir.plan_partition(prog, *PAPER_GRID, world)
+    mesh = make_mesh(plan.mesh_shape, ("rows", "cols"), backend="gloo")
+    gen = torch.Generator().manual_seed(SEED)
+    blocks = [shard_block(torch.randn(PAPER_GRID, generator=gen), mesh).to(mesh.device)
+              for _ in prog.inputs]
+    (radius,) = set(program_exchange_radii(prog).values())
+    secs = {"post": [], "wait": []}
+    try:
+        for i in range(rounds + 2):  # two warm-up rounds
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rnd = start_exchange([(torch.stack(blocks), radius)], mesh, "rows", "cols",
+                                 pad_cols=plan.col_shards > 1)
+            t1 = time.perf_counter()
+            rnd.wait()
+            torch.cuda.synchronize()
+            if i >= 2:
+                secs["post"].append(t1 - t0)
+                secs["wait"].append(time.perf_counter() - t1)
+        return {"mesh": list(plan.mesh_shape), **secs}
+    finally:
+        dist.destroy_process_group()
 
 
 def _sharded_rank_body(rank, world, store):
@@ -1630,7 +1720,7 @@ def main() -> int:
                 k * jac_pts * jac_flops, H100_SXM.peak_flops_vpu_f32, rtag,
                 lambda k=k: torch.nn.functional.conv1d(y3, library_c[k])))
         for kernel, label, fn, plain, nbytes, ops, peak, grid, library in cases:
-            ms = graph_ms(fn)
+            ms = kernel_ms(fn, nbytes)
             plain_ms = event_ms(plain)
             library_ms = event_ms(library) if library is not None else None
             bound_ms, bound_by = bound(nbytes, ops, peak)
@@ -1649,7 +1739,7 @@ def main() -> int:
     # element; bytes: a, b (their dtype) and h once, h0, h_last.
     def time_row(kernel, label, shape, fn, plain, nbytes, ops):
         big = shape in (K7_BIG, K6_BIG)
-        ms = graph_ms(fn, replays=10 if big else 25)
+        ms = kernel_ms(fn, nbytes, replays=10 if big else 25)
         bound_ms, bound_by = bound(nbytes, ops, H100_SXM.peak_flops_vpu_f32)
         row = {"kernel": kernel, "case": label, "grid": "x".join(map(str, shape)), "ms": ms,
                "plain_ms": event_ms(plain, reps=5 if big else 20), "bound_ms": bound_ms,
@@ -1738,8 +1828,8 @@ def main() -> int:
                         row = {"kernel": "stencil_program_cuda", "case": f"{label} shard",
                                "grid": gtag, "mesh": f"{n_row}x{n_col}",
                                "block": "x".join(map(str, slab[0].shape)),
-                               "ms": graph_ms(lambda p=prog, b=slab, kw=kw:
-                                              ir.stencil_program_cuda(p, b, **kw)),
+                               "ms": kernel_ms(lambda p=prog, b=slab, kw=kw:
+                                               ir.stencil_program_cuda(p, b, **kw), nbytes),
                                "plain_ms": event_ms(lambda p=prog, b=slab, kw=kw:
                                                     ir.stencil_program_plain(p, b, **kw)),
                                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
@@ -1778,7 +1868,7 @@ def main() -> int:
         "kernel": "stencil_program_cuda", "case": f"hdiff k=1 batched x{SHARD_MEMBERS} shard",
         "grid": "x".join(map(str, PAPER_GRID)), "mesh": "2x4",
         "block": "x".join(map(str, slab[0].shape)),
-        "ms": graph_ms(lambda: ir.stencil_program_cuda(prog, slab, **kw)),
+        "ms": kernel_ms(lambda: ir.stencil_program_cuda(prog, slab, **kw), nbytes),
         "plain_ms": event_ms(lambda: ir.stencil_program_plain(prog, slab, **kw)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     del slab
@@ -2060,7 +2150,8 @@ def main() -> int:
                                    interior(shape8, prog.chain[0].radius, sweeps=prog.steps)
                                    * prog.chain[0].spec().flops, H100_SXM.peak_flops_vpu_f32)
         fc_timing[name] = {
-            "ms": graph_ms(lambda p=prog, a=x8: ir.stencil_program_cuda(p, a)),
+            "ms": kernel_ms(lambda p=prog, a=x8: ir.stencil_program_cuda(p, a),
+                            k2_bytes(prog, shape8)),
             "plain_ms": event_ms(lambda p=prog, a=x8: ir.stencil_program_plain(p, a), reps=5),
             "bound_ms": bound_ms, "bound_by": bound_by, "grid": "x".join(map(str, shape8))}
         del x8
@@ -2214,6 +2305,10 @@ def main() -> int:
         check(np.array_equal(eight["final"][f], one["final"][f]),
               f"driver --devices {DRIVER_RANKS} {f} != --devices 1")
     driver_ranks_n_out = sum(rank_counts[KERNEL_N_OUT] for rank_counts in eight["launches"])
+    # The exchange round alone, on the same plan, in ranks of its own.
+    rounds = run_ranks(_driver_round_body, DRIVER_RANKS, work, timeout=SHARD_TIMEOUT)
+    round_ms = {k: [statistics.median(r[k]) * 1e3 for r in rounds] for k in ("post", "wait")}
+    round_ms["total"] = [p + w for p, w in zip(round_ms["post"], round_ms["wait"])]
     one_ms, rank_ms = one["ms_per_step"], eight["rank_ms_per_step"]
     shutil.rmtree(work, ignore_errors=True)
     del state, at_step, back, saved, one, eight, h0
@@ -2222,7 +2317,8 @@ def main() -> int:
     n_pts = PAPER_GRID[0] * PAPER_GRID[1] * PAPER_GRID[2]
     sw_bound, sw_by = bound(k2_bytes(sw, PAPER_GRID), interior(PAPER_GRID, 1) * sw.spec().flops,
                             H100_SXM.peak_flops_vpu_f32)
-    sw_timing = {"ms": graph_ms(lambda: ir.stencil_program_cuda(sw, swx)),
+    sw_timing = {"ms": kernel_ms(lambda: ir.stencil_program_cuda(sw, swx),
+                                 k2_bytes(sw, PAPER_GRID)),
                  "plain_ms": event_ms(lambda: ir.stencil_program_plain(sw, swx)),
                  "bound_ms": sw_bound, "bound_by": sw_by, "library_ms": None}
     del swx
@@ -2239,10 +2335,14 @@ def main() -> int:
           "devices_8": {"ranks": DRIVER_RANKS, "backend": "gloo",
                         "host_ms_per_step_by_rank": rank_ms,
                         "host_ms_per_step_median": statistics.median(rank_ms),
-                        "host_ms_per_round_median": statistics.median(rank_ms),
+                        "mesh": rounds[0]["mesh"],
+                        "round_ms_by_rank": round_ms,
+                        "round_ms_median": {k: statistics.median(v)
+                                            for k, v in round_ms.items()},
                         "k2_n_out_launches": driver_ranks_n_out,
                         "note": "gloo ranks time-sharing one card, bands staged through host "
-                                "memory: not a multi-GPU figure; one exchange round a step"},
+                                "memory: not a multi-GPU figure; one exchange round a step, "
+                                "timed alone (median of 20 a rank) in ranks of its own"},
           "seconds": time.perf_counter() - t_phase})
 
     # -- train: LM training on RecurrentGemma (M13b.1), K6 forward and backward -------
@@ -2258,7 +2358,7 @@ def main() -> int:
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels.rglru import rglru_backward, rglru_reverse_ref, rglru_scan
     from repro_torch.models import lm_loss
-    from repro_torch.checkpoint import tree_flatten, tree_map
+    from repro_torch.tree import tree_flatten, tree_map
     from repro_torch.optim import optimizer_config_from_model
     from repro_torch.train import TrainConfig, init_train_state, make_train_step, train
 
@@ -2317,30 +2417,44 @@ def main() -> int:
                    **{"x".join(map(str, sh)): {"wkv6_cuda": 2} for sh in K7_WIDE}},
           f"launches past 65535: {wide}")
     del a, b, h0, got, r, k, v, w, u, s0
-    # K6 at the trainer's shape, timed (the train path's row).
+    # K6 at the trainer's shape, timed cold (the train path's row: its 31 MB
+    # would stay in L2 between graph replays).
     a = 0.5 + 0.499 * torch.rand(K6_TRAIN, generator=gen, device=dev)
     b, h0 = randn(K6_TRAIN), randn((K6_TRAIN[0], K6_TRAIN[2]))
-    k6_train_bound = bound(4 * (3 * a.numel() + 2 * h0.numel()), 2 * a.numel(),
-                           H100_SXM.peak_flops_vpu_f32)
-    k6_train_timing = {"ms": graph_ms(lambda: k6.rglru_scan_cuda(a, b, h0)),
+    k6_train_nbytes = 4 * (3 * a.numel() + 2 * h0.numel())
+    k6_train_bound = bound(k6_train_nbytes, 2 * a.numel(), H100_SXM.peak_flops_vpu_f32)
+    k6_train_timing = {"ms": kernel_ms(lambda: k6.rglru_scan_cuda(a, b, h0), k6_train_nbytes),
                        "plain_ms": event_ms(lambda: rglru_seq_ref(a, b, h0), reps=5),
                        "bound_ms": k6_train_bound[0], "bound_by": k6_train_bound[1],
                        "library_ms": None}
     del a, b, h0
-    # (b) One smoke-config step, card against CPU, at float32 compute.
+    # (b) One smoke-config step, card against CPU, at float32 compute: the
+    # second step (a first on the CPU gives both a non-zero state), with a
+    # one-step warmup so it moves every parameter at the full learning rate;
+    # the state within TRAIN_TOL and each parameter's step delta within
+    # DELTA_TOL of its largest on the CPU.
     small = dataclasses.replace(get_smoke_config(TRAIN_ARCH), compute_dtype="float32")
-    sbatch = SyntheticLM(DataConfig(seq_len=32, global_batch=4, vocab_size=small.vocab_size,
-                                    seed=SEED)).batch_at(0)
-    sstep = make_train_step(small, optimizer_config_from_model(small))
-    host_state = init_train_state(small, "cpu", seed=SEED)
+    sdata = SyntheticLM(DataConfig(seq_len=32, global_batch=4, vocab_size=small.vocab_size,
+                                   seed=SEED))
+    sstep = make_train_step(small, dataclasses.replace(optimizer_config_from_model(small),
+                                                       warmup_steps=1))
+    host_state = sstep(*init_train_state(small, "cpu", seed=SEED), sdata.batch_at(0))[:2]
+    before = [t.clone() for t in tree_flatten(host_state[0])[0]]
     card_state = tree_map(lambda t: t.to(dev), host_state)
-    *card_state, m_card = sstep(*card_state, sbatch)
-    *host_state, m_host = sstep(*host_state, sbatch)
+    *card_state, m_card = sstep(*card_state, sdata.batch_at(1))
+    *host_state, m_host = sstep(*host_state, sdata.batch_at(1))
     step_err = max([abs(float(m_card["loss"]) - float(m_host["loss"]))] + [
         (x.cpu() - y).abs().max().item()
         for x, y in zip(tree_flatten(card_state)[0], tree_flatten(host_state)[0])])
     check(step_err <= TRAIN_TOL, f"smoke train step, card vs CPU: {step_err}")
-    del card_state, host_state
+    delta_err = 0.0
+    for p0, pc, ph in zip(before, tree_flatten(card_state[0])[0], tree_flatten(host_state[0])[0]):
+        want = ph - p0
+        check(want.abs().max().item() > 0, "smoke train step moved no parameter of a leaf")
+        delta_err = max(delta_err, ((pc.cpu() - p0) - want).abs().max().item()
+                        / want.abs().max().item())
+    check(delta_err <= DELTA_TOL, f"smoke train step deltas, card vs CPU: {delta_err}")
+    del card_state, host_state, before
     # (c) The full-width trainer, counted.
     full = get_config(TRAIN_ARCH)
     ds = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
@@ -2350,6 +2464,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors still alive
     _build.reset_launches()
     t0 = time.perf_counter()
     params, opt_state, hist = train(full, TrainConfig(steps=TRAIN_STEPS, log_every=1), ds,
@@ -2431,13 +2546,14 @@ def main() -> int:
     emit({"phase": "train", "arch": TRAIN_ARCH,
           "k6_autograd": k6_autograd, "k6_k7_past_65535": wide,
           "smoke_step_card_vs_cpu_max_err": step_err,
+          "smoke_step_card_vs_cpu_delta_err": delta_err,
           "full_width": {"layers": full.n_layers, "params": n_params, "batch": TRAIN_BATCH,
                          "seq": TRAIN_SEQ, "compute": full.compute_dtype, "remat": full.remat,
                          "steps": TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
                          "host_ms_per_step": [h["dt"] * 1e3 for h in hist],
                          "train_s": train_s, "launches": train_launches,
                          "k6_launches_per_step": train_launches["rglru_scan_cuda"] / TRAIN_STEPS,
-                         "peak_memory_gb": peak_gb,
+                         "peak_memory_gb": peak_gb, "held_before_gb": held_gb,
                          "profiled_step": {"window_us": prof_us, "device_busy_us": busy_us,
                                            "busy_share": busy_us / prof_us, "k6_device_us": k6_us,
                                            "top": {k: v for k, v in top}}},
@@ -2544,6 +2660,9 @@ def main() -> int:
             "source": ("src/repro_torch/csrc/rglru.cu" if site == "rglru_scan_cuda"
                        else "src/repro_torch/ir/codegen_cuda.py"),
             "replaces": replaces, "launches": count, "max_abs_err": err, **t})
+    for k in kernels:  # a time under its bound would make the bound no bound
+        check(k["ms"] >= k["bound_ms"],
+              f"{k['name']} ({k['replaces']}): {k['ms']} ms under its bound {k['bound_ms']} ms")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,9 @@ package's on-disk format)."""
 
 from repro_torch.checkpoint.store import (
     CheckpointManager,
-    TreeDef,
     host_tree,
     latest_step,
     restore_checkpoint,
     save_checkpoint,
-    tree_flatten,
     tree_health,
-    tree_map,
-    tree_unflatten,
 )

@@ -18,10 +18,8 @@ format, one directory per step:
     ``meta.json``, and recomputes the numerics-health snapshot.
   * Retention: ``keep_last`` newest COMMITted steps.
 
-The port imports nothing of JAX, so it flattens trees itself
-(:func:`tree_flatten`): dicts in sorted-key order, lists, tuples and
-NamedTuples (the optimizers' states), ``None`` as an empty subtree — the
-leaf order ``jax.tree.flatten`` gives. ``meta.json``'s ``treedef`` is the
+Trees are flattened by :mod:`repro_torch.tree` in the leaf order
+``jax.tree.flatten`` gives. ``meta.json``'s ``treedef`` is the
 port's own string; neither package's reader compares it. A ``{field:
 array}`` tree is therefore cross-readable: a checkpoint the port writes
 restores through ``repro.checkpoint.restore_checkpoint`` and the other way
@@ -42,99 +40,12 @@ import shutil
 import threading
 import time
 from pathlib import Path
-from typing import Any, Callable, Mapping
+from typing import Any
 
 import numpy as np
 import torch
 
-
-class TreeDef:
-    """The structure of a flattened tree: ``kind`` is ``"leaf"``, ``"none"``,
-    ``"dict"`` (``meta``: the sorted keys), ``"list"``, ``"tuple"`` or
-    ``"namedtuple"`` (``meta``: the class); ``children`` one per entry."""
-
-    def __init__(self, kind: str, meta: Any = None, children: tuple = ()):
-        self.kind, self.meta, self.children = kind, meta, children
-
-    def __eq__(self, other) -> bool:
-        return (isinstance(other, TreeDef) and (self.kind, self.meta, self.children)
-                == (other.kind, other.meta, other.children))
-
-    def __str__(self) -> str:
-        if self.kind == "leaf":
-            return "*"
-        if self.kind == "none":
-            return "None"
-        kids = [str(c) for c in self.children]
-        if self.kind == "dict":
-            return "{" + ", ".join(f"{k!r}: {c}" for k, c in zip(self.meta, kids)) + "}"
-        if self.kind == "namedtuple":
-            return (f"{self.meta.__name__}("
-                    + ", ".join(f"{f}={c}" for f, c in zip(self.meta._fields, kids)) + ")")
-        if self.kind == "list":
-            return "[" + ", ".join(kids) + "]"
-        return "(" + ", ".join(kids) + ("," if len(kids) == 1 else "") + ")"
-
-    __repr__ = __str__
-
-
-def _flatten(tree: Any, path: str, leaves: list, paths: list) -> TreeDef:
-    if tree is None:
-        return TreeDef("none")
-    if isinstance(tree, Mapping):
-        keys = tuple(sorted(tree))
-        return TreeDef("dict", keys, tuple(_flatten(tree[k], f"{path}[{k!r}]", leaves, paths)
-                                           for k in keys))
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return TreeDef("namedtuple", type(tree),
-                       tuple(_flatten(v, f"{path}.{f}", leaves, paths)
-                             for f, v in zip(tree._fields, tree)))
-    if isinstance(tree, (list, tuple)):
-        return TreeDef(type(tree).__name__, None,
-                       tuple(_flatten(v, f"{path}[{i}]", leaves, paths)
-                             for i, v in enumerate(tree)))
-    leaves.append(tree)
-    paths.append(path or "<root>")
-    return TreeDef("leaf")
-
-
-def _flatten_paths(tree: Any) -> tuple[list, list[str], TreeDef]:
-    """``(leaves, paths, treedef)``: each leaf's path reads like
-    ``['mu']['embed']``."""
-    leaves: list = []
-    paths: list = []
-    return leaves, paths, _flatten(tree, "", leaves, paths)
-
-
-def tree_flatten(tree: Any) -> tuple[list, TreeDef]:
-    """``(leaves, treedef)``, leaves in ``jax.tree.flatten``'s order."""
-    leaves, _, treedef = _flatten_paths(tree)
-    return leaves, treedef
-
-
-def tree_unflatten(treedef: TreeDef, leaves) -> Any:
-    """The tree of ``treedef``'s structure holding ``leaves`` in order."""
-    it = iter(leaves)
-
-    def build(d: TreeDef):
-        if d.kind == "leaf":
-            return next(it)
-        if d.kind == "none":
-            return None
-        kids = [build(c) for c in d.children]
-        if d.kind == "dict":
-            return dict(zip(d.meta, kids))
-        if d.kind == "namedtuple":
-            return d.meta(*kids)
-        return kids if d.kind == "list" else tuple(kids)
-
-    return build(treedef)
-
-
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """``fn`` over every leaf of ``tree``, the structure kept."""
-    leaves, treedef = tree_flatten(tree)
-    return tree_unflatten(treedef, [fn(x) for x in leaves])
+from repro_torch.tree import tree_flatten, tree_flatten_with_paths, tree_unflatten
 
 
 def _host_array(x: Any, path: str, *, copy: bool) -> np.ndarray:
@@ -151,7 +62,7 @@ def _host_array(x: Any, path: str, *, copy: bool) -> np.ndarray:
 
 def host_tree(tree: Any) -> Any:
     """``tree`` with every leaf a host numpy copy (the async snapshot)."""
-    leaves, paths, treedef = _flatten_paths(tree)
+    leaves, paths, treedef = tree_flatten_with_paths(tree)
     return tree_unflatten(treedef, [_host_array(x, p, copy=True) for x, p in zip(leaves, paths)])
 
 
@@ -193,7 +104,7 @@ def save_checkpoint(root: str | Path, step: int, tree: Any, extra: dict | None =
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
 
-    leaves, paths, treedef = _flatten_paths(tree)
+    leaves, paths, treedef = tree_flatten_with_paths(tree)
     host_leaves = [_host_array(x, p, copy=False) for x, p in zip(leaves, paths)]
     np.savez(tmp / "arrays.npz", **{f"a{i}": a for i, a in enumerate(host_leaves)})
     meta = {

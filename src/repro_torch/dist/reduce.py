@@ -24,7 +24,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from repro_torch.checkpoint.store import tree_map
+from repro_torch.tree import tree_map
 
 METHODS = ("none", "bf16")
 

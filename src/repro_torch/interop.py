@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.ir.evaluate import resolve_field_arrays
 from repro_torch.ir.graph import StencilProgram
+from repro_torch.tree import tree_map
 
 
 def fields_from_numpy(program: StencilProgram, arrays, device=None):
@@ -86,17 +87,9 @@ def optimizer_state_from_numpy(state, device=None, cfg: ModelConfig | None = Non
         tree = getattr(state, name)
         if cfg is not None and name != "step":
             tree = lm_tree_from_numpy(cfg, tree)
-        return _tree_map(tensor, tree)
+        return tree_map(tensor, tree)
 
     return cls(*(field(f) for f in cls._fields))
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, Mapping):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def lm_tree_from_numpy(cfg: ModelConfig, tree) -> dict:
@@ -107,7 +100,7 @@ def lm_tree_from_numpy(cfg: ModelConfig, tree) -> dict:
     blocks = []
     for s in range(cfg.n_super):
         for i in range(len(cfg.block_pattern)):
-            blocks.append(_tree_map(lambda a, s=s: a[s], tree["scan"][f"b{i}"]))
+            blocks.append(tree_map(lambda a, s=s: a[s], tree["scan"][f"b{i}"]))
     blocks += list(tree["tail"])
     out = {"embed": tree["embed"], "blocks": blocks, "final_norm": tree["final_norm"]}
     if not cfg.tied_embeddings:
@@ -128,7 +121,7 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device=None):
     def tensor(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype)
 
-    return LM(cfg, _tree_map(tensor, lm_tree_from_numpy(cfg, tree)))
+    return LM(cfg, tree_map(tensor, lm_tree_from_numpy(cfg, tree)))
 
 
 def lm_cache_to_numpy(cfg: ModelConfig, cache) -> dict:
@@ -139,7 +132,7 @@ def lm_cache_to_numpy(cfg: ModelConfig, cache) -> dict:
     def host(t):
         return t.detach().to("cpu", torch.float32 if t.is_floating_point() else t.dtype).numpy()
 
-    layers = [_tree_map(host, c) for c in cache]
+    layers = [tree_map(host, c) for c in cache]
     width, n_super = len(cfg.block_pattern), cfg.n_super
     out: dict = {"tail": layers[n_super * width:]}
     if n_super:

@@ -38,6 +38,7 @@ from typing import Any, Callable, Mapping, Sequence
 import torch
 
 from repro_torch.obs import events, metrics
+from repro_torch.tree import tree_map
 
 STAT_KEYS = ("size", "nan_count", "inf_count", "min", "max", "mean", "l2")
 
@@ -45,18 +46,11 @@ POLICIES = ("warn", "abort", "checkpoint-then-abort")
 
 
 def _host_snapshot(tree: Any) -> Any:
-    """A host copy of a tensor, or of a mapping / sequence of them, that
-    shares no storage with what the caller holds: the port may update state
-    in place, so a retained buffer could change under the monitor."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().clone()
-    if isinstance(tree, Mapping):
-        return {k: _host_snapshot(v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple state
-        return type(tree)(*(_host_snapshot(v) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_host_snapshot(v) for v in tree)
-    return tree
+    """A host copy of a tensor, or of a tree of them, that shares no storage
+    with what the caller holds: the port may update state in place, so a
+    retained buffer could change under the monitor."""
+    return tree_map(lambda x: x.detach().cpu().clone() if isinstance(x, torch.Tensor) else x,
+                    tree)
 
 
 def field_stats(x, *, axis_names: Sequence[str] = (), mesh=None) -> dict[str, Any]:

@@ -3,10 +3,10 @@
 The PyTorch counterpart of ``repro/optim/optimizers.py``, written from the
 reference's own formulas (not ``torch.optim``) so the two packages' loss
 trajectories compare step for step. Parameters, gradients and moments are a
-tensor or a (nested) dict of tensors; every update is a pure function that
-returns new tensors, as in the JAX package (lists, such as an LM's
-per-layer blocks, are trees too). All arithmetic is float32 (the
-moments are stored in ``moment_dtype``), with the reference's operand order.
+tensor or a tree of them (:mod:`repro_torch.tree`); every update is a pure
+function that returns new tensors, as in the JAX package. All arithmetic is
+float32 (the moments are stored in ``moment_dtype``), with the reference's
+operand order.
 
 Adafactor (Shazeer & Stern 2018) keeps a FACTORED second moment (row + col
 vectors) and no first moment. :func:`optimizer_config_from_model` reads a
@@ -20,9 +20,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Mapping, NamedTuple
+from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch.tree import tree_leaves, tree_map, tree_map_split
 
 Tensor = torch.Tensor
 
@@ -45,35 +47,6 @@ class OptimizerConfig:
     factored_threshold: int = 2 * 128 * 128
 
 
-def _map(fn, *trees):
-    """``fn`` over the leaves of tensors or (nested) dicts and lists of one
-    structure."""
-    if isinstance(trees[0], Mapping):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    if isinstance(trees[0], list):
-        return [_map(fn, *(t[i] for t in trees)) for i in range(len(trees[0]))]
-    return fn(*trees)
-
-
-def _leaves(tree) -> list[Tensor]:
-    if isinstance(tree, Mapping):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, list):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
-def _unzip(tree, n: int):
-    """A tree of n-tuples as n trees."""
-    if isinstance(tree, Mapping):
-        parts = {k: _unzip(v, n) for k, v in tree.items()}
-        return tuple({k: p[i] for k, p in parts.items()} for i in range(n))
-    if isinstance(tree, list):
-        parts = [_unzip(v, n) for v in tree]
-        return tuple([p[i] for p in parts] for i in range(n))
-    return tree
-
-
 def schedule_lr(cfg: OptimizerConfig, step: Tensor) -> Tensor:
     """Linear warmup + cosine decay to min_lr_ratio (float32)."""
     step = step.to(torch.float32)
@@ -90,14 +63,14 @@ def schedule_lr(cfg: OptimizerConfig, step: Tensor) -> Tensor:
 
 def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, Tensor]:
     """``(grads scaled so their global L2 norm is at most max_norm, norm)``."""
-    leaves = _leaves(grads)
+    leaves = tree_leaves(grads)
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    return _map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), gnorm
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), gnorm
 
 
 def _first(tree) -> Tensor:
-    return _leaves(tree)[0]
+    return tree_leaves(tree)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +91,7 @@ def adamw_init(cfg: OptimizerConfig, params: Any) -> AdamWState:
     def zeros(p):
         return torch.zeros(p.shape, dtype=mdt, device=p.device)
 
-    return AdamWState(step, _map(zeros, params), _map(zeros, params))
+    return AdamWState(step, tree_map(zeros, params), tree_map(zeros, params))
 
 
 def adamw_update(cfg: OptimizerConfig, grads: Any, state: AdamWState, params: Any):
@@ -138,7 +111,7 @@ def adamw_update(cfg: OptimizerConfig, grads: Any, state: AdamWState, params: An
         new_p = p.to(torch.float32) - lr * delta
         return new_p.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
 
-    new_p, new_m, new_v = _unzip(_map(upd, grads, state.mu, state.nu, params), 3)
+    new_p, new_m, new_v = tree_map_split(upd, 3, grads, state.mu, state.nu, params)
     return new_p, AdamWState(step, new_m, new_v)
 
 
@@ -170,7 +143,7 @@ def adafactor_init(cfg: OptimizerConfig, params: Any) -> AdafactorState:
             return torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=mdt, device=p.device)
         return torch.zeros((1,), dtype=mdt, device=p.device)
 
-    return AdafactorState(step, _map(vr_init, params), _map(vc_init, params))
+    return AdafactorState(step, tree_map(vr_init, params), tree_map(vc_init, params))
 
 
 def adafactor_update(cfg: OptimizerConfig, grads: Any, state: AdafactorState, params: Any):
@@ -200,7 +173,7 @@ def adafactor_update(cfg: OptimizerConfig, grads: Any, state: AdafactorState, pa
         new_p = p.to(torch.float32) - lr * (precond + cfg.weight_decay * p.to(torch.float32))
         return new_p.to(p.dtype), vr32.to(vr.dtype), vc32.to(vc.dtype)
 
-    new_p, new_vr, new_vc = _unzip(_map(upd, grads, state.vr, state.vc, params), 3)
+    new_p, new_vr, new_vc = tree_map_split(upd, 3, grads, state.vr, state.vc, params)
     return new_p, AdafactorState(step, new_vr, new_vc)
 
 

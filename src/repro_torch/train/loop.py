@@ -34,7 +34,6 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.checkpoint.store import tree_flatten, tree_map, tree_unflatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import build_lm, lm_loss, lm_params
@@ -46,6 +45,7 @@ from repro_torch.optim.optimizers import (
     make_optimizer,
     optimizer_config_from_model,
 )
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
 

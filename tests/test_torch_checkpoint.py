@@ -20,12 +20,10 @@ from repro_torch.checkpoint import (
     latest_step,
     restore_checkpoint,
     save_checkpoint,
-    tree_flatten,
     tree_health,
-    tree_map,
-    tree_unflatten,
 )
 from repro_torch.optim import AdafactorState, AdamWState
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 FIELDS = ("u", "v", "h")
 

@@ -906,7 +906,7 @@ def test_trainer_step_on_the_card_matches_the_cpu(cuda):
     card (K7 has no backward yet)."""
     import dataclasses
 
-    from repro_torch.checkpoint import tree_flatten, tree_map
+    from repro_torch.tree import tree_flatten, tree_map
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models import lm_loss

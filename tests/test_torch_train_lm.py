@@ -40,7 +40,7 @@ from repro.optim import make_optimizer as jax_make_optimizer
 from repro.optim import optimizer_config_from_model as jax_opt_config
 from repro.train import make_train_step as jax_make_train_step
 from repro.train import shape_for_microbatches as jax_shape
-from repro_torch.checkpoint import latest_step, restore_checkpoint, tree_flatten, tree_map
+from repro_torch.checkpoint import latest_step, restore_checkpoint
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.interop import lm_params_from_numpy, lm_tree_from_numpy
@@ -51,9 +51,16 @@ from repro_torch.obs.health import NumericsError
 from repro_torch.optim import optimizer_config_from_model
 from repro_torch.train import (TrainConfig, init_train_state, make_train_step,
                                shape_for_microbatches, train)
+from repro_torch.tree import tree_flatten, tree_map
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = 2e-4
+# Each leaf's step delta (after minus before) against the JAX package's, as
+# a share of the largest JAX delta: an update never applied, of the wrong
+# sign or at a wrong learning rate misses by 100 % or more; float32
+# rounding of the stored parameters and of near-zero gradients costs up to
+# about 0.4 % at the compared step's learning rate.
+DELTA_TOL = 1e-2
 SEQ = {"recurrentgemma-2b": 16, "rwkv6-3b": 64}  # RWKV-6: its 64-step chunk divides it
 
 
@@ -67,15 +74,22 @@ def _batch(vocab, seq, seed):
 @functools.cache
 def _jax_steps(arch, mb):
     """The JAX side: weights, one step (for a non-zero state), then the
-    compared step; numpy trees of the state before and after it."""
+    compared step; numpy trees of the state before and after it. The warmup
+    is one step, so the compared step moves each parameter at the full
+    learning rate."""
     cfg = dataclasses.replace(jax_smoke_config(arch), compute_dtype="float32")
     params, _ = jax_build_lm(cfg, jax.random.PRNGKey(0))
-    init, _ = jax_make_optimizer(jax_opt_config(cfg))
-    step = jax.jit(jax_make_train_step(cfg, jax_opt_config(cfg), microbatches=mb))
+    ocfg = dataclasses.replace(jax_opt_config(cfg), warmup_steps=1)
+    init, _ = jax_make_optimizer(ocfg)
+    step = jax.jit(jax_make_train_step(cfg, ocfg, microbatches=mb))
     p1, o1, _ = step(params, init(params), jax_shape(_batch(cfg.vocab_size, SEQ[arch], 0), mb))
     p2, o2, m2 = step(p1, o1, jax_shape(_batch(cfg.vocab_size, SEQ[arch], 1), mb))
     host = functools.partial(jax.tree.map, np.asarray)
     return host(p1), host(o1), host(p2), host(o2), {k: float(v) for k, v in m2.items()}
+
+
+def _opt_config(cfg):
+    return dataclasses.replace(optimizer_config_from_model(cfg), warmup_steps=1)
 
 
 def _max_err(jax_tree, port_tree, cfg):
@@ -85,6 +99,19 @@ def _max_err(jax_tree, port_tree, cfg):
     return max(float(np.abs(w - g.detach().numpy()).max()) for w, g in zip(want, got))
 
 
+def _max_delta_err(jax_before, jax_after, port_before, port_after, cfg):
+    """The largest leaf-wise miss of the port's step delta against the JAX
+    package's, as a share of that leaf's largest JAX delta."""
+    worst = 0.0
+    for a, b, x, y in zip(*(tree_flatten(lm_tree_from_numpy(cfg, t))[0]
+                            for t in (jax_before, jax_after)),
+                          port_before, tree_flatten(port_after)[0]):
+        want, got = b - a, (y - x).detach().numpy()
+        assert np.abs(want).max() > 0
+        worst = max(worst, float(np.abs(want - got).max() / np.abs(want).max()))
+    return worst
+
+
 @pytest.mark.parametrize("arch,mb", [("recurrentgemma-2b", 1), ("recurrentgemma-2b", 2),
                                      ("rwkv6-3b", 1)])
 def test_train_step_matches_jax(arch, mb):
@@ -92,14 +119,16 @@ def test_train_step_matches_jax(arch, mb):
     p1, o1, p2, o2, m2 = _jax_steps(arch, mb)
     params = tree_map(lambda t: t.detach().clone(),
                       lm_params(lm_params_from_numpy(cfg, p1, device="cpu")))
+    before = [t.clone() for t in tree_flatten(params)[0]]
     state = optimizer_state_from_numpy(o1, device="cpu", cfg=cfg)
-    step = make_train_step(cfg, optimizer_config_from_model(cfg), microbatches=mb)
+    step = make_train_step(cfg, _opt_config(cfg), microbatches=mb)
     batch = shape_for_microbatches(_batch(cfg.vocab_size, SEQ[arch], 1), mb)
     params, state, m = step(params, state, batch)
     assert abs(float(m["loss"]) - m2["loss"]) <= TOL
     assert abs(float(m["grad_norm"]) - m2["grad_norm"]) <= TOL * max(1.0, m2["grad_norm"])
     assert int(state.step) == 2
     assert _max_err(p2, params, cfg) <= TOL
+    assert _max_delta_err(p1, p2, before, params, cfg) <= DELTA_TOL
     assert _max_err(o2.mu, state.mu, cfg) <= TOL
     assert _max_err(o2.nu, state.nu, cfg) <= TOL
     if mb == 1:

@@ -502,7 +502,7 @@ def reduce_suite(rank, world, grads):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.checkpoint import tree_map
+    from repro_torch.tree import tree_map
     from repro_torch.dist import compress_bf16, reduce_gradients
 
     mine = tree_map(lambda a: torch.from_numpy(a.copy()), grads[rank])
