@@ -7,11 +7,12 @@ few hundred steps on deterministic synthetic data, with checkpoint/restart.
 
 The port of ``examples/train_lm.py``, with the same flags and ``--device``
 added (default: the card, which it raises without). ``--arch`` takes the
-architectures whose blocks the port runs. The JAX example's default,
-``qwen1.5-0.5b``, is dense attention, which the port has not ported yet
-(ROADMAP M13b.2), so this one defaults to ``recurrentgemma-2b``: its
-RG-LRU layers run the scan kernel K6 forward and backward. Loss must drop;
-checkpoints land in ``--ckpt-dir`` and a rerun resumes from the last one.
+architectures whose blocks the port runs; the default is the JAX
+example's, a qwen1.5-family dense config. ``recurrentgemma-2b`` trains its
+RG-LRU layers through the scan kernel K6 forward and backward,
+``rwkv6-3b`` its time mix through K7 and K7's backward kernel. Loss must
+drop; checkpoints land in ``--ckpt-dir`` and a rerun resumes from the last
+one.
 """
 
 import argparse
@@ -22,7 +23,7 @@ import tempfile
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)

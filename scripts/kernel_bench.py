@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Times the port's K7 (``wkv6_cuda``), K2 (``stencil_program_cuda``), K6
+"""Times the port's K7 (``wkv6_cuda``) and its backward (``wkv6_bwd_cuda``),
+K2 (``stencil_program_cuda``), K6
 (``rglru_scan_cuda``), K3 (``hdiff_fixed_cuda``), K1 (``hdiff_cuda``), K4
 (``stencil2d_cuda``) and K5' (``stencil_program_1d_cuda``) on one NVIDIA
 GPU, for a source tree given on the command line.
 
     python3 scripts/kernel_bench.py [--src DIR] [--label NAME]
-                                    [--only k7,k2,k6,k3,k1,k4,k5p,k2adj]
+                                    [--only k7,k7bwd,k2,k6,k3,k1,k4,k5p,k2adj]
                                     [--ptxas] [--profile] [--sass DIR] [--no-check]
 
 ``--src`` names the ``src/`` directory whose ``repro_torch`` is imported
@@ -15,7 +16,10 @@ its plain version (K7 within ``1e-5 * max|y| + 1e-6``, K2 bit for bit), then
 timed as ``chip_smoke.py`` times it: the median of 25 replays (10 at the
 large shapes) of a CUDA graph of 10 launches, after a warm-up. Cases: K7 at
 (1, 512, 40, 64) and (8, 4096, 40, 64) with chunk 64 (K7 also checked as a
-replayed CUDA graph); K2 hdiff x 2 and
+replayed CUDA graph); ``k7bwd``: K7's backward at (1, 512, 40, 64) and the
+trainer's (4, 256, 40, 64), chunk 64, with non-zero state and state
+cotangent, each gradient within ``1e-5 * max|g| + 1e-6`` of
+``wkv6_backward_plain`` (only where the tree has it); K2 hdiff x 2 and
 hdiff_coupled at 64x256x256 and 80x1024x1024, float32; K6 at (1, 512, 2560)
 and (8, 4096, 2560), float32 and bfloat16, bit for bit against
 ``rglru_seq_ref`` (also checked as a replayed CUDA graph); K3 at 64x256x256
@@ -36,10 +40,10 @@ forward (6 outputs) and adjoint (2 outputs), at the grids ``make_vjp`` runs
 them on, 64x260x260 and 80x1028x1028 (padded by 2), float32, bit for bit,
 each row with its tile and frame count (only where the tree has
 ``ir.adjoint``).
-``--only`` picks kernels (default: all eight). ``--ptxas``
+``--only`` picks kernels (default: all nine). ``--ptxas``
 also compiles each kernel source once more with ``-Xptxas -v`` and prints
 the registers, shared memory and spills it reports; ``--profile`` adds, per
-K7 shape, the device time of each of the call's launches from one
+K7 and K7 backward shape, the device time of each of the call's launches from one
 ``torch.profiler`` window of 5 calls; ``--sass DIR`` writes ``cuobjdump
 -sass`` of the K6, K3/K1, K4 and K5' libraries into DIR and prints, for
 each loop of each kernel (a backward branch), its instructions by opcode
@@ -160,7 +164,7 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only", default="k7,k2,k6,k3,k1,k4,k5p,k2adj")
+    ap.add_argument("--only", default="k7,k7bwd,k2,k6,k3,k1,k4,k5p,k2adj")
     ap.add_argument("--sass", default=None)
     ap.add_argument("--no-check", action="store_true")
     args = ap.parse_args()
@@ -183,6 +187,7 @@ def main() -> int:
     from repro_torch.kernels.rglru import rglru_seq_ref
     from repro_torch.kernels.wkv6 import kernel as k7
     from repro_torch.kernels.wkv6 import wkv6_plain
+    from repro_torch.kernels.wkv6 import ref as wkv6_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -221,11 +226,15 @@ def main() -> int:
     adj_grids = tuple((d, r + 4, c + 4) for d, r, c in grids)
     adj_sources = [kernel_source(p, ("float32",) * len(p.inputs), tile_for(p, *g[1:]))
                    for p in adj_progs.values() for g in adj_grids]
-    picked = {"k7": [k7.source()], "k2": k2_sources((hdiff2, coupled)), "k6": [k6.source()],
+    # k7bwd: K7's backward, where the tree has it.
+    bwd_sources = [k7.bwd_source()] if hasattr(k7, "bwd_source") else []
+    picked = {"k7": [k7.source()], "k7bwd": bwd_sources,
+              "k2": k2_sources((hdiff2, coupled)), "k6": [k6.source()],
               "k3": [k13.source()], "k1": [k13.source(), *k2_sources((hdiff1,))],
               "k4": [k45.source(), *k2_sources((jac9,))],
               "k5p": [k45.source(), *k5p_sources.values()], "k2adj": adj_sources}
-    shown = {"k7": [k7.source()], "k2": picked["k2"][::2], "k6": [k6.source()],
+    shown = {"k7": [k7.source()], "k7bwd": bwd_sources, "k2": picked["k2"][::2],
+             "k6": [k6.source()],
              "k3": [k13.source()], "k1": [k13.source()], "k4": [k45.source()],
              "k5p": [src for (_, _, shape), src in k5p_sources.items() if shape == rows_1d[0]],
              "k2adj": adj_sources[::2]}
@@ -264,6 +273,17 @@ def main() -> int:
                           "shape": "x".join(map(str, shape)), "ms": ms, "max_abs_err": err}),
               flush=True)
 
+    def launch_us(fn, calls=5):
+        """Device µs a call of each kernel ``fn`` launches, from one
+        torch.profiler window of ``calls`` calls."""
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key[:60]: e.self_device_time_total / calls for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
     for shape in ((1, 512, 40, 64), (8, 4096, 40, 64)) if "k7" in only else ():
         b, t, h, n = shape
         r, k, v = 0.5 * randn(shape), 0.5 * randn(shape), randn(shape)
@@ -286,18 +306,39 @@ def main() -> int:
                       replays=10 if b > 1 else 25)
         row("wkv6_cuda", "wkv6", shape, ms, err)
         if args.profile:
-            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(5):
-                    k7.wkv6_cuda(r, k, v, w, u, s0, chunk=64)
-                torch.cuda.synchronize()
-            per_call = {e.key[:60]: e.self_device_time_total / 5 for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and e.self_device_time_total > 0}
             print(json.dumps({**emit, "kernel": "wkv6_cuda", "shape": "x".join(map(str, shape)),
-                              "device_us_per_call": per_call}), flush=True)
+                              "device_us_per_call": launch_us(
+                                  lambda: k7.wkv6_cuda(r, k, v, w, u, s0, chunk=64))}),
+                  flush=True)
         del r, k, v, w, u, s0
         torch.cuda.empty_cache()
+
+    shapes_bwd = ((1, 512, 40, 64), (4, 256, 40, 64))
+    for shape in shapes_bwd if "k7bwd" in only and bwd_sources else ():
+        b, _, h, n = shape
+        args_ = (0.5 * randn(shape), 0.5 * randn(shape), randn(shape),
+                 0.6 + 0.399 * torch.rand(shape, generator=gen, device=dev),
+                 0.3 * randn((h, n)), 0.1 * randn((b, h, n, n)), randn(shape),
+                 randn((b, h, n, n)))
+        want = wkv6_ref.wkv6_backward_plain(*args_, chunk=64)
+        got = k7.wkv6_bwd_cuda(*args_, chunk=64)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, p in zip(got, want):
+            e = (g - p).abs().max().item()
+            if not e <= 1e-5 * p.abs().max().item() + 1e-6:
+                raise RuntimeError(f"K7 backward {shape}: {e} from its plain version")
+            err = max(err, e)
+        del got, want
+        ms = graph_ms(lambda: k7.wkv6_bwd_cuda(*args_, chunk=64))
+        row("wkv6_bwd_cuda", "wkv6 backward", shape, ms, err)
+        if args.profile:
+            print(json.dumps({**emit, "kernel": "wkv6_bwd_cuda", "shape": "x".join(map(str, shape)),
+                              "device_us_per_call": launch_us(
+                                  lambda: k7.wkv6_bwd_cuda(*args_, chunk=64))}), flush=True)
+        del args_
+        torch.cuda.empty_cache()
+
     for grid in grids if "k2" in only else ():
         for label, prog in (("hdiff x2", hdiff2), ("hdiff_coupled", coupled)):
             arrays = tuple(randn(grid) if f != "coeff" else

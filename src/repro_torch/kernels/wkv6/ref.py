@@ -16,6 +16,10 @@ Shapes: r/k/v/w (B, T, H, N) with head size N; u (H, N); state
     ``sum(r * u * k) * v``, split into K7's three passes (chunk-local
     products, the scan over chunks, the outputs): the plain version K7 is
     held to on the card.
+  * :func:`wkv6_backward_plain` — the gradient of the chunked form in the
+    three passes of K7's backward kernel (``csrc/wkv6_bwd.cu``): the plain
+    version that kernel is held to, and the CPU's backward of
+    :class:`~repro_torch.kernels.wkv6.ops.WKV6`.
 """
 
 from __future__ import annotations
@@ -117,3 +121,78 @@ def wkv6_plain(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor, state0: Te
     bonus = torch.sum(rs * u.to(torch.float32)[None, :, None, None, :] * ks, dim=-1, keepdim=True)
     y = (r_dec @ torch.stack(entering, dim=2) + att @ vs) + bonus * vs
     return y.reshape(b, h, t, n).transpose(1, 2).contiguous(), state
+
+
+def wkv6_backward_plain(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                        state0: Tensor, dy: Tensor, ds_t: Tensor | None = None, *,
+                        chunk: int = 64) -> tuple[Tensor, ...]:
+    """The gradient of :func:`wkv6_plain` for cotangents ``dy`` on y and
+    ``ds_t`` on the final state (``None``: zeros): ``(dr, dk, dv, dw)``
+    (B, T, H, N), ``du`` (H, N) and ``dstate0`` (B, H, N, N), float32.
+
+    Per chunk, with ``r~ = r exp(cum - logw)``, ``k~ = k exp(-cum)``,
+    ``k^ = k exp(total - cum)``, ``A = tril(r~ k~^T, -1)``, ``P = dy v^T``,
+    S the state entering the chunk and G the cotangent of the state
+    leaving it: (a') each chunk's ``k^^T v``, ``r~^T dy`` and
+    ``exp(total)``; (b') the forward scan for every S, then the reverse
+    scan ``G <- exp(total) G + r~^T dy`` from ``ds_t`` down to
+    ``dstate0``; (c') ``dv = A^T dy + bonus dy + k^ G``, ``dr~ = dy S^T +
+    tril(P, -1) k~``, ``dk~ = tril(P, -1)^T r~``, ``dk^ = v G^T``, then
+    ``dr``, ``dk`` and ``du`` (the bonus terms, ``diag(P)``) and ``dlogw_tau
+    = sum_{t>tau} dr~ r~ - sum_{s>=tau} dk~ k~ + sum_{s<tau} dk^ k^ +
+    exp(total) sum_j G S``, ``dw = dlogw / w`` where ``w > 1e-30``."""
+    b, t, h, n = r.shape
+    c = min(chunk, t)
+    if c < 1 or t % c:
+        raise ValueError(f"sequence length {t} is not a positive multiple of chunk {c}")
+    nch = t // c
+    rs, ks, vs, ws, dys = (a.to(torch.float32).transpose(1, 2).reshape(b, h, nch, c, n)
+                           for a in (r, k, v, w, dy))
+    u32 = u.to(torch.float32)[None, :, None, None, :]
+    logw = torch.log(torch.clamp_min(ws, 1e-30))
+    cum = torch.cumsum(logw, dim=3)
+    total = cum[:, :, :, -1:]
+    r_fac, k_fac, t_fac = torch.exp(cum - logw), torch.exp(-cum), torch.exp(total - cum)
+    r_dec, k_dec, k_tail = rs * r_fac, ks * k_fac, ks * t_fac
+    decay = torch.exp(total[:, :, :, 0])[..., None]  # (B, H, chunks, N, 1)
+    # (a') chunk-local products.
+    kv = k_tail.transpose(-1, -2) @ vs
+    rdy = r_dec.transpose(-1, -2) @ dys
+    # (b') the state entering each chunk, then the cotangent leaving it.
+    state = state0.to(torch.float32)
+    entering = []
+    for i in range(nch):
+        entering.append(state)
+        state = decay[:, :, i] * state + kv[:, :, i]
+    g = torch.zeros_like(state) if ds_t is None else ds_t.to(torch.float32)
+    leaving = [g] * nch
+    for i in reversed(range(nch)):
+        leaving[i] = g
+        g = decay[:, :, i] * g + rdy[:, :, i]
+    s_in, g_out = torch.stack(entering, dim=2), torch.stack(leaving, dim=2)
+    # (c') the chunk gradients.
+    lower = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device), -1)
+    att = torch.where(lower, r_dec @ k_dec.transpose(-1, -2), 0.0)
+    p = dys @ vs.transpose(-1, -2)
+    p_low = torch.where(lower, p, 0.0)
+    p_diag = torch.diagonal(p, dim1=-2, dim2=-1)[..., None]  # (B, H, chunks, C, 1)
+    bonus = torch.sum(rs * u32 * ks, dim=-1, keepdim=True)
+    dv = (att.transpose(-1, -2) @ dys + bonus * dys) + k_tail @ g_out
+    dr_dec = dys @ s_in.transpose(-1, -2) + p_low @ k_dec
+    dk_dec = p_low.transpose(-1, -2) @ r_dec
+    dk_tail = vs @ g_out.transpose(-1, -2)
+    q, pk, hk = dr_dec * r_dec, dk_dec * k_dec, dk_tail * k_tail
+    z = decay[..., 0] * torch.sum(g_out * s_in, dim=-1)  # (B, H, chunks, N)
+    after_q = torch.flip(torch.cumsum(torch.flip(q, (3,)), dim=3), (3,)) - q
+    from_p = torch.flip(torch.cumsum(torch.flip(pk, (3,)), dim=3), (3,))
+    before_h = torch.cumsum(hk, dim=3) - hk
+    dlogw = ((after_q - from_p) + before_h) + z[:, :, :, None]
+    dw = torch.where(ws > 1e-30, dlogw / ws, 0.0)
+    dr = dr_dec * r_fac + p_diag * u32 * ks
+    dk = (dk_dec * k_fac + dk_tail * t_fac) + p_diag * u32 * rs
+    du = torch.sum(p_diag * rs * ks, dim=3).sum(dim=(0, 2))
+
+    def out(x):
+        return x.reshape(b, h, t, n).transpose(1, 2).contiguous()
+
+    return out(dr), out(dk), out(dv), out(dw), du, g

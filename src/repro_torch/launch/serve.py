@@ -1,4 +1,4 @@
-"""Serving launcher: builds a recurrent LM from a seed and runs the
+"""Serving launcher: builds an LM from a seed and runs the
 continuous-batching engine over a synthetic request stream.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\

@@ -7,7 +7,8 @@ or file-backed token stream.
 The port of ``repro/launch/train.py``, with the same flags and
 ``--device`` added (default: the card; ``--device cpu`` with ``--smoke``
 is what the CPU can run). ``--arch`` takes the architectures whose blocks
-the port runs; any other raises and names the ROADMAP item that ports it.
+the port runs (recurrent and dense); any other (MoE, cross-attention,
+audio) raises and names the ROADMAP item that ports it.
 The JAX launcher's collective-overlap flags and multi-host initialisation
 belong to the TPU and to the LM sharding slice (ROADMAP M13b.3): this
 launcher trains on one device, so ``--grad-compression`` is carried in the

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the recurrent LMs (RWKV-6, RecurrentGemma)."""
+"""Model zoo of the port: the recurrent LMs (RWKV-6, RecurrentGemma) and the
+dense ones (qwen1.5, starcoder2, nemotron-4, glm4)."""
 
 from repro_torch.models.lm import (
     LM,

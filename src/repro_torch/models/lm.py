@@ -1,7 +1,9 @@
-"""The recurrent LMs: RWKV-6 and RecurrentGemma as one composable decoder.
+"""The LMs as one composable decoder: the recurrent ones (RWKV-6,
+RecurrentGemma) and the dense ones (qwen1.5, starcoder2, nemotron-4, glm4).
 
 The port of ``repro/models/lm.py`` for the block kinds ported so far
-(``rglru``, ``rwkv6``, ``local_attn``). :func:`build_lm` returns an
+(``attn``, ``local_attn``, ``rglru``, ``rwkv6``); MoE, cross-attention
+and media frontends are not (ROADMAP M13b.3-4). :func:`build_lm` returns an
 :class:`LM` module whose blocks stand in layer order, the block pattern
 cycled to ``n_layers``; the JAX package's scan over stacked superblocks
 becomes a plain loop over an ``nn.ModuleList``, and its sharding
@@ -39,7 +41,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
 Tensor = torch.Tensor
-PORTED_KINDS = ("rglru", "rwkv6", "local_attn")
+PORTED_KINDS = ("attn", "local_attn", "rglru", "rwkv6")
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
@@ -105,8 +107,8 @@ def lm_params(model: LM) -> dict:
 
 
 def _init_block(cfg: ModelConfig, kind: str, ini: L.Init) -> dict:
-    mixer = {"local_attn": L.init_attention, "rglru": R.init_rglru,
-             "rwkv6": R.init_rwkv_tmix}[kind]
+    mixer = {"attn": L.init_attention, "local_attn": L.init_attention,
+             "rglru": R.init_rglru, "rwkv6": R.init_rwkv_tmix}[kind]
     ffn = R.init_rwkv_cmix if kind == "rwkv6" else L.init_ffn
     return {"norm1": L.init_norm(cfg, ini), "mixer": mixer(cfg, ini),
             "norm2": L.init_norm(cfg, ini), "ffn": ffn(cfg, ini)}
@@ -134,7 +136,7 @@ def build_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
 
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, length: int, device):
-    if kind == "local_attn":
+    if kind in ("attn", "local_attn"):
         return L.init_cache(cfg, batch, min(length, cfg.window or length), device=device)
     if kind == "rglru":
         return R.rglru_cache_init(cfg, batch, device=device)
@@ -160,7 +162,7 @@ def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill):
     tree). Returns ``(x, new cache)``."""
     h = L.apply_norm(cfg, p["norm1"], x)
     new_cache = cache
-    if kind == "local_attn":
+    if kind in ("attn", "local_attn"):
         if cache is not None and not prefill:
             y, new_cache = L.attention_apply(cfg, p["mixer"], h, window=cfg.window,
                                              cache=cache, pos=pos)

@@ -15,11 +15,10 @@ through a hand-written kernel where the JAX package runs jnp:
 Decode is the single-step recurrence with an explicit state cache, plain
 tensor code. On CPU tensors the kernels' wrappers run their plain versions.
 
-Gradients: K6 is differentiable (its backward is K6 again, on reversed
-time). K7 has no backward yet, so RWKV-6's chunked prefill under gradients
-on CUDA tensors raises ``NotImplementedError`` rather than run the plain
-chunked form on the card; on the CPU autograd runs through K7's plain
-version.
+Gradients: both kernels are differentiable. K6's backward is K6 again, on
+reversed time; K7's is its own kernel (``wkv6_bwd_cuda``), where the JAX
+package differentiates ``wkv6_chunked_ref``. On CPU tensors the backwards
+run their plain versions.
 """
 
 from __future__ import annotations
@@ -166,13 +165,7 @@ def apply_rwkv_tmix(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None
     u = p["bonus"].to(F32)
 
     if cfg.rwkv_chunk and s > 1 and s % cfg.rwkv_chunk == 0:
-        if r.is_cuda and torch.is_grad_enabled() and any(
-                t.requires_grad for t in (r, k, v, w, u)):
-            raise NotImplementedError(
-                "RWKV-6 under gradients on the card needs K7's backward, which is not "
-                "written yet (ROADMAP Queue 1: K7's backward and RWKV-6 training on the "
-                "card); the CPU trains through K7's plain version")
-        y4, state = wkv6(r, k, v, w, u, state0, chunk=cfg.rwkv_chunk)  # K7
+        y4, state = wkv6(r, k, v, w, u, state0, chunk=cfg.rwkv_chunk)  # K7 (and its backward)
         y = y4.reshape(b, s, d)
     else:
         state, ys = state0, []

@@ -30,7 +30,8 @@ from repro_torch.kernels.stencil2d import (
     stencil2d_plain,
     weights_for,
 )
-from repro_torch.kernels.wkv6 import wkv6, wkv6_cuda, wkv6_plain, wkv6_ref
+from repro_torch.kernels.wkv6 import (wkv6, wkv6_backward_plain, wkv6_bwd_cuda, wkv6_cuda,
+                                      wkv6_plain, wkv6_ref)
 
 pytestmark = pytest.mark.gpu
 SHAPES = [(1, 8, 8), (2, 37, 70), (3, 65, 129)]
@@ -900,40 +901,95 @@ def test_k6_backward_bit_equal_to_plain_reverse_and_near_autograd(cuda, shape):
 
 
 def test_trainer_step_on_the_card_matches_the_cpu(cuda):
-    """One RecurrentGemma smoke-config train step (f32 compute) on the card
-    against the same step on the CPU, within 2e-4; K6 runs forward and
-    backward. RWKV-6 at a chunked length raises under gradients on the
-    card (K7 has no backward yet)."""
+    """One RecurrentGemma and one RWKV-6 smoke-config train step (f32
+    compute) on the card against the same step on the CPU, within 2e-4: K6
+    runs forward and backward, K7 forward and its backward kernel."""
     import dataclasses
 
     from repro_torch.tree import tree_flatten, tree_map
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.models import lm_loss
     from repro_torch.optim import optimizer_config_from_model
     from repro_torch.train import init_train_state, make_train_step
 
-    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"), compute_dtype="float32")
-    batch = SyntheticLM(DataConfig(seq_len=32, global_batch=4, vocab_size=cfg.vocab_size)
-                        ).batch_at(0)
-    step = make_train_step(cfg, optimizer_config_from_model(cfg))
-    host = init_train_state(cfg, "cpu", seed=3)
-    card = tree_map(lambda t: t.to(cuda), host)
+    for arch, seq, launches in (("recurrentgemma-2b", 32, {"rglru_scan_cuda": 4}),
+                                ("rwkv6-3b", 128, {"wkv6_cuda": 2, "wkv6_bwd_cuda": 2})):
+        cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+        batch = SyntheticLM(DataConfig(seq_len=seq, global_batch=4, vocab_size=cfg.vocab_size)
+                            ).batch_at(0)
+        step = make_train_step(cfg, optimizer_config_from_model(cfg))
+        host = init_train_state(cfg, "cpu", seed=3)
+        card = tree_map(lambda t: t.to(cuda), host)
+        _build.reset_launches()
+        _, _, m_card = step(*card, batch)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == launches  # two layers, forward + backward
+        _, _, m_host = step(*host, batch)
+        assert abs(float(m_card["loss"]) - float(m_host["loss"])) <= 2e-4
+        for x, y in zip(tree_flatten(card)[0], tree_flatten(host)[0]):
+            assert (x.cpu() - y).abs().max().item() <= 2e-4
+
+
+# -- K7's backward -------------------------------------------------------------------
+
+
+def _wkv_bwd_inputs(shape, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, _, h, n = shape
+    return (*_wkv_inputs(shape, device, seed),
+            torch.randn(shape, generator=g, device=device),
+            torch.randn((b, h, n, n), generator=g, device=device))
+
+
+@pytest.mark.parametrize("shape,chunk", [((1, 512, 40, 64), 64), ((4, 256, 40, 64), 64),
+                                         ((2, 128, 3, 16), 16), ((3, 96, 2, 24), 32),
+                                         ((65537, 16, 1, 8), 16)])
+def test_k7_backward_matches_plain_and_autograd(cuda, shape, chunk):
+    """wkv6_bwd_cuda against its plain version (every gradient within
+    1e-5 * max|g| + 1e-6: the scans and the dlogw sums run in other
+    orders), one counted call per launch plan (two past 65535 batch rows);
+    the plain version within GRAD_TOL (relative) of autograd through
+    wkv6_plain on the card."""
+    r, k, v, w, u, s0, dy, ds = _wkv_bwd_inputs(shape, cuda, seed=sum(shape))
     _build.reset_launches()
-    _, _, m_card = step(*card, batch)
+    got = wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds, chunk=chunk)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES == {"rglru_scan_cuda": 4}  # 2 rglru layers, forward + backward
-    _, _, m_host = step(*host, batch)
-    assert abs(float(m_card["loss"]) - float(m_host["loss"])) <= 2e-4
-    for x, y in zip(tree_flatten(card)[0], tree_flatten(host)[0]):
-        assert (x.cpu() - y).abs().max().item() <= 2e-4
-    rcfg = get_smoke_config("rwkv6-3b")
-    params, _ = init_train_state(rcfg, cuda)
-    rb = SyntheticLM(DataConfig(seq_len=64, global_batch=2, vocab_size=rcfg.vocab_size)
-                     ).batch_at(0)
-    params = tree_map(lambda t: t.requires_grad_(), params)
-    with pytest.raises(NotImplementedError, match="K7's backward"):
-        lm_loss(rcfg, params, tree_map(lambda a: torch.as_tensor(a).to(cuda), rb))
+    assert _build.LAUNCHES == {"wkv6_bwd_cuda": 1 if shape[0] <= 65535 else 2}
+    plain = wkv6_backward_plain(r, k, v, w, u, s0, dy, ds, chunk=chunk)
+    for x, y in zip(got, plain):
+        assert x.shape == y.shape
+        assert (x - y).abs().max().item() <= 1e-5 * y.abs().max().item() + 1e-6
+    if shape[0] > 65535:
+        return
+    xs = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+    y, s = wkv6_plain(*xs, chunk=chunk)
+    want = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), xs)
+    for x, z in zip(plain, want):
+        assert (x - z).abs().max().item() <= 1e-5 * z.abs().max().item()
+
+
+def test_k7_backward_through_autograd_and_bad_input(cuda):
+    """``wkv6`` under gradients runs K7 and its backward once each; the
+    backward takes head sizes and chunks up to 64 and raises past them."""
+    r, k, v, w, u, s0, dy, _ = _wkv_bwd_inputs((2, 64, 3, 16), cuda, seed=4)
+    xs = [x.requires_grad_() for x in (r, k, v, w, u)]
+    _build.reset_launches()
+    y, _ = wkv6(*xs, s0, chunk=32)
+    got = torch.autograd.grad((y * dy).sum(), xs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"wkv6_cuda": 1, "wkv6_bwd_cuda": 1}
+    want = wkv6_backward_plain(*(x.detach() for x in xs), s0, dy, None, chunk=32)
+    for x, z in zip(got, want):
+        assert (x - z).abs().max().item() <= 1e-5 * z.abs().max().item() + 1e-6
+    r2, k2, v2, w2, u2, s2, dy2, _ = _wkv_bwd_inputs((1, 128, 1, 96), cuda, seed=5)
+    with pytest.raises(ValueError, match="at most 64"):
+        wkv6_bwd_cuda(r2, k2, v2, w2, u2, s2, dy2, chunk=64)
+    r3, k3, v3, w3, u3, s3, dy3, _ = _wkv_bwd_inputs((1, 128, 1, 8), cuda, seed=6)
+    with pytest.raises(ValueError, match="at most 64"):
+        wkv6_bwd_cuda(r3, k3, v3, w3, u3, s3, dy3, chunk=128)
+    with pytest.raises(ValueError, match="device"):
+        wkv6_bwd_cuda(r.detach(), k.detach(), v.detach(), w.detach(), u.detach(), s0,
+                      dy.cpu())
 
 
 @pytest.mark.parametrize("devices", [1, 2])

@@ -333,8 +333,8 @@ def test_launcher_and_example_train_on_the_cpu(tmp_path, capsys):
             "--ckpt-every", "1"])
     assert "[train] step 0 loss" in capsys.readouterr().out
     assert latest_step(tmp_path / "a") == 1
-    with pytest.raises(KeyError, match=r"ROADMAP M13b\.2"):
-        launch(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu"])
+    with pytest.raises(KeyError, match=r"ROADMAP M13b\.3"):
+        launch(["--arch", "qwen3-moe-235b-a22b", "--smoke", "--device", "cpu"])
     env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
     out = subprocess.run(
         [sys.executable, str(REPO / "examples" / "torch_train_lm.py"), "--arch", "rwkv6-3b",
