@@ -50,9 +50,10 @@ script's seconds so far when it was printed):
               (summation order in the four products) and 3e-4 of the
               sequential oracle (the JAX test's bound); K7's backward
               (wkv6_bwd_cuda: chunk-local k^T v and r~^T dy, the forward and
-              reverse scans over chunks, the chunk gradients, FP32 on the
-              CUDA cores) at (1, 512, 40, 64), (4, 256, 40, 64) and (2, 128,
-              3, 16) with non-zero state and state cotangent, each of dr, dk,
+              reverse scans over chunks, the chunk gradients; products in
+              3xTF32 on the tensor cores, P = dy v^T and the two with
+              tril(P) in FP32) at (1, 512, 40, 64), (4, 256, 40, 64) and (2,
+              128, 3, 16) with non-zero state and state cotangent, each of dr, dk,
               dv, dw, du, dstate0 within 1e-5 * max|g| + 1e-6 of
               wkv6_backward_plain, and that within 1e-5 relative of autograd
               through wkv6_plain; K6 (channel tiles
@@ -314,6 +315,7 @@ K7_CHUNK = 64  # rwkv6-3b's rwkv_chunk
 K6_SERVE = (1, 512, 2560)  # recurrentgemma-2b prefill of 512 tokens: (B, T, W)
 K6_BIG = (8, 4096, 2560)
 K7_TOL = 1e-5  # times max|y|, plus 1e-6: summation order in the four products
+H100_TF32_TENSOR = 495e12  # FLOP/s, TF32 on the tensor cores, dense (H100 SXM data sheet)
 ORACLE_TOL = 3e-4  # the JAX package's bound for the chunked kernel vs wkv6_ref
 SLICE_TOL = 1e-3  # times max|.|: the whole model, card vs CPU or decode vs prefill
 SERVE_ARCHS = ("rwkv6-3b", "recurrentgemma-2b", "qwen1.5-0.5b")
@@ -2571,30 +2573,40 @@ def main() -> int:
     del a, b, h0
     # K7 and its backward at the trainer's shape, timed cold. K7's operations
     # and bytes as in the timing phase. The backward's operations, 2 flops a
-    # multiply-add, per (chunk, head, batch): k^T v, r~^T dy, k^ G, dy S^T
-    # and v G^T (C N^2 each), sum_j G S (N^2), and the triangular products
-    # A, A^T dy, tril(P) k~, tril(P)^T r~ (C (C - 1) / 2 * N each) and P
-    # with its diagonal (C (C + 1) / 2 * N); bytes: r, k, v, w, dy read and
-    # dr, dk, dv, dw written once, state0, dS_T and dstate0, u and du.
+    # multiply-add, per (chunk, head, batch): the products k^T v, r~^T dy,
+    # k^ G, dy S^T and v G^T (C N^2 each), and the triangular products A,
+    # A^T dy, tril(P) k~, tril(P)^T r~ (C (C - 1) / 2 * N each) and P with
+    # its diagonal (C (C + 1) / 2 * N); besides them sum_j G S (N^2).
+    # Bytes: r, k, v, w, dy read and dr, dk, dv, dw written once, state0,
+    # dS_T and dstate0, u and du. The products at FP32 accuracy take least
+    # on the tensor cores in 3xTF32, three TF32 multiply-adds a product
+    # term: about 15 us at the data sheet's 495 TFLOP/s (the kernel keeps P
+    # and the two products with tril(P) in FP32 on the CUDA cores, about
+    # 7.5 us more at 67 TFLOP/s), sum_j G S at the FP32 rate. Either way the
+    # bytes take longer (30.5 us), so "bound_by" reads "bytes".
     b, t, h, n = K7_TRAIN
     c = K7_CHUNK
     fwd_in = wkv_inputs(K7_TRAIN)
     bwd_in = (*fwd_in, randn(K7_TRAIN), randn((b, h, n, n)))
     blocks = b * h * (t // c)
-    bwd_ops = 2 * blocks * (5 * c * n * n + n * n + n * (4 * c * (c - 1) // 2 + c * (c + 1) // 2))
+    bwd_mma = 2 * blocks * (5 * c * n * n + n * (4 * c * (c - 1) // 2 + c * (c + 1) // 2))
+    bwd_simt = 2 * blocks * n * n
     bwd_bytes = 4 * (9 * fwd_in[0].numel() + 3 * fwd_in[5].numel() + 2 * fwd_in[4].numel())
     fwd_bytes = 4 * (5 * fwd_in[0].numel() + 2 * fwd_in[5].numel() + fwd_in[4].numel())
     fwd_ops = 2 * (2 * t * n * n + t * (c - 1) * n) * b * h
+    t_bytes = bwd_bytes / H100_SXM.hbm_bw
+    t_ops = 3 * bwd_mma / H100_TF32_TENSOR + bwd_simt / H100_SXM.peak_flops_vpu_f32
+    bwd_bound = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
     k7_train_timing = {}
-    for name, fn, plain, nbytes, ops in (
+    for name, fn, plain, nbytes, (bound_ms, bound_by) in (
             ("wkv6_cuda", lambda: k7.wkv6_cuda(*fwd_in, chunk=c),
-             lambda: wkv6_plain(*fwd_in, chunk=c), fwd_bytes, fwd_ops),
+             lambda: wkv6_plain(*fwd_in, chunk=c), fwd_bytes,
+             bound(fwd_bytes, fwd_ops, H100_SXM.peak_flops_vpu_f32)),
             ("wkv6_bwd_cuda", lambda: k7.wkv6_bwd_cuda(*bwd_in, chunk=c),
-             lambda: wkv6_backward_plain(*bwd_in, chunk=c), bwd_bytes, bwd_ops)):
-        bound_ms, bound_by = bound(nbytes, ops, H100_SXM.peak_flops_vpu_f32)
+             lambda: wkv6_backward_plain(*bwd_in, chunk=c), bwd_bytes, bwd_bound)):
         k7_train_timing[name] = {"ms": kernel_ms(fn, nbytes), "plain_ms": event_ms(plain, reps=5),
                                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    k7_train_timing["wkv6_bwd_cuda"].update(bytes=bwd_bytes, flops=bwd_ops)
+    k7_train_timing["wkv6_bwd_cuda"].update(bytes=bwd_bytes, flops=bwd_mma + bwd_simt)
     del fwd_in, bwd_in
     # (b) One smoke-config step, card against CPU, at float32 compute: the
     # second step (a first on the CPU gives both a non-zero state), with a

@@ -7,7 +7,7 @@ GPU, for a source tree given on the command line.
 
     python3 scripts/kernel_bench.py [--src DIR] [--label NAME]
                                     [--only k7,k7bwd,k2,k6,k3,k1,k4,k5p,k2adj]
-                                    [--ptxas] [--profile] [--sass DIR] [--no-check]
+                                    [--ptxas] [--profile] [--sass DIR] [--no-check] [--cold]
 
 ``--src`` names the ``src/`` directory whose ``repro_torch`` is imported
 (default: this checkout's), so two versions of the kernels can be timed in
@@ -51,7 +51,9 @@ each loop of each kernel (a backward branch), its instructions by opcode
 one), and for K5' (straight-line code, no loop) the whole kernel's
 instructions by opcode and per point.
 ``--no-check`` skips K1's and K4's checks, to time deliberately altered
-copies of them (a probe with part of the kernel removed).
+copies of them (a probe with part of the kernel removed). ``--cold`` adds,
+per K7 and K7 backward shape, the time of one call with L2 evicted before
+it (``chip_smoke.py``'s ``cold_ms``).
 
 Prints one JSON line per case, with the card's name and power limit, and
 exits non-zero without a card or if a check fails.
@@ -167,6 +169,7 @@ def main() -> int:
     ap.add_argument("--only", default="k7,k7bwd,k2,k6,k3,k1,k4,k5p,k2adj")
     ap.add_argument("--sass", default=None)
     ap.add_argument("--no-check", action="store_true")
+    ap.add_argument("--cold", action="store_true")
     args = ap.parse_args()
     only = set(args.only.split(","))
 
@@ -175,6 +178,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_bench: needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import cold_ms
+
     sys.path.insert(0, args.src)
     import repro_torch.ir as ir
     from repro_torch.ir.lower_cuda import kernel_source, tile_for
@@ -305,6 +311,9 @@ def main() -> int:
         ms = graph_ms(lambda: k7.wkv6_cuda(r, k, v, w, u, s0, chunk=64),
                       replays=10 if b > 1 else 25)
         row("wkv6_cuda", "wkv6", shape, ms, err)
+        if args.cold:
+            row("wkv6_cuda", "wkv6 cold", shape,
+                cold_ms(lambda: k7.wkv6_cuda(r, k, v, w, u, s0, chunk=64)), err)
         if args.profile:
             print(json.dumps({**emit, "kernel": "wkv6_cuda", "shape": "x".join(map(str, shape)),
                               "device_us_per_call": launch_us(
@@ -332,6 +341,9 @@ def main() -> int:
         del got, want
         ms = graph_ms(lambda: k7.wkv6_bwd_cuda(*args_, chunk=64))
         row("wkv6_bwd_cuda", "wkv6 backward", shape, ms, err)
+        if args.cold:
+            row("wkv6_bwd_cuda", "wkv6 backward cold", shape,
+                cold_ms(lambda: k7.wkv6_bwd_cuda(*args_, chunk=64)), err)
         if args.profile:
             print(json.dumps({**emit, "kernel": "wkv6_bwd_cuda", "shape": "x".join(map(str, shape)),
                               "device_us_per_call": launch_us(

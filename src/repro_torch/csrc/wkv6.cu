@@ -46,8 +46,8 @@
 // from L2.
 //
 // What bounds it now, on an H100 80GB HBM3 at 700 W (scripts/kernel_bench.py):
-// 51 us a call at the serving shape, 6.2x its 8.2 us bound; before (b) and
-// (c) overlapped, (c) took 32 us of it, (a) 17, (b) 4. All resident blocks
+// 43 us a call at the serving shape, 5.2x its 8.2 us bound; (c) takes 29
+// us of it, (a) 16, (b) 12, partly overlapped. All resident blocks
 // of a pass run the same phase at once (load, scan, products), so within a
 // pass the phases do not overlap: the 3xTF32 products at mma.sync rates,
 // then the loads, are the largest. A persistent, warp-specialised kernel,
@@ -60,12 +60,11 @@
 // affected). The plain version beside the wrapper
 // (repro_torch/kernels/wkv6/ref.py::wkv6_plain) runs the same three passes
 // in PyTorch and sums in another order: the two agree to a tolerance.
-#include "stencil_common.cuh"
+#include "wkv6_common.cuh"
+
+using namespace repro_torch::wkv6;
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 // Padded sizes and row strides (in floats) of one chunk's arrays.
 struct Geometry {
@@ -82,150 +81,6 @@ struct Geometry {
     return cp * lr + x2() + cp * lv + x1() + cp + np + kThreads;
   }
 };
-
-// ---- 3xTF32 products on the tensor cores ------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t out;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(out) : "f"(x));
-  return out;
-}
-
-// x = big + small with both halves TF32; x - big is exact in FP32.
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One warp: acc[q] += A[m0 : m0 + 16, k0 : k1] B[k0 : k1, n0 + 8q : n0 + 8q + 8]
-// for q < nq (nq is the same on every lane). a(m, k) and b(k, n) read shared
-// memory inside the zero-padded arrays; k1 - k0 is a multiple of 8. Fragment
-// layouts are PTX's for m16n8k8 .tf32: lane = 4 g + tq.
-template <int kNq, typename FA, typename FB>
-__device__ __forceinline__ void tile_product(float (&acc)[kNq][4], FA a, FB b, int m0, int n0,
-                                             int nq, int k0, int k1) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  for (int kk = k0; kk < k1; kk += 8) {
-    uint32_t ab[4], as[4];
-    split(a(m0 + g, kk + tq), ab[0], as[0]);
-    split(a(m0 + g + 8, kk + tq), ab[1], as[1]);
-    split(a(m0 + g, kk + tq + 4), ab[2], as[2]);
-    split(a(m0 + g + 8, kk + tq + 4), ab[3], as[3]);
-#pragma unroll
-    for (int q = 0; q < kNq; ++q) {
-      if (q < nq) {
-        const int n = n0 + 8 * q + g;
-        uint32_t bb[2], bs[2];
-        split(b(kk + tq, n), bb[0], bs[0]);
-        split(b(kk + tq + 4, n), bb[1], bs[1]);
-        mma_tf32(acc[q], as, bb);
-        mma_tf32(acc[q], ab, bs);
-        mma_tf32(acc[q], ab, bb);
-      }
-    }
-  }
-}
-
-// Row and column of accumulator element e (0..3) of n-tile q.
-__device__ __forceinline__ int acc_row(int m0, int e) { return m0 + ((threadIdx.x & 31) >> 2) + (e >> 1) * 8; }
-__device__ __forceinline__ int acc_col(int n0, int q, int e) {
-  return n0 + 8 * q + 2 * (threadIdx.x & 3) + (e & 1);
-}
-
-// ---- loads and the running sum ------------------------------------------------
-
-__device__ __forceinline__ void copy16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src));
-}
-
-// Starts copying a rows x cols block (row stride src_ld) into dst (row stride
-// ld) and zeroes the rest of the padded prows x pcols block. With vec (cols,
-// src_ld and both addresses multiples of 4 words) every 4 words go by one
-// 16-byte cp.async that the caller waits for; else word by word.
-__device__ __forceinline__ void load_block(float* dst, int ld, const float* src,
-                                           long long src_ld, int rows, int cols, int prows,
-                                           int pcols, bool vec) {
-  if (vec) {
-    const int c4 = cols / 4;
-    for (int q = threadIdx.x; q < rows * c4; q += kThreads) {
-      const int t = q / c4, i = (q - t * c4) * 4;
-      copy16(dst + t * ld + i, src + t * src_ld + i);
-    }
-  } else {
-    for (int q = threadIdx.x; q < rows * cols; q += kThreads) {
-      const int t = q / cols, i = q - t * cols;
-      dst[t * ld + i] = src[t * src_ld + i];
-    }
-  }
-  if (rows < prows || cols < pcols) {
-    for (int q = threadIdx.x; q < prows * pcols; q += kThreads) {
-      const int t = q / pcols, i = q - t * pcols;
-      if (t >= rows || i >= cols) dst[t * ld + i] = 0.0f;
-    }
-  }
-}
-
-__device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_all;\n" ::); }
-
-// Programmatic dependent launch (sm_90): the next kernel of the stream, when
-// launched with cudaLaunchAttributeProgrammaticStreamSerialization, may start
-// once every block of this one has allowed it; it must wait before it reads
-// anything this one writes.
-__device__ __forceinline__ void allow_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
-__device__ __forceinline__ void wait_for_prerequisite() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
-// The running sum of log w = log(max(w, 1e-30)) over the chunk for every
-// channel, by the whole block: channel i's C steps are cut into runs, one
-// thread each; a thread sums its run, then adds the totals of the runs
-// before it while it walks the run again. W holds w on entry and log w on
-// exit; tot holds kThreads floats. Calls f(t, i, cum, logw, total) for every
-// step t < C of every channel i < N. Contains a __syncthreads().
-template <typename F>
-__device__ __forceinline__ void chunk_scan(float* W, int ld, float* tot, int N, int C, int np,
-                                           F f) {
-  const int nseg = np < kThreads ? kThreads / np : 1, len = (C + nseg - 1) / nseg;
-  for (int q = threadIdx.x; q < np * nseg; q += kThreads) {
-    const int seg = q / np, i = q - seg * np;
-    float acc = 0.0f;
-    if (i < N) {
-      for (int t = seg * len; t < min(C, seg * len + len); ++t) {
-        const float lw = logf(fmaxf(W[t * ld + i], 1e-30f));
-        W[t * ld + i] = lw;
-        acc = acc + lw;
-      }
-    }
-    tot[q] = acc;
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < np * nseg; q += kThreads) {
-    const int seg = q / np, i = q - seg * np;
-    if (i >= N) continue;
-    float cum = 0.0f, total = 0.0f;
-    for (int r = 0; r < nseg; ++r) {
-      if (r == seg) cum = total;
-      total = total + tot[r * np + i];
-    }
-    for (int t = seg * len; t < min(C, seg * len + len); ++t) {
-      const float lw = W[t * ld + i];
-      cum = cum + lw;
-      f(t, i, cum, lw, total);
-    }
-  }
-}
 
 // (a) Per (chunk, head, batch): kv = k_tail^T v (N x N) and decay = exp(total) (N).
 __global__ void __launch_bounds__(kThreads)
@@ -262,7 +117,7 @@ wkv6_chunk_state(const float* __restrict__ k, const float* __restrict__ v,
   for (int item = warp; item < (geo.np / 16) * ng; item += kWarps) {
     const int m0 = item / ng * 16, n0 = item % ng * 32, nq = min(4, (geo.np - n0) / 8);
     float acc[4][4] = {};
-    tile_product<4>(
+    product(
         acc, [&](int m, int s) { return Kt[s * geo.lv + m]; },
         [&](int s, int n) { return V[s * geo.lv + n]; }, m0, n0, nq, 0, geo.cp);
     for (int q = 0; q < nq; ++q) {
@@ -355,7 +210,7 @@ wkv6_chunk_output(const float* __restrict__ r, const float* __restrict__ k,
     if (width <= 0) continue;
     const int nq = min(4, (width + 7) / 8);
     float acc[4][4] = {};
-    tile_product<4>(
+    product(
         acc, [&](int t, int i) { return R[t * geo.lr + i]; },
         [&](int i, int s) { return Kd[s * geo.lr + i]; }, m0, n0, nq, 0, geo.np);
     for (int q = 0; q < nq; ++q) {
@@ -380,10 +235,10 @@ wkv6_chunk_output(const float* __restrict__ r, const float* __restrict__ k,
   for (int item = warp; item < mt * ng; item += kWarps) {
     const int m0 = item / ng * 16, n0 = item % ng * 32, nq = min(4, (geo.np - n0) / 8);
     float acc[4][4] = {};
-    tile_product<4>(
+    product(
         acc, [&](int t, int i) { return R[t * geo.lr + i]; },
         [&](int i, int j) { return S[i * geo.lv + j]; }, m0, n0, nq, 0, geo.np);
-    tile_product<4>(
+    product(
         acc, [&](int t, int s) { return X1[t * geo.la + s]; },
         [&](int s, int j) { return V[s * geo.lv + j]; }, m0, n0, nq, 0, min(geo.cp, m0 + 16));
     for (int q = 0; q < nq; ++q) {
@@ -397,24 +252,6 @@ wkv6_chunk_output(const float* __restrict__ r, const float* __restrict__ k,
 }
 
 }  // namespace
-
-// Launches kernel on stream st so that it may start while the kernel before it
-// runs (programmatic stream serialization); it calls wait_for_prerequisite().
-template <typename... Params, typename... Args>
-int launch_dependent(void (*kernel)(Params...), dim3 grid, size_t smem, cudaStream_t st,
-                     Args... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...));
-}
 
 // Dynamic shared memory the larger of the two chunk passes needs per block
 // for head size n and chunk c (the wrapper checks it against the card's limit).

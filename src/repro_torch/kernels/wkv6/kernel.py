@@ -27,7 +27,8 @@ Pallas kernel for. A CPU tensor gets its plain version
 launches three kernels (chunk-local products, the forward and reverse
 scans over chunks, the chunk gradients) counted as one launch of
 ``wkv6_bwd_cuda``, on the same launch plan as the forward. It takes a head
-size and a chunk of at most 64.
+size and a chunk of at most 64; :func:`bwd_smem_bytes` says what shared
+memory a block of it takes (at 64 and 64, two blocks share an SM).
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ BWD_SOURCE = _build.CSRC / "wkv6_bwd.cu"
 BWD_LIBRARY = "wkv6_bwd"
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 MAX_BWD_DIM = 64  # the backward's largest head size and chunk (kMaxDim in csrc/wkv6_bwd.cu)
+THREADS = 256  # threads of every WKV-6 block (kThreads in csrc/wkv6_common.cuh)
+PAD = 16  # head size and chunk rounded up to a multiple of this (the mma tiles)
 
 
 def source() -> tuple[str, str]:
@@ -75,7 +78,25 @@ def _bwd_library() -> ctypes.CDLL:
     lib = _build.load(*bwd_source())
     lib.wkv6_bwd_f32.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.wkv6_bwd_f32.restype = ctypes.c_int
+    lib.wkv6_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.wkv6_bwd_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def bwd_smem_bytes(n: int, chunk: int) -> int:
+    """Dynamic shared memory a block of K7's backward takes for head size
+    ``n`` and chunk ``chunk``: the larger of its two chunk passes, as
+    ``Geometry`` in ``csrc/wkv6_bwd.cu`` lays them out (the library's
+    ``wkv6_bwd_smem_bytes``, which the wrapper asks, computed without a
+    card). The chunk-local
+    pass holds four C x N arrays of rows N + 8 and the chunk's totals; the
+    gradient pass six regions of ``d (d + 8)`` floats, d = max(N, C)
+    (padded), and its small vectors."""
+    np_, cp = -(-n // PAD) * PAD, -(-chunk // PAD) * PAD
+    d = max(np_, cp)
+    chunk_floats = 4 * cp * (np_ + 8) + np_
+    grad_floats = 6 * d * (d + 8) + THREADS + 2 * cp + 3 * np_
+    return 4 * max(chunk_floats, grad_floats)
 
 
 def plan_launches(batch: int, heads: int) -> list[tuple[int, int, int, int]]:
@@ -172,6 +193,10 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
         raise ValueError(f"wkv6_bwd_cuda: head size {n} and chunk {c} must be at most "
                          f"{MAX_BWD_DIM}")
     lib = _bwd_library()
+    smem = lib.wkv6_bwd_smem_bytes(n, c)
+    if smem > MAX_SMEM:
+        raise ValueError(f"wkv6_bwd_cuda: head size {n} with chunk {c} needs {smem} bytes of "
+                         f"shared memory per block, more than {MAX_SMEM}")
     grads = [torch.empty((b, t, h, n), dtype=torch.float32, device=r.device) for _ in range(4)]
     du = torch.zeros((h, n), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)

@@ -268,3 +268,48 @@ def test_k5_prime_span_plan_rejects_what_no_span_holds():
         plan_tile_1d(halo=1, steps=0)
     with pytest.raises(ValueError, match="halo"):
         plan_tile_1d(halo=-1, steps=1)
+
+
+SM_SHARED = 228 * 1024  # shared memory of one H100 SM
+BLOCK_RESERVED = 1024  # the runtime keeps 1 KB of it a block
+
+
+def test_k7_backward_takes_two_blocks_an_sm_at_the_trainer_shape():
+    """At head size and chunk 64 (rwkv6-3b) a block of K7's backward takes
+    112,896 bytes, so two blocks share an SM."""
+    assert k7.bwd_smem_bytes(64, 64) == 112_896
+    assert 2 * (k7.bwd_smem_bytes(64, 64) + BLOCK_RESERVED) <= SM_SHARED
+    assert 3 * (k7.bwd_smem_bytes(64, 64) + BLOCK_RESERVED) > SM_SHARED
+
+
+@pytest.mark.parametrize("n", [1, 8, 15, 16, 17, 24, 32, 40, 48, 63, 64])
+def test_k7_backward_fits_one_block_at_every_size(n):
+    for chunk in range(1, k7.MAX_BWD_DIM + 1):
+        smem = k7.bwd_smem_bytes(n, chunk)
+        assert 0 < smem <= k7.MAX_SMEM
+        assert smem <= k7.bwd_smem_bytes(k7.MAX_BWD_DIM, k7.MAX_BWD_DIM)
+        assert smem % 16 == 0  # every region starts a 16-byte cp.async group
+
+
+@pytest.mark.parametrize("name,pattern,value", [
+    ("kMaxDim", r"constexpr int kMaxDim = (\d+);", k7.MAX_BWD_DIM),
+    ("padding", r"np\(\(n \+ (\d+)\) / 16 \* 16\)", k7.PAD - 1),
+    ("padding", r"np\(\(n \+ 15\) / (\d+) \* 16\)", k7.PAD),
+])
+def test_k7_backward_constants_match_the_cuda_source(name, pattern, value):
+    text = k7.BWD_SOURCE.read_text()
+    assert int(re.search(pattern, text).group(1)) == value, name
+
+
+def test_k7_backward_shared_memory_formula_matches_the_cuda_source():
+    """``bwd_smem_bytes`` mirrors ``Geometry`` of ``csrc/wkv6_bwd.cu``; the
+    block size is the shared header's."""
+    text = k7.BWD_SOURCE.read_text()
+    common = (_build.CSRC / "wkv6_common.cuh").read_text()
+    assert int(re.search(r"constexpr int kThreads = (\d+);", common).group(1)) == k7.THREADS
+    assert '#include "wkv6_common.cuh"' in text
+    assert '#include "wkv6_common.cuh"' in k7.SOURCE.read_text()
+    assert "lr(np + 4), lv(np + 8), lt(cp + 8)" in text
+    assert "int region() const { return d * (d + 8); }" in text
+    assert "int chunk_floats() const { return 4 * cp * lv + np; }" in text
+    assert "return 6 * region() + kThreads + 2 * cp + 3 * np;" in text

@@ -992,6 +992,69 @@ def test_k7_backward_through_autograd_and_bad_input(cuda):
                       dy.cpu())
 
 
+def test_k7_backward_replayed_graph_bit_equal_to_eager(cuda):
+    """Captured in a CUDA graph and replayed, a call of the backward (three
+    launches into scratch the wrapper allocates) gives the same bits as an
+    eager one."""
+    r, k, v, w, u, s0, dy, ds = _wkv_bwd_inputs((4, 256, 40, 64), cuda, seed=21)
+    eager = wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds, chunk=64)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds, chunk=64)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(replayed, eager):
+        _equal(x, y)
+
+
+def test_k7_backward_strong_decay_matches_plain(cuda):
+    """w drawn from [0.05, 0.999]: the chunk's log-decay runs to about -50,
+    so k~ = k exp(-cum) reaches ~1e22 and r~ ~1e-22; every gradient within
+    1e-5 * max|g| + 1e-6 of the plain version all the same."""
+    shape = (2, 128, 3, 64)
+    r, k, v, _, u, s0, dy, ds = _wkv_bwd_inputs(shape, cuda, seed=22)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    w = 0.05 + 0.949 * torch.rand(shape, generator=g, device=cuda)
+    got = wkv6_bwd_cuda(r, k, v, w, u, s0, dy, ds, chunk=64)
+    torch.cuda.synchronize()
+    plain = wkv6_backward_plain(r, k, v, w, u, s0, dy, ds, chunk=64)
+    for x, y in zip(got, plain):
+        assert torch.isfinite(y).all()
+        assert (x - y).abs().max().item() <= 1e-5 * y.abs().max().item() + 1e-6
+
+
+def test_k7_backward_on_pointers_one_word_into_storage(cuda):
+    """Every input one float into its storage (4-byte, not 8- or 16-byte
+    aligned): the backward takes its word-by-word loads and stores and
+    holds every gradient within 1e-5 * max|g| + 1e-6 of the plain version."""
+    xs = _wkv_bwd_inputs((2, 128, 3, 64), cuda, seed=24)
+    shifted = []
+    for x in xs:
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        shifted.append(y)
+    assert all(y.data_ptr() % 8 == 4 for y in shifted)
+    got = wkv6_bwd_cuda(*shifted, chunk=64)
+    torch.cuda.synchronize()
+    plain = wkv6_backward_plain(*xs, chunk=64)
+    for x, y in zip(got, plain):
+        assert (x - y).abs().max().item() <= 1e-5 * y.abs().max().item() + 1e-6
+
+
+def test_k7_backward_shared_memory_mirror_matches_the_library(cuda):
+    """``kernel.bwd_smem_bytes`` (the layout tested on the CPU) gives what
+    the built library's ``wkv6_bwd_smem_bytes`` (the wrapper's check) gives,
+    for every head size and chunk the backward takes."""
+    from repro_torch.kernels.wkv6 import kernel as k7
+
+    lib = k7._bwd_library()
+    for n in range(1, k7.MAX_BWD_DIM + 1):
+        for c in range(1, k7.MAX_BWD_DIM + 1):
+            assert k7.bwd_smem_bytes(n, c) == lib.wkv6_bwd_smem_bytes(n, c), (n, c)
+
+
 @pytest.mark.parametrize("devices", [1, 2])
 def test_weather_driver_inner_cuda_equals_lower_cuda(cuda, devices, tmp_path):
     """The port's weather driver with --inner cuda on the card: one N-output
