@@ -15,10 +15,12 @@ RG-LRU kernels, the rows x cols decomposition on 8 gloo ranks, and
 forecast serving (``ForecastServer``: ensemble members folded into one K2
 launch a batch), the shallow-water weather driver with its checkpoint
 store, LM training at published widths on RecurrentGemma 2B (K6 forward
-and backward) and RWKV-6 3B (K7 and its backward kernel), and the dense
+and backward) and RWKV-6 3B (K7 and its backward kernel), the dense
 LMs (qwen1.5-0.5b served, with a 4096-token flash prefill, and trained;
-starcoder2-3b's 4096-token blocked local prefill) — and holds every
-hand-written kernel against its plain PyTorch version on the card. Each phase prints one JSON line (``t_s``: the
+starcoder2-3b's 4096-token blocked local prefill), and the MoE LMs
+(qwen3-moe served at 4 layers and trained at 1, arctic served at 1, at
+published widths; the expert-parallel MoE on gloo ranks) — and holds
+every hand-written kernel against its plain PyTorch version on the card. Each phase prints one JSON line (``t_s``: the
 script's seconds so far when it was printed):
 
   env         torch / CUDA versions, the card, ``nvidia-smi`` name and power
@@ -118,13 +120,17 @@ script's seconds so far when it was printed):
               qwen1.5-0.5b), 8 requests of 512, 256, 128, 64, 512, 256, 192
               and 100 tokens (qwen1.5-0.5b: and one of 4096, which takes the
               flash scan in each of its 24 layers, counted), 16 new tokens
-              each; the counters must read exactly K7 = 7 x 32 = 224 (the
-              100-token prompt takes the sequential path), K6 = 8 x 18 = 144
-              and no kernel for the dense LM; every request finishes and every logit is
-              finite; seconds per prefill by length, per decode step and
-              per token, tokens/s and GB of parameters; then, at float32, a
-              128-token prefill plus 64 decode steps against one 192-token
-              prefill (last logits and every cache leaf within 1e-3 * max|.|);
+              each; then the MoE LMs the same way, depth cut to fit the
+              card (``reduced``): qwen3-moe-235b-a22b 4 of 94 layers,
+              arctic-480b 1 of 35; the counters must read exactly K7 = 7 x
+              32 = 224 (the 100-token prompt takes the sequential path), K6
+              = 8 x 18 = 144 and no kernel for the dense and MoE LMs; every
+              request finishes and every logit is finite; seconds per
+              prefill by length, per decode step and per token, tokens/s
+              and GB of parameters; then, at float32 (an MoE LM dropless:
+              capacity factor 64), a 128-token prefill plus 64 decode steps
+              against one 192-token prefill (last logits and every cache
+              leaf within 1e-3 * max|.|);
               then steady state: three synchronised 512-token prefills, 20
               decode tokens, and one torch.profiler window of each (device
               busy share, the six kernels with the most device time, and
@@ -267,7 +273,25 @@ script's seconds so far when it was printed):
               and its backward 32, finite losses near ln 65536, peak
               memory, one profiled step's busy share; (f) ``train()`` on
               ``qwen1.5-0.5b`` at its published widths, the same schedule:
-              no kernel launched, finite losses near ln 151936
+              no kernel launched, finite losses near ln 151936; (g)
+              ``train()`` on ``qwen3-moe-235b-a22b`` at its published widths
+              and 1 of 94 layers (3.70 G parameters), the same schedule: no
+              kernel, finite losses near ln 151936, the profiled step's MoE
+              aux loss above 0
+  moe_sharded the expert-parallel MoE (``apply_moe_sharded``) on 4 gloo ranks
+              time-sharing the one card (TF32 off), ``("data", "model")``
+              meshes (1, 4) and (2, 2): (a) a smoke MoE layer of each arch,
+              float32, dropless, each rank holding its ``shard_moe_params``
+              pieces and its block of the batch, gathered output within
+              2e-4 and aux within 1e-5 relative of the local path; (b) a
+              qwen3-moe smoke LM's loss, aux loss and every gradient
+              through the sharded path on (1, 4) within 2e-4 of the local
+              path's; (c) one qwen3-moe MoE layer at published widths on (1,
+              4) (32 experts a rank), bf16, 4 x 256 tokens: rank 0's output
+              within 4 bf16 steps of max|y| of the local layer, each sum
+              over ``model`` exactly T_loc x D x 2 bytes, its host ms and
+              the layer's; no kernel launched. Host times are ranks sharing
+              one H100 through host memory: not a multi-GPU figure
 
 Then the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (each
 kernel's launches from the path that runs it), and last
@@ -292,6 +316,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PAPER_GRID = (64, 256, 256)
+GRID_SPEC = (None, "rows", "cols")  # a rank's block of a grid: depth whole
 RAGGED_GRID = (3, 250, 190)
 BIG_GRID = (80, 1024, 1024)
 # fig11's 1-D layout of the same domain: (depth * rows, cols).
@@ -318,7 +343,14 @@ K7_TOL = 1e-5  # times max|y|, plus 1e-6: summation order in the four products
 H100_TF32_TENSOR = 495e12  # FLOP/s, TF32 on the tensor cores, dense (H100 SXM data sheet)
 ORACLE_TOL = 3e-4  # the JAX package's bound for the chunked kernel vs wkv6_ref
 SLICE_TOL = 1e-3  # times max|.|: the whole model, card vs CPU or decode vs prefill
-SERVE_ARCHS = ("rwkv6-3b", "recurrentgemma-2b", "qwen1.5-0.5b")
+SERVE_ARCHS = ("rwkv6-3b", "recurrentgemma-2b", "qwen1.5-0.5b", "qwen3-moe-235b-a22b",
+               "arctic-480b")
+# Depth cuts at published widths: qwen3-moe's 94 layers are 9.8 GB each in
+# float32 (4 layers and the head: 44.2 GB), arctic's 35 are 27.3 GB each in
+# bfloat16 (1 layer: 28.2 GB, and its float32 check casts a 17.9 GB expert
+# stack).
+SERVE_LAYERS = {"qwen3-moe-235b-a22b": 4, "arctic-480b": 1}
+MOE_DROPLESS = 64.0  # capacity factor of an MoE arch's decode-vs-prefill checks
 SLICE_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3, "qwen1.5-0.5b": 2, "starcoder2-3b": 2}
 LONG_PROMPT = 4096  # past FLASH_THRESHOLD: the flash scan (qwen1.5) or blocked local path
 LONG_ARCHS = {"qwen1.5-0.5b": "_flash_fwd_scan", "starcoder2-3b": "_local_attention_blocked"}
@@ -351,6 +383,12 @@ K7_WIDE = ((65537, 16, 1, 8), (1, 16, 65537, 4))  # batch, then heads, past 6553
 K7_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 40, 64)  # rwkv6-3b's WKV on the trainer's path
 RWKV_TRAIN_ARCH = "rwkv6-3b"
 DENSE_TRAIN_ARCH = "qwen1.5-0.5b"
+MOE_TRAIN_ARCH = "qwen3-moe-235b-a22b"
+MOE_TRAIN_LAYERS = 1  # 3.70 G parameters: f32 masters, bf16 AdamW moments, f32 grads
+MOE_RANKS = 4  # the moe_sharded phase's gloo ranks, time-sharing the one card
+MOE_MESHES = ((1, 4), (2, 2))  # ("data", "model")
+MOE_TOL = 2e-4  # float32, sharded against local (the JAX package's sharded check)
+MOE_TIMEOUT = 600  # seconds for the moe_sharded spawn, start-up included
 TRAIN_TOL = 2e-4  # a trainer step, card vs CPU at float32 (tests/test_torch_train_lm.py)
 DELTA_TOL = 1e-2  # each leaf's step delta, as a share of its largest (the same file)
 L2_BYTES = 50 * 2**20  # the H100's L2 (data sheet)
@@ -559,7 +597,7 @@ def _driver_round_body(rank, world, store, rounds=20):
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
     import repro_torch.ir as ir
-    from repro_torch.dist import shard_block, start_exchange
+    from repro_torch.dist import shard_param, start_exchange
     from repro_torch.dist.halo import program_exchange_radii
     from repro_torch.launch.mesh import make_mesh
 
@@ -567,7 +605,8 @@ def _driver_round_body(rank, world, store, rounds=20):
     plan = ir.plan_partition(prog, *PAPER_GRID, world)
     mesh = make_mesh(plan.mesh_shape, ("rows", "cols"), backend="gloo")
     gen = torch.Generator().manual_seed(SEED)
-    blocks = [shard_block(torch.randn(PAPER_GRID, generator=gen), mesh).to(mesh.device)
+    blocks = [shard_param(torch.randn(PAPER_GRID, generator=gen), mesh, GRID_SPEC)
+              .to(mesh.device)
               for _ in prog.inputs]
     (radius,) = set(program_exchange_radii(prog).values())
     secs = {"post": [], "wait": []}
@@ -599,7 +638,7 @@ def _sharded_rank_body(rank, world, store):
                             world_size=world)
     import repro_torch.ir as ir
     from repro_torch.dist import (count_wire, gather_blocks, gradient_halo_exchange_bytes,
-                                  program_halo_exchange_bytes, shard_block, start_exchange)
+                                  program_halo_exchange_bytes, shard_param, start_exchange)
     from repro_torch.ir.lower_cuda import KERNEL_N_OUT
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh
@@ -617,7 +656,7 @@ def _sharded_rank_body(rank, world, store):
     wgt = torch.randn(PAPER_GRID, generator=gen)
 
     def local(a):
-        return shard_block(a, mesh).to(dev)
+        return shard_param(a, mesh, GRID_SPEC).to(dev)
 
     xl, wl = local(x), local(wgt)
     swl = {f: local(a) for f, a in sw.items()}
@@ -759,6 +798,137 @@ def _sharded_rank_body(rank, world, store):
     dist.barrier()
     dist.destroy_process_group()
     return found
+
+
+def _moe_rank_body(rank, world, store):
+    """The expert-parallel MoE on ``world`` gloo ranks time-sharing the one
+    card, each on a ``("data", "model")`` mesh (TF32 off). (a) One smoke MoE
+    layer of each arch (float32, dropless) through ``apply_moe`` under each
+    of MOE_MESHES against the local path on the whole batch. (b) One
+    qwen3-moe smoke LM's loss, aux loss and gradients through the sharded
+    path on ``(1, 4)`` against the local path's. (c) One qwen3-moe MoE layer
+    at its published widths on ``(1, 4)`` (32 experts a rank) at bfloat16,
+    4 x 256 tokens, timed, its sums over ``model`` counted by the metrics
+    registry; rank 0 also runs the local layer on the whole weights. No
+    launch of a port kernel anywhere."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.dist.sharding import gather_blocks, shard_param, spec_for, use_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_lm, lm_params
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.obs import MetricsRegistry, metrics
+    from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+    meshes = {shape: make_mesh(shape, ("data", "model"), backend="gloo") for shape in MOE_MESHES}
+    dev = meshes[MOE_MESHES[0]].device
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    found = {"forward": {}, "lm": {}, "full_width": {}}
+    _build.reset_launches()
+    try:
+        # (a) Forward, both archs, every mesh.
+        for i, arch in enumerate(("qwen3-moe-235b-a22b", "arctic-480b")):
+            cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32",
+                                      capacity_factor=MOE_DROPLESS)
+            whole = L.init_moe(cfg, L.Init(gen(SEED + i), L.dt(cfg), dev))
+            x = torch.randn((4, 8, cfg.d_model), generator=gen(SEED + 10 + i), device=dev)
+            y_ref, aux_ref = L._apply_moe_local(cfg, whole, x)
+            for shape, mesh in meshes.items():
+                xspec = spec_for(("batch", "seq", "embed"), mesh, x.shape)
+                with use_mesh(mesh):
+                    y, aux = L.apply_moe(cfg, L.shard_moe_params(cfg, whole, mesh),
+                                         shard_param(x, mesh, xspec))
+                y = gather_blocks(y, mesh, xspec)
+                found["forward"][f"{arch} {shape}"] = {
+                    "max_abs_err": (y - y_ref).abs().max().item(),
+                    "aux_rel_err": abs(aux.item() - aux_ref.item()) / aux_ref.item()}
+        # (b) Loss and gradients of a smoke LM, sharded against local.
+        arch = "qwen3-moe-235b-a22b"
+        cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+        tree = tree_map(lambda t: t.detach().clone(), lm_params(build_lm(cfg, SEED, device=dev)))
+        toks = torch.randint(0, cfg.vocab_size, (4, 17), generator=gen(SEED + 20), device=dev)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        mesh = meshes[(1, 4)]
+
+        def loss_and_grads(sharded):
+            t = tree_map(lambda a: a.clone(), tree)
+            if sharded:
+                for blk in t["blocks"]:
+                    blk["ffn"] = L.shard_moe_params(cfg, blk["ffn"], mesh)
+            leaves, treedef = tree_flatten(t)
+            work = [a.requires_grad_(True) for a in leaves]
+            with use_mesh(mesh if sharded else None):
+                loss, m = lm_loss(cfg, tree_unflatten(treedef, work), batch)
+            grads = tree_unflatten(treedef, list(torch.autograd.grad(loss, work)))
+            if sharded:
+                with torch.no_grad():
+                    for blk in grads["blocks"]:
+                        blk["ffn"] = L.gather_moe_params(cfg, blk["ffn"], mesh)
+            return loss.item(), m["aux_loss"].item(), tree_flatten(grads)[0]
+
+        loss_s, aux_s, g_s = loss_and_grads(True)
+        loss_l, aux_l, g_l = loss_and_grads(False)
+        found["lm"] = {"loss": [loss_s, loss_l], "aux_loss": [aux_s, aux_l],
+                       "loss_abs_err": abs(loss_s - loss_l),
+                       "grad_max_abs_err": max((a - b).abs().max().item()
+                                               for a, b in zip(g_s, g_l)),
+                       "grad_leaves": len(g_s)}
+        del tree, g_s, g_l
+        # (c) One layer at published widths, bfloat16, 32 experts a rank.
+        cfg = get_config(arch)
+        torch.cuda.synchronize()
+        whole = L.init_moe(cfg, L.Init(gen(SEED + 30), L.dt(cfg), dev))
+        mine = L.shard_moe_params(cfg, whole, mesh)
+        if rank:
+            del whole
+        torch.cuda.empty_cache()
+        x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen(SEED + 31),
+                        device=dev, dtype=L.dt(cfg, "compute"))
+        reg, secs = MetricsRegistry(), []
+        for i in range(4):  # the first call includes the groups' set-up
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_mesh(mesh), metrics.using(reg if i else None), torch.no_grad():
+                y, aux = L.apply_moe(cfg, mine, x)
+            torch.cuda.synchronize()
+            if i:
+                secs.append(time.perf_counter() - t0)
+        sums = reg.timers["dist.sum_over"].as_dict()
+        found["full_width"] = {
+            "experts_per_rank": mine["w1"].shape[0], "tokens": TRAIN_BATCH * TRAIN_SEQ,
+            "layer_s_calls_1_3": secs, "sum_over_model": {
+                "calls": sums["count"], "host_ms_mean": sums["mean_s"] * 1e3,
+                "host_ms_max": sums["max_s"] * 1e3,
+                "bytes_each": reg.counters["dist.sum_over.bytes"] / sums["count"],
+                "t_loc_d_2": TRAIN_BATCH * TRAIN_SEQ * cfg.d_model * 2},
+            "aux": aux.item(), "finite": bool(torch.isfinite(y).all()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if rank == 0:
+            with torch.no_grad():
+                y_ref, aux_ref = L._apply_moe_local(cfg, whole, x)
+            found["full_width"].update(
+                max_abs_err=(y.float() - y_ref.float()).abs().max().item(),
+                max_abs_ref=y_ref.float().abs().max().item(),
+                aux_rel_err=abs(aux.item() - aux_ref.item()) / aux_ref.item())
+        found["launches"] = dict(_build.LAUNCHES)
+        dist.barrier()
+        return found
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -1571,9 +1741,14 @@ def main() -> int:
     serve_launches: dict[str, int] = {}
     want_launches = {"rwkv6-3b": {"wkv6_cuda": 7 * 32},
                      "recurrentgemma-2b": {"rglru_scan_cuda": 8 * 18},
-                     "qwen1.5-0.5b": {}}  # dense attention is plain tensor code
+                     # dense attention and the MoE are plain tensor code
+                     "qwen1.5-0.5b": {}, "qwen3-moe-235b-a22b": {}, "arctic-480b": {}}
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
+        reduced = None
+        if arch in SERVE_LAYERS:
+            reduced = {"n_layers": [cfg.n_layers, SERVE_LAYERS[arch]]}
+            cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1620,8 +1795,11 @@ def main() -> int:
         prefill_t = serve_reg.timers["serve.prefill"].as_dict()
         tokens = srv.stats["tokens_out"]
 
-        # Decode against prefill, float32, on the card.
+        # Decode against prefill, float32, on the card; an MoE arch dropless
+        # (capacity drops tokens at prefill shapes and never at decode).
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        if cfg.n_experts:
+            cfg32 = dataclasses.replace(cfg32, capacity_factor=MOE_DROPLESS)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 192))).to(dev)
         last, cache = lm_prefill(cfg32, model, toks[:, :128],
                                  build_cache(cfg32, 1, 1024, device=dev))
@@ -1680,7 +1858,8 @@ def main() -> int:
                               "busy_share": busy / window_us,
                               "top_kernels": {k[:60]: v for k, v in top},
                               "port_kernels": port}
-        emit({"phase": "serve", "arch": arch, "params_gb": params_gb, "build_s": build_s,
+        emit({"phase": "serve", "arch": arch, "reduced": reduced, "device": smi,
+              "params_gb": params_gb, "build_s": build_s,
               "launches": launches_here, "long_prefill_path_calls": len(long_calls),
               "max_len": srv.max_len, "requests": len(done), "tokens_out": tokens,
               "prefill_s_by_len": [[len(r.prompt), r.prefill_s] for r in done],
@@ -1690,6 +1869,7 @@ def main() -> int:
               "decode_tokens_per_s": tokens / decode_t["total_s"],
               "tokens_per_s": (tokens + len(done)) / wall, "wall_s": wall,
               "decode_vs_prefill_rel_err": decode_err,
+              "decode_check_capacity_factor": cfg32.capacity_factor if cfg.n_experts else None,
               "warm_prefill_512_s": warm_prefill, "warm_decode_token_s": {
                   "median": statistics.median(warm_decode), "min": min(warm_decode),
                   "max": max(warm_decode)},
@@ -2686,12 +2866,17 @@ def main() -> int:
         del card_state, host_state, before, start_state
     # (c) The full-width trainers, counted: RecurrentGemma here, RWKV-6 and
     # qwen1.5 after the drills.
-    def full_width_train(arch, want):
-        """``train()`` on ``arch`` at its published widths, TRAIN_STEPS steps
-        of TRAIN_BATCH x TRAIN_SEQ tokens with the counters reset just
-        before (they must read ``want``), then one step more, profiled. The
-        state is freed before it returns."""
+    def full_width_train(arch, want, layers=None):
+        """``train()`` on ``arch`` at its published widths (``layers`` deep
+        when given), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens with
+        the counters reset just before (they must read ``want``), then one
+        step more, profiled (its aux loss: the MoE's, summed over layers).
+        The state is freed before it returns."""
         full = get_config(arch)
+        reduced = None
+        if layers:
+            reduced = {"n_layers": [full.n_layers, layers]}
+            full = dataclasses.replace(full, n_layers=layers)
         ds = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                                     vocab_size=full.vocab_size, seed=SEED))
         logs = []
@@ -2725,9 +2910,12 @@ def main() -> int:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            params, opt_state, _ = fstep(params, opt_state, fbatch)
+            params, opt_state, fmetrics = fstep(params, opt_state, fbatch)
             torch.cuda.synchronize()
             prof_us = (time.perf_counter() - t0) * 1e6
+        aux_loss = float(fmetrics["aux_loss"])
+        check(np.isfinite(aux_loss) and (aux_loss > 0) == bool(full.n_experts),
+              f"{arch} trainer: aux loss {aux_loss}")
         seen = device_kernels(prof)
         busy_us = sum(v["device_us"] for v in seen.values())
         top = sorted(seen.items(), key=lambda kv: -kv[1]["device_us"])[:6]
@@ -2735,7 +2923,8 @@ def main() -> int:
         del params, opt_state, fstep, prof, seen
         gc.collect()
         torch.cuda.empty_cache()
-        return {"layers": full.n_layers, "params": n_params, "batch": TRAIN_BATCH,
+        return {"layers": full.n_layers, "reduced": reduced, "params": n_params,
+                "batch": TRAIN_BATCH, "aux_loss_profiled_step": aux_loss,
                 "seq": TRAIN_SEQ, "compute": full.compute_dtype, "remat": full.remat,
                 "steps": TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
                 "host_ms_per_step": [h["dt"] * 1e3 for h in hist], "train_s": train_s,
@@ -2788,7 +2977,10 @@ def main() -> int:
         RWKV_TRAIN_ARCH, {"wkv6_cuda": 2 * n_rwkv * TRAIN_STEPS,
                           "wkv6_bwd_cuda": n_rwkv * TRAIN_STEPS})
     trainers[DENSE_TRAIN_ARCH] = full_width_train(DENSE_TRAIN_ARCH, {})
-    emit({"phase": "train", "archs": list(trainers),
+    # (g) qwen3-moe at its published widths, one layer: the MoE (plain
+    # tensor code) forward, remat recompute and backward; no kernel.
+    trainers[MOE_TRAIN_ARCH] = full_width_train(MOE_TRAIN_ARCH, {}, layers=MOE_TRAIN_LAYERS)
+    emit({"phase": "train", "device": smi, "archs": list(trainers),
           "k6_autograd": k6_autograd, "k6_k7_past_65535": wide,
           "smoke_step_card_vs_cpu_max_err": step_err,
           "smoke_step_card_vs_cpu_delta_err": delta_err,
@@ -2797,6 +2989,39 @@ def main() -> int:
           "resume": {"steps": 6, "ckpt_every": 2, "rerun_steps": 0, "sigterm_at": 3,
                      "resumed_max_abs_diff": resume_err},
           "seconds": time.perf_counter() - t_phase})
+
+    # -- moe_sharded: the expert-parallel MoE on gloo ranks sharing the card --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe = run_ranks(_moe_rank_body, MOE_RANKS, ROOT / "build" / "repro_torch",
+                    timeout=MOE_TIMEOUT)
+    moe_s = time.perf_counter() - t0
+    mp = MOE_MESHES[0][1]
+    for rank, found in enumerate(moe):
+        check(not found["launches"], f"moe_sharded rank {rank} launched {found['launches']}")
+        for case, e in found["forward"].items():
+            check(e["max_abs_err"] <= MOE_TOL and e["aux_rel_err"] <= 1e-5,
+                  f"moe_sharded rank {rank} {case}: {e} (bounds {MOE_TOL}, 1e-5)")
+        lm = found["lm"]
+        check(lm["loss_abs_err"] <= MOE_TOL and lm["grad_max_abs_err"] <= MOE_TOL
+              and abs(lm["aux_loss"][0] - lm["aux_loss"][1]) <= 1e-5 * lm["aux_loss"][1],
+              f"moe_sharded rank {rank} LM loss and gradients, sharded vs local: {lm}")
+        fw = found["full_width"]["sum_over_model"]
+        check(found["full_width"]["finite"] and fw["bytes_each"] == fw["t_loc_d_2"],
+              f"moe_sharded rank {rank} full width: {found['full_width']}")
+    # bfloat16: each model rank rounds its partial output before the bf16 sum,
+    # as the JAX psum in the compute dtype does: one bf16 step of max|y| a rank.
+    full0 = moe[0]["full_width"]
+    moe_bound = mp * 2.0**-7 * full0["max_abs_ref"]
+    check(full0["max_abs_err"] <= moe_bound and full0["aux_rel_err"] <= 1e-5,
+          f"moe_sharded full width bf16 vs local: {full0} (bound {moe_bound})")
+    emit({"phase": "moe_sharded", "device": smi,
+          "note": f"{MOE_RANKS} gloo ranks time-sharing one card, sums staged through host "
+                  "memory: not a multi-GPU figure",
+          "meshes": [list(m) for m in MOE_MESHES], "tolerance_f32": MOE_TOL,
+          "full_width_bf16_bound": moe_bound, "spawn_s": moe_s,
+          "ranks": [{k: found[k] for k in ("forward", "lm", "full_width")} for found in moe]})
 
     # -- result lines ----------------------------------------------------------
     # Launches: K1-K3 from the hdiff path (K2 runs on the hdiff, elementary

@@ -4,15 +4,19 @@ few hundred steps on deterministic synthetic data, with checkpoint/restart.
   PYTHONPATH=src python examples/torch_train_lm.py --steps 300
   PYTHONPATH=src python examples/torch_train_lm.py --steps 300 --scale full
   PYTHONPATH=src python examples/torch_train_lm.py --scale tiny --steps 20 --device cpu
+  PYTHONPATH=src python examples/torch_train_lm.py --arch arctic-480b --smoke --device cpu
 
-The port of ``examples/train_lm.py``, with the same flags and ``--device``
-added (default: the card, which it raises without). ``--arch`` takes the
-architectures whose blocks the port runs; the default is the JAX
-example's, a qwen1.5-family dense config. ``recurrentgemma-2b`` trains its
-RG-LRU layers through the scan kernel K6 forward and backward,
-``rwkv6-3b`` its time mix through K7 and K7's backward kernel. Loss must
-drop; checkpoints land in ``--ckpt-dir`` and a rerun resumes from the last
-one.
+The port of ``examples/train_lm.py``, with the same flags, ``--device``
+added (default: the card, which it raises without) and ``--smoke`` (the
+arch's reduced config, in place of ``--scale``: the MoE archs keep their
+128 experts at every scale, which is too much for the CPU). ``--arch``
+takes the architectures whose blocks the port runs; the default is the
+JAX example's, a qwen1.5-family dense config. ``recurrentgemma-2b`` trains
+its RG-LRU layers through the scan kernel K6 forward and backward,
+``rwkv6-3b`` its time mix through K7 and K7's backward kernel,
+``qwen3-moe-235b-a22b`` and ``arctic-480b`` their MoE FFNs (plain tensor
+code). Loss must drop; checkpoints land in ``--ckpt-dir`` and a rerun
+resumes from the last one.
 """
 
 import argparse
@@ -32,14 +36,17 @@ def main(argv=None) -> None:
                                                        "repro_torch_train_lm"))
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default=None, help="torch device; default: the card")
+    ap.add_argument("--smoke", action="store_true", help="the arch's reduced config")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.train import TrainConfig, train
 
     cfg = get_config(args.arch)
-    if args.scale == "tiny":
+    if args.smoke:
+        cfg = get_smoke_config(args.arch)
+    elif args.scale == "tiny":
         # ~5M params: a CPU-sized evidence run.
         cfg = dataclasses.replace(
             cfg, n_layers=4, d_model=256, n_heads=4, n_kv_heads=4, head_dim=0,

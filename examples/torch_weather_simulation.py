@@ -59,6 +59,7 @@ import time
 BLOWUP_EXIT_CODE = 3
 SPAWN_TIMEOUT = 3600  # seconds for all ranks, start-up included
 MESH_AXES = ("rows", "cols")
+GRID_SPEC = (None, *MESH_AXES)  # a rank's block of the grid: depth whole
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -144,7 +145,7 @@ def _forecast(rank: int, world: int, args) -> dict:
     import torch
 
     from repro_torch.core import make_initial_field
-    from repro_torch.dist.sharding import gather_blocks, shard_block
+    from repro_torch.dist.sharding import gather_blocks, shard_param
     from repro_torch.ir import lower_reference, lower_sharded, plan_partition, shallow_water_program
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh
@@ -178,7 +179,7 @@ def _forecast(rank: int, world: int, args) -> dict:
     # classic gravity-wave adjustment problem. Each rank keeps its block.
     h0 = make_initial_field(args.depth, args.size, args.size, kind="gaussian", device=dev)
     state0 = {"u": torch.zeros_like(h0), "v": torch.zeros_like(h0), "h": h0}
-    block0 = {f: shard_block(a, mesh) for f, a in state0.items()}
+    block0 = {f: shard_param(a, mesh, GRID_SPEC) for f, a in state0.items()}
 
     if args.health:
         code, ms = run_with_health(rank, mesh, args, program, step, block0)

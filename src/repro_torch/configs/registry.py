@@ -1,10 +1,10 @@
 """--arch registry of the port: maps architecture ids to configs.
 
 The architectures whose blocks the port runs are registered: the two
-recurrent LMs (RWKV-6, RecurrentGemma) and the four dense ones (qwen1.5,
-starcoder2, nemotron-4, glm4). Every other id of the JAX package's
-registry (MoE, cross-attention, audio) raises a ``KeyError`` that names
-the ROADMAP item that ports it.
+recurrent LMs (RWKV-6, RecurrentGemma), the four dense ones (qwen1.5,
+starcoder2, nemotron-4, glm4) and the two MoE ones (qwen3-moe, arctic).
+Every other id of the JAX package's registry (cross-attention, audio)
+raises a ``KeyError`` that names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -20,10 +20,11 @@ _ARCH_MODULES: dict[str, str] = {
     "glm4-9b": "repro_torch.configs.glm4_9b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
 }
 # The ROADMAP item that ports each other architecture of the JAX registry.
 _NOT_PORTED = {
-    "qwen3-moe-235b-a22b": "M13b.3 (MoE)", "arctic-480b": "M13b.3 (MoE)",
     "llama-3.2-vision-90b": "M13b.4 (cross-attention)",
     "hubert-xlarge": "M13b.4 (audio frontend)",
 }

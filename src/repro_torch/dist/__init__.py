@@ -1,10 +1,12 @@
 """repro_torch.dist: the distribution layer on ``torch.distributed``.
 
-The port of ``repro.dist`` (the LM logical-axis rule engine waits for the
-LM sharding slice, ROADMAP M13b.3):
+The port of ``repro.dist`` (the GSPMD tree placement ``tree_shardings`` /
+``constrain`` waits for the LM sharding slice, ROADMAP M13b.3b):
 
   * :mod:`repro_torch.dist.sharding` — the rank mesh (:class:`Mesh`), its
-    axis sizes and groups, ``shard_block`` / ``gather_blocks``.
+    axis sizes and groups, ``shard_param`` / ``gather_blocks``, the logical-axis rules (``spec_for``), the ambient
+    mesh (``use_mesh``) and the collectives with gradients the
+    expert-parallel MoE runs.
   * :mod:`repro_torch.dist.halo` — ``make_sharded_hdiff`` (depth-parallel
     planes + radius-2 row halo exchange, matching the single-device hdiff),
     ``exchange_halos_2d`` (row and col bands + diagonal corners, behind
@@ -33,7 +35,13 @@ from repro_torch.dist.halo import (
     wire_drift_report,
 )
 from repro_torch.dist.reduce import compress_bf16, decompress_bf16, reduce_gradients
-from repro_torch.dist.sharding import Mesh, gather_blocks, shard_block
+from repro_torch.dist.sharding import (
+    Mesh,
+    gather_blocks,
+    shard_param,
+    spec_for,
+    use_mesh,
+)
 
 __all__ = [
     "Mesh",
@@ -55,7 +63,9 @@ __all__ = [
     "program_halo_exchange_bytes",
     "program_halo_exchange_bytes_per_shard",
     "reduce_gradients",
-    "shard_block",
+    "shard_param",
+    "spec_for",
     "start_exchange",
+    "use_mesh",
     "wire_drift_report",
 ]

@@ -18,7 +18,8 @@ LMs. :func:`lm_params_from_numpy` takes the JAX ``build_lm`` parameter
 pytree as numpy (``jax.tree.map(np.asarray, params)``), unstacks its
 scanned superblocks (leading axis ``n_super``) and its tail into the
 port's per-layer blocks (:func:`lm_tree_from_numpy`, which
-``optimizer_state_from_numpy(..., cfg=...)`` applies to an LM's moments),
+``optimizer_state_from_numpy(..., cfg=...)`` applies to an LM's AdamW
+moments), nested groups (arctic's MoE ``dense`` branch) kept nested,
 and returns an :class:`~repro_torch.models.LM`;
 :func:`lm_cache_to_numpy` turns the port's per-layer cache back into the
 JAX package's ``{"scan": ..., "tail": [...]}`` layout, for comparison.
@@ -66,9 +67,11 @@ def optimizer_state_from_numpy(state, device=None, cfg: ModelConfig | None = Non
     ``AdafactorState`` (``step, vr, vc``), its leaves numpy arrays (a tensor
     or a dict of them per field, bfloat16 moments as float32 or ml_dtypes
     bfloat16), as the port's state of the same name on ``device`` (``None``
-    means the card). With ``cfg``, the state is an LM's: each moment tree
-    is unstacked into the port's per-layer layout, as
-    :func:`lm_params_from_numpy` unstacks the parameters."""
+    means the card). With ``cfg``, the state is an LM's: AdamW's moment
+    trees are unstacked into the port's per-layer layout, as
+    :func:`lm_params_from_numpy` unstacks the parameters; Adafactor's keep
+    the JAX layout, which the port's LM trainer keeps for it (its factoring
+    and update clipping couple the layers of a stacked leaf)."""
     from repro_torch.optim import AdafactorState, AdamWState
 
     dev = resolve_device(device)
@@ -85,7 +88,7 @@ def optimizer_state_from_numpy(state, device=None, cfg: ModelConfig | None = Non
 
     def field(name):
         tree = getattr(state, name)
-        if cfg is not None and name != "step":
+        if cfg is not None and name != "step" and cls is AdamWState:
             tree = lm_tree_from_numpy(cfg, tree)
         return tree_map(tensor, tree)
 

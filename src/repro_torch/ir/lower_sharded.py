@@ -12,9 +12,10 @@ version on CPU tensors) or the eager evaluator (``inner="reference"``).
 The step is SPMD, as a ``shard_map`` body sees it: it takes this rank's
 block (a tensor, or ``{field: tensor}`` for multi-field programs) and
 returns this rank's block of every evolving field; every rank of the mesh
-calls it in the same order. :func:`repro_torch.dist.sharding.shard_block`
-and :func:`~repro_torch.dist.sharding.gather_blocks` cut and join global
-arrays for drivers and tests.
+calls it in the same order. :func:`repro_torch.dist.sharding.shard_param`
+(spec ``(None, "rows", "cols")``) and
+:func:`~repro_torch.dist.sharding.gather_blocks` cut and join global arrays
+for drivers and tests.
 
 Multi-field programs exchange halos PER FIELD at each field's composed
 radius (``exchange_radii``): the evolving state moves the full chain

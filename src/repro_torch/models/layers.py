@@ -1,13 +1,14 @@
 """Transformer building blocks: norms, RoPE, GQA self-attention (full,
 sliding-window, flash-style for long prefills, blocked local) with a ring
-cache, and the dense FFN.
+cache, the dense FFN and the MoE (local and expert-parallel).
 
 The port of the parts of ``repro/models/layers.py`` that the recurrent LMs
-(RWKV-6, RecurrentGemma) and the dense ones (qwen1.5, starcoder2,
-nemotron-4, glm4) run. Conventions, as there:
+(RWKV-6, RecurrentGemma), the dense ones (qwen1.5, starcoder2,
+nemotron-4, glm4) and the MoE ones (qwen3-moe, arctic) run. Conventions,
+as there:
 
-* A parameter group is a :class:`Params` module of named tensors (the JAX
-  package's dict leaves, same names and shapes). Tensors are stored in
+* A parameter group is a :class:`Params` module of named tensors and
+  nested groups (the JAX package's dict leaves, same names and shapes). Tensors are stored in
   ``cfg.param_dtype`` and cast to ``cfg.compute_dtype`` at use; softmax and
   norms run in float32.
 * Attention caches are dicts ``{"k", "v"}`` of shape ``(B, L, K, Dh)`` plus
@@ -26,7 +27,16 @@ nemotron-4, glm4) run. Conventions, as there:
   same output (zero) on a row with no visible key. The JAX package's
   sharding constraints are no-ops on one device and are dropped.
 
-Not ported yet (ROADMAP M13b.3-4): cross-attention and MoE.
+* The MoE (:func:`apply_moe`) is the JAX package's sort-based capacity
+  dispatch in plain tensor code: a float32 router, a stable sort, an
+  (E, C, D) buffer, three einsums and a float32 scatter-add combine
+  (``index_add``, whose atomics on the card make a token's sum order, and
+  so its last bits, vary from run to run). Its expert-parallel form
+  (:func:`apply_moe_sharded`) runs over the ranks of a
+  :class:`~repro_torch.dist.sharding.Mesh` with gradient-carrying
+  collectives.
+
+Not ported yet (ROADMAP M13b.4): cross-attention.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import tree_map
 
 Tensor = torch.Tensor
 
@@ -62,19 +73,30 @@ def gelu(x: Tensor) -> Tensor:
 
 
 class Params(nn.Module):
-    """One parameter group: named tensors, read as ``p["name"]``. Inference
-    only, so the parameters carry no gradient."""
+    """One parameter group: named tensors and nested groups (the MoE's
+    ``dense`` branch), read as ``p["name"]``. Inference only, so the
+    parameters carry no gradient."""
 
-    def __init__(self, tensors: dict[str, Tensor]):
+    def __init__(self, tensors: dict):
         super().__init__()
         for name, value in tensors.items():
-            self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+            if isinstance(value, dict):
+                self.add_module(name, Params(value))
+            else:
+                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
 
-    def __getitem__(self, name: str) -> Tensor:
-        return self._parameters[name]
+    def __getitem__(self, name: str):
+        if name in self._parameters:
+            return self._parameters[name]
+        return self._modules[name]
 
     def __contains__(self, name: str) -> bool:
-        return name in self._parameters
+        return name in self._parameters or name in self._modules
+
+    def tree(self) -> dict:
+        """The group as a dict of its own tensors (no copies), nested
+        groups as nested dicts: the JAX package's layout."""
+        return {**self._parameters, **{n: m.tree() for n, m in self._modules.items()}}
 
 
 class Init:
@@ -95,7 +117,9 @@ class Init:
         std = scale / math.sqrt(max(fan, 1))
         x = torch.randn(tuple(shape), generator=self.generator, dtype=torch.float32,
                         device=self.device)
-        return (x * std).to(self.dtype)
+        # In place: the same bits as ``x * std`` without a second float32
+        # copy (an arctic expert stack draws 4.46 G values).
+        return x.mul_(std).to(self.dtype)
 
     def const(self, shape, value: float) -> Tensor:
         return torch.full(tuple(shape), value, dtype=self.dtype, device=self.device)
@@ -490,3 +514,300 @@ def apply_ffn(cfg: ModelConfig, p, x: Tensor) -> Tensor:
     else:
         raise ValueError(cfg.activation)
     return h @ p["w2"].to(cdt)
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing with sort-based capacity dispatch (no T*E*C one-hots).
+# ---------------------------------------------------------------------------
+
+# The logical axes of the MoE's parameters (the JAX ``init_moe``'s), which
+# spec_for maps to a mesh; ``dense`` is arctic's residual FFN.
+MOE_AXES = {
+    "router": ("fsdp", "experts"),
+    "w1": ("experts", "fsdp", "mlp"),
+    "w3": ("experts", "fsdp", "mlp"),
+    "w2": ("experts", "mlp", "fsdp"),
+    "dense": {"w1": ("fsdp", "mlp"), "w3": ("fsdp", "mlp"), "w2": ("mlp", "fsdp")},
+}
+
+
+def moe_shapes(cfg: ModelConfig) -> dict:
+    """The global shapes of one MoE layer's parameters, in :data:`MOE_AXES`'s
+    layout (``dense`` only with ``moe_dense_residual``)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    shapes = {"router": (d, e), "w1": (e, d, f), "w3": (e, d, f), "w2": (e, f, d)}
+    if cfg.moe_dense_residual:
+        shapes["dense"] = {"w1": (d, f), "w3": (d, f), "w2": (f, d)}
+    return shapes
+
+
+def init_moe(cfg: ModelConfig, ini: Init) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": ini.fan_in((d, e), scale=0.1),
+         "w1": ini.fan_in((e, d, f)),
+         "w3": ini.fan_in((e, d, f)),
+         "w2": ini.fan_in((e, f, d))}
+    if cfg.moe_dense_residual:
+        p["dense"] = init_ffn(cfg, ini)
+    return p
+
+
+def _capacity(cfg: ModelConfig, t: int) -> int:
+    """Slots per expert for ``t`` tokens: the JAX expression, in its order."""
+    k, e = cfg.top_k, cfg.n_experts
+    return min(max(int(math.ceil(k * t / e * cfg.capacity_factor)), 4), t)
+
+
+def _route(cfg: ModelConfig, router: Tensor, xt: Tensor):
+    """float32 router, softmax, top-k and gate normalisation -> ``(probs,
+    gate, idx)``; ``idx`` in ``torch.topk``'s order (largest first)."""
+    logits = xt.to(torch.float32) @ router.to(torch.float32)       # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, cfg.top_k, dim=-1)                 # (T, k)
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    return probs, gate, idx
+
+
+def _data_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if mesh is not None and a in mesh.axis_names)
+
+
+def _aux_loss(probs: Tensor, idx: Tensor, e: int, mesh=None) -> Tensor:
+    """The Switch load-balancing loss ``E * sum_e f_e * P_e``: ``P_e`` the
+    mean router probability, ``f_e`` the share of assignments (a count, so
+    it carries no gradient). On a mesh with data axes both are averaged
+    over the data ranks BEFORE their product, so the loss is the estimator
+    over the whole batch (mean-of-products != product-of-means)."""
+    from repro_torch.dist.sharding import mean_over
+
+    me = probs.mean(0)
+    ce = torch.bincount(idx.reshape(-1), minlength=e).to(torch.float32) / idx.numel()
+    dp = _data_axes(mesh)
+    if dp:
+        me, ce = mean_over(me, mesh, dp), mean_over(ce, mesh, dp)
+    return e * torch.sum(me * ce)
+
+
+def _experts(xe: Tensor, w, cdt: torch.dtype) -> Tensor:
+    """SwiGLU on an ``(E, C, D)`` buffer, three einsums, each weight of
+    ``w`` cast to ``cdt`` just before its einsum (so at most one cast of an
+    expert stack is alive outside autograd)."""
+    h = torch.einsum("ecd,edf->ecf", xe, w["w1"].to(cdt))
+    g = torch.einsum("ecd,edf->ecf", xe, w["w3"].to(cdt))
+    return torch.einsum("ecf,efd->ecd", F.silu(h) * g, w["w2"].to(cdt))
+
+
+def _combine(yexp: Tensor, buf_tok: Tensor, buf_gate: Tensor, t: int) -> Tensor:
+    """``(T, D)`` float32: each slot's output times its gate, added into its
+    token's row (empty slots point at row ``t``, which is cut off). Out of
+    place, so it is differentiable; on the card its atomics make the sum
+    order of a token's k terms vary from run to run."""
+    d = yexp.shape[-1]
+    yflat = yexp.reshape(-1, d).to(torch.float32) * buf_gate[:, None]
+    y = torch.zeros((t + 1, d), dtype=torch.float32, device=yexp.device)
+    return y.index_add(0, buf_tok, yflat)[:t]
+
+
+def _dispatch_local(xt: Tensor, gate: Tensor, idx: Tensor, e_lo: int, e_hi: int,
+                    capacity: int, e_loc: int, cdt: torch.dtype):
+    """``(E_loc, C, D)`` buffers and the slot -> token / gate maps for experts
+    ``[e_lo, e_hi)``: assignments sorted (stably) by local expert, foreign
+    ones last; each expert keeps its first ``capacity`` tokens; overflow
+    and foreign assignments go to the sentinel slot ``E_loc * C``, cut off
+    after the scatter (so duplicate writes there are harmless)."""
+    t, d = xt.shape
+    k = idx.shape[-1]
+    dev = xt.device
+    flat_e = idx.reshape(-1)
+    flat_tok = torch.arange(t, device=dev).repeat_interleave(k)
+    flat_gate = gate.reshape(-1)
+    mine = (flat_e >= e_lo) & (flat_e < e_hi)
+    key = torch.where(mine, flat_e - e_lo, e_loc)  # foreign -> overflow group
+    order = torch.argsort(key, stable=True)
+    se, stok, sgate = key[order], flat_tok[order], flat_gate[order]
+    group_start = torch.searchsorted(se, torch.arange(e_loc, device=dev), side="left")
+    pos_in_grp = torch.arange(t * k, device=dev) - group_start[torch.clamp_max(se, e_loc - 1)]
+    keep = (se < e_loc) & (pos_in_grp < capacity)
+    slot = torch.where(keep, se * capacity + pos_in_grp, e_loc * capacity)
+
+    n = e_loc * capacity + 1
+    buf_tok = torch.full((n,), t, dtype=torch.long, device=dev).index_put((slot,), stok)
+    buf_gate = torch.zeros((n,), dtype=torch.float32, device=dev).index_put((slot,), sgate)
+    buf_tok, buf_gate = buf_tok[:-1], buf_gate[:-1]
+    xpad = torch.cat([xt.to(cdt), torch.zeros((1, d), dtype=cdt, device=dev)], dim=0)
+    xe = xpad[buf_tok].reshape(e_loc, capacity, d)
+    return xe, buf_tok, buf_gate
+
+
+def apply_moe(cfg: ModelConfig, p, x: Tensor) -> tuple[Tensor, Tensor]:
+    """MoE dispatcher, as in the JAX package: under an ambient mesh with a
+    ``model`` axis a sequence longer than one token takes the
+    expert-parallel path (:func:`apply_moe_sharded`); anything else the
+    local one. The port has no GSPMD to gather sharded weights for the
+    local path, so under such a mesh a one-token step first gathers this
+    rank's pieces whole (:func:`gather_moe_params`) and runs the local
+    path on its tokens, ``aux`` over the whole batch. That gather moves
+    every rank's whole layer for each token (9.8 GB a qwen3-moe layer at
+    published widths): it is for tests only, and no serving path runs it
+    (a sharded decode that moves tokens, not weights, is ROADMAP
+    M13b.3b)."""
+    from repro_torch.dist.sharding import _ambient_mesh
+
+    mesh = _ambient_mesh()
+    if mesh is not None and "model" in mesh.axis_names:
+        if x.shape[1] > 1:
+            return apply_moe_sharded(cfg, p, x)
+        return _apply_moe_local(cfg, gather_moe_params(cfg, p, mesh), x, mesh=mesh)
+    return _apply_moe_local(cfg, p, x)
+
+
+def _apply_moe_local(cfg: ModelConfig, p, x: Tensor, mesh=None) -> tuple[Tensor, Tensor]:
+    """x: (B, S, D) -> (y, aux_loss). Sort-based dropping dispatch: tokens
+    are sorted by assigned expert; each expert processes up to
+    ``capacity`` tokens in a dense (E, C, D) buffer (overflow tokens are
+    dropped, GShard-style). Memory is O(E*C*D), never O(T*E*C). With a
+    ``mesh``, ``x`` is this rank's block of the batch and ``aux`` is taken
+    over every data rank's tokens (:func:`_aux_loss`)."""
+    cdt = dt(cfg, "compute")
+    b_, s, d = x.shape
+    t = b_ * s
+    e = cfg.n_experts
+    xt = x.reshape(t, d)
+
+    probs, gate, idx = _route(cfg, p["router"], xt)
+    aux = _aux_loss(probs, idx, e, mesh)
+
+    capacity = _capacity(cfg, t)
+    xe, buf_tok, buf_gate = _dispatch_local(xt, gate, idx, 0, e, capacity, e, cdt)
+    y = _combine(_experts(xe, p, cdt), buf_tok, buf_gate, t).to(cdt)
+    if cfg.moe_dense_residual:
+        y = y + apply_ffn(cfg, p["dense"], xt)
+    return y.reshape(b_, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel MoE over the ranks of a mesh.
+#
+# Every (data, model) rank routes ITS tokens to ITS 1/mp slice of the
+# experts, computes locally, and one sum over ``model`` combines. Wire cost
+# per MoE layer: one (T_loc, D) sum plus the fsdp weight gathers,
+# independent of n_experts.
+# ---------------------------------------------------------------------------
+
+
+def _is_tuple(x) -> bool:
+    """Shapes and specs are tuples, and leaves of the MoE's trees."""
+    return isinstance(x, tuple)
+
+
+def _tree(p) -> dict:
+    return p.tree() if isinstance(p, Params) else p
+
+
+def moe_specs(cfg: ModelConfig, mesh) -> dict:
+    """The spec of each MoE parameter on ``mesh`` (``spec_for`` of its
+    :data:`MOE_AXES` entry and global shape, train mode)."""
+    from repro_torch.dist.sharding import spec_for
+
+    shapes = moe_shapes(cfg)
+    return tree_map(lambda shape, axes: spec_for(axes, mesh, shape, mode="train"),
+                    shapes, {n: MOE_AXES[n] for n in shapes}, is_leaf=_is_tuple)
+
+
+def _gather(w: Tensor, spec, mesh, dtype, *, keep_model: bool = True,
+            data_axes: tuple = ()) -> Tensor:
+    """``w`` cast to ``dtype``, its sharded dims gathered back; the expert
+    (``model``) dim stays this rank's unless ``keep_model`` is False. The
+    gradient sums over the data axes (their ranks hold other tokens) and
+    not over ``model`` (every model rank computes the same gradient of
+    what it gathered)."""
+    from repro_torch.dist.sharding import _entry_axes, gather_dim
+
+    out = w.to(dtype)
+    for dim, entry in enumerate(spec):
+        axes = tuple(a for a in _entry_axes(entry) if a != "model" or not keep_model)
+        if axes:
+            out = gather_dim(out, mesh, axes, dim,
+                             sum_grad_over=tuple(a for a in axes if a in data_axes))
+    return out
+
+
+def gather_moe_params(cfg: ModelConfig, p, mesh) -> dict:
+    """This rank's pieces of one MoE layer gathered whole (every sharded dim,
+    ``model`` too), in the parameter dtype: what the local path reads."""
+    dp = _data_axes(mesh)
+    return tree_map(lambda spec, w: _gather(w, spec, mesh, w.dtype, keep_model=False,
+                                            data_axes=dp),
+                    moe_specs(cfg, mesh), _tree(p), is_leaf=_is_tuple)
+
+
+def shard_moe_params(cfg: ModelConfig, p, mesh) -> dict:
+    """This rank's pieces of a whole MoE layer's parameters (``shard_param``
+    under :func:`moe_specs`): what :func:`apply_moe_sharded` reads."""
+    from repro_torch.dist.sharding import shard_param
+
+    return tree_map(lambda spec, w: shard_param(w, mesh, spec), moe_specs(cfg, mesh), _tree(p),
+                    is_leaf=_is_tuple)
+
+
+def apply_moe_sharded(cfg: ModelConfig, p, x: Tensor) -> tuple[Tensor, Tensor]:
+    """Expert-parallel MoE on the ambient mesh
+    (:func:`repro_torch.dist.sharding.use_mesh`), which has a ``model``
+    axis and optionally ``data`` and ``pod``.
+
+    ``p`` holds this rank's pieces (``shard_param`` of each global tensor
+    under :func:`moe_specs`), ``x`` this rank's block of the batch (split
+    over the data axes, the same on every model rank). The rank gathers
+    the router whole and every other sharded dim but the experts, routes
+    its tokens, runs its ``E / mp`` experts, and one sum over ``model``
+    combines the partial outputs (in the compute dtype, as the JAX
+    ``psum`` does). ``aux`` averages the per-expert statistics over the
+    data axes before their product, so it equals the estimator over the
+    whole batch. Gradients follow the Megatron pattern: the tokens and
+    gates enter the expert region through :func:`copy_to` (gradient summed
+    over ``model``) and the combine is :func:`sum_over` (identity
+    backward), so on a ``(1, mp)`` mesh each rank's gradients, gathered,
+    are the local path's. With ``E % mp != 0`` the pieces are gathered
+    whole and the local path runs, as the JAX package falls back."""
+    from repro_torch.dist.sharding import _ambient_mesh, copy_to, sum_over
+
+    mesh = _ambient_mesh()
+    cdt = dt(cfg, "compute")
+    b_, s, d = x.shape
+    e = cfg.n_experts
+    dp = _data_axes(mesh)
+    mp = mesh.axis_size("model")
+    if e % mp:
+        return _apply_moe_local(cfg, gather_moe_params(cfg, p, mesh), x, mesh=mesh)
+    e_loc = e // mp
+    specs = moe_specs(cfg, mesh)
+
+    t_loc = b_ * s
+    xt = x.reshape(t_loc, d)
+    router = _gather(p["router"], specs["router"], mesh, torch.float32, keep_model=False,
+                     data_axes=dp)
+    probs, gate, idx = _route(cfg, router, xt)
+    aux = _aux_loss(probs, idx, e, mesh)
+
+    j = mesh.coord("model")
+    capacity = _capacity(cfg, t_loc)
+    xt_in = copy_to(xt, mesh, ("model",))
+    xe, buf_tok, buf_gate = _dispatch_local(xt_in, copy_to(gate, mesh, ("model",)), idx,
+                                            j * e_loc, (j + 1) * e_loc, capacity, e_loc, cdt)
+    w = {n: _gather(p[n], specs[n], mesh, cdt, data_axes=dp) for n in ("w1", "w3", "w2")}
+    y = _combine(_experts(xe, w, cdt), buf_tok, buf_gate, t_loc)
+
+    if cfg.moe_dense_residual:
+        # TP dense branch: the mlp dim stays split over ``model``; the sum
+        # that combines the experts combines the dense partials. (An mlp
+        # dim ``model`` does not split would be summed mp times.)
+        if "model" not in specs["dense"]["w2"]:
+            raise NotImplementedError(
+                f"d_ff {cfg.d_ff} does not split over a model axis of {mp}")
+        dw = {n: _gather(p["dense"][n], specs["dense"][n], mesh, cdt, data_axes=dp)
+              for n in ("w1", "w3", "w2")}
+        xc = xt_in.to(cdt)
+        hd = F.silu(xc @ dw["w1"]) * (xc @ dw["w3"])
+        y = y + (hd @ dw["w2"]).to(torch.float32)
+    y = sum_over(y.to(cdt), mesh, ("model",))
+    return y.reshape(b_, s, d), aux

@@ -1,9 +1,11 @@
 """The LMs as one composable decoder: the recurrent ones (RWKV-6,
-RecurrentGemma) and the dense ones (qwen1.5, starcoder2, nemotron-4, glm4).
+RecurrentGemma), the dense ones (qwen1.5, starcoder2, nemotron-4, glm4) and
+the MoE ones (qwen3-moe, arctic).
 
 The port of ``repro/models/lm.py`` for the block kinds ported so far
-(``attn``, ``local_attn``, ``rglru``, ``rwkv6``); MoE, cross-attention
-and media frontends are not (ROADMAP M13b.3-4). :func:`build_lm` returns an
+(``attn``, ``local_attn``, ``rglru``, ``rwkv6``, each with the MoE in place
+of its FFN when the config has experts); cross-attention and media
+frontends are not (ROADMAP M13b.4). :func:`build_lm` returns an
 :class:`LM` module whose blocks stand in layer order, the block pattern
 cycled to ``n_layers``; the JAX package's scan over stacked superblocks
 becomes a plain loop over an ``nn.ModuleList``, and its sharding
@@ -13,7 +15,8 @@ Serving entry points (functions of ``(cfg, model, ...)``, as in the JAX
 package; ``cfg`` may differ from ``model.cfg`` in its compute dtype), all
 without gradients:
 
-  * :func:`lm_forward` — tokens -> (logits (B, S, V), aux)
+  * :func:`lm_forward` — tokens -> (logits (B, S, V), aux: the MoE loss
+    summed over layers)
   * :func:`lm_prefill` — runs the prompt, fills the cache -> (last logits, cache)
   * :func:`lm_decode`  — one token with the cache at position ``pos``
 
@@ -37,8 +40,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import _ambient_mesh, use_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
+from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
 PORTED_KINDS = ("attn", "local_attn", "rglru", "rwkv6")
@@ -46,10 +51,10 @@ PORTED_KINDS = ("attn", "local_attn", "rglru", "rwkv6")
 
 def _check_kinds(cfg: ModelConfig) -> None:
     missing = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
-    if missing or cfg.n_experts or cfg.frontend:
+    if missing or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {missing or cfg.block_pattern}, MoE and media frontends "
-            f"are not ported yet (ROADMAP M13); ported kinds: {PORTED_KINDS}")
+            f"{cfg.name}: block kinds {missing or cfg.block_pattern} and media frontends "
+            f"are not ported yet (ROADMAP M13b.4); ported kinds: {PORTED_KINDS}")
 
 
 class Block(nn.Module):
@@ -95,21 +100,58 @@ def lm_params(model: LM) -> dict:
     """``model``'s parameter tree: the module's own tensors (shared storage,
     no copies), in the layout :func:`lm_forward_train` and :func:`lm_loss`
     read and ``LM(cfg, tree)`` builds a module from."""
-    def group(p) -> dict[str, Tensor]:
-        return dict(p.named_parameters())
-
     tree = {"embed": model.embed,
-            "blocks": [{part: group(b[part]) for part in Block.PARTS} for b in model.blocks],
-            "final_norm": group(model.final_norm)}
+            "blocks": [{part: b[part].tree() for part in Block.PARTS} for b in model.blocks],
+            "final_norm": model.final_norm.tree()}
     if model.head is not None:
         tree["head"] = model.head
     return tree
 
 
+def lm_stacked(cfg: ModelConfig, tree: dict, fn) -> dict:
+    """``tree`` (the per-layer layout of :func:`lm_params`) in the JAX
+    package's layout: ``{"embed", "scan": {"b<i>": ...}, "tail": [...],
+    "final_norm", "head"?}``, the scanned superblocks' leaves stacked on a
+    leading ``n_super`` axis there. Each leaf is ``fn(tensors, stacked)``:
+    the per-layer tensors of one JAX leaf and whether the JAX package
+    stacks them."""
+    width, n_super = len(cfg.block_pattern), cfg.n_super
+    blocks = tree["blocks"]
+
+    def one(t):
+        return fn([t], False)
+
+    out = {"embed": one(tree["embed"]), "final_norm": tree_map(one, tree["final_norm"]),
+           "tail": [tree_map(one, b) for b in blocks[n_super * width:]]}
+    if n_super:
+        out["scan"] = {f"b{i}": tree_map(lambda *ts: fn(list(ts), True),
+                                         *blocks[i:n_super * width:width])
+                       for i in range(width)}
+    if "head" in tree:
+        out["head"] = one(tree["head"])
+    return out
+
+
+def lm_leaf_groups(cfg: ModelConfig, tree: dict) -> list[tuple[list, bool]]:
+    """The leaves of ``tree`` grouped by the JAX layout's leaves, in its
+    flatten order: ``(per-layer tensors, stacked)`` each (see
+    :func:`lm_stacked`)."""
+    groups: list = []
+
+    def note(tensors, stacked):
+        groups.append((tensors, stacked))
+        return len(groups) - 1
+
+    return [groups[i] for i in tree_leaves(lm_stacked(cfg, tree, note))]
+
+
 def _init_block(cfg: ModelConfig, kind: str, ini: L.Init) -> dict:
     mixer = {"attn": L.init_attention, "local_attn": L.init_attention,
              "rglru": R.init_rglru, "rwkv6": R.init_rwkv_tmix}[kind]
-    ffn = R.init_rwkv_cmix if kind == "rwkv6" else L.init_ffn
+    if kind == "rwkv6":
+        ffn = R.init_rwkv_cmix
+    else:
+        ffn = L.init_moe if cfg.n_experts else L.init_ffn
     return {"norm1": L.init_norm(cfg, ini), "mixer": mixer(cfg, ini),
             "norm2": L.init_norm(cfg, ini), "ffn": ffn(cfg, ini)}
 
@@ -159,7 +201,9 @@ def build_cache(cfg: ModelConfig, batch: int, length: int, *, device=None) -> li
 
 def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill):
     """One block of ``kind`` with parameters ``p`` (a :class:`Block` or its
-    tree). Returns ``(x, new cache)``."""
+    tree). Returns ``(x, new cache, aux)``, ``aux`` the MoE loss (None
+    without experts, so other blocks add no work)."""
+    aux = None
     h = L.apply_norm(cfg, p["norm1"], x)
     new_cache = cache
     if kind in ("attn", "local_attn"):
@@ -191,19 +235,25 @@ def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill):
                                   cache=None if (prefill or cache is None) else cache["cmix"])
         if cache is not None:
             new_cache = {**new_cache, "cmix": c3}
+    elif cfg.n_experts:
+        y, aux = L.apply_moe(cfg, p["ffn"], h)
     else:
         y = L.apply_ffn(cfg, p["ffn"], h)
-    return x + y, new_cache
+    return x + y, new_cache, aux
 
 
 def _run_blocks(cfg, params, x: Tensor, *, cache=None, pos=None, prefill=False):
+    """Every block in layer order -> ``(x, new cache, aux summed over layers)``."""
     new_cache = [] if cache is not None else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["blocks"])):
-        x, c = _apply_block(cfg, kind, p, x, cache=None if cache is None else cache[i],
-                            pos=pos, prefill=prefill)
+        x, c, aux = _apply_block(cfg, kind, p, x, cache=None if cache is None else cache[i],
+                                 pos=pos, prefill=prefill)
+        if aux is not None:
+            aux_total = aux_total + aux
         if cache is not None:
             new_cache.append(c)
-    return x, new_cache
+    return x, new_cache, aux_total
 
 
 def _embed(cfg, params, tokens: Tensor) -> Tensor:
@@ -220,12 +270,12 @@ def _logits(cfg, params, x: Tensor) -> Tensor:
 
 @torch.no_grad()
 def lm_forward(cfg: ModelConfig, model: LM, tokens: Tensor):
-    """Plain forward (no cache): ``(logits (B, S, V), aux)``; ``aux`` (the
-    MoE loss of the JAX package) is zero for every ported kind."""
+    """Plain forward (no cache): ``(logits (B, S, V), aux)``; ``aux`` is the
+    MoE load-balancing loss summed over layers (zero without experts)."""
     x = _embed(cfg, model, tokens)
-    x, _ = _run_blocks(cfg, model, x)
+    x, _, aux = _run_blocks(cfg, model, x)
     x = L.apply_norm(cfg, model["final_norm"], x)
-    return _logits(cfg, model, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(cfg, model, x), aux
 
 
 @torch.no_grad()
@@ -233,7 +283,7 @@ def lm_prefill(cfg: ModelConfig, model: LM, tokens: Tensor, cache: list):
     """Runs the full prompt ``tokens (B, S)`` and fills the cache. Returns
     ``(last logits (B, V), cache)``."""
     x = _embed(cfg, model, tokens)
-    x, cache = _run_blocks(cfg, model, x, cache=cache, prefill=True)
+    x, cache, _ = _run_blocks(cfg, model, x, cache=cache, prefill=True)
     x = L.apply_norm(cfg, model["final_norm"], x)
     return _logits(cfg, model, x[:, -1:, :])[:, 0], cache
 
@@ -243,7 +293,7 @@ def lm_decode(cfg: ModelConfig, model: LM, token: Tensor, cache: list, pos: int)
     """One decode step. ``token`` (B,), ``pos`` the scalar absolute
     position. Returns ``(logits (B, V), new cache)``."""
     x = _embed(cfg, model, token[:, None])
-    x, cache = _run_blocks(cfg, model, x, cache=cache, pos=int(pos))
+    x, cache, _ = _run_blocks(cfg, model, x, cache=cache, pos=int(pos))
     x = L.apply_norm(cfg, model["final_norm"], x)
     return _logits(cfg, model, x)[:, 0], cache
 
@@ -257,20 +307,29 @@ def lm_forward_train(cfg: ModelConfig, params, tokens: Tensor):
     """The forward under autograd: ``(logits (B, S, V), aux)``, gradients
     flowing to every tensor of ``params`` (a tree, :func:`lm_params`) that
     requires them. With ``cfg.remat`` each block runs under
-    ``torch.utils.checkpoint`` (its activations recomputed in the backward;
-    only ``remat_policy="full"`` is ported)."""
+    ``torch.utils.checkpoint`` (its activations recomputed in the backward,
+    the expert-parallel MoE's collectives with them, on every rank in one
+    order; only ``remat_policy="full"`` is ported)."""
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} is not ported; the port rematerialises "
             "whole blocks (remat_policy='full')")
     x = _embed(cfg, params, tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # The backward's recompute runs after the caller's ``use_mesh`` block
+    # has exited: each block re-installs the mesh it ran under.
+    mesh = _ambient_mesh()
     for kind, p in zip(cfg.layer_kinds, params["blocks"]):
         def block(x, kind=kind, p=p):
-            return _apply_block(cfg, kind, p, x, cache=None, pos=None, prefill=False)[0]
+            with use_mesh(mesh):
+                x, _, aux = _apply_block(cfg, kind, p, x, cache=None, pos=None, prefill=False)
+            return x, aux
 
-        x = checkpoint(block, x, use_reentrant=False) if cfg.remat else block(x)
+        x, aux = checkpoint(block, x, use_reentrant=False) if cfg.remat else block(x)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = L.apply_norm(cfg, params["final_norm"], x)
-    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(cfg, params, x), aux_total
 
 
 def lm_loss(cfg: ModelConfig, params, batch) -> tuple[Tensor, dict]:

@@ -13,7 +13,7 @@ vectors) and no first moment. :func:`optimizer_config_from_model` reads a
 model config's training defaults, as in the JAX package. ``opt_state_axes``
 (the optimizer state's logical sharding axes) has no counterpart while the
 LM trainer runs on one device: it waits for the LM sharding slice (ROADMAP
-M13b.3).
+M13b.3b).
 """
 
 from __future__ import annotations

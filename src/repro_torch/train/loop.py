@@ -3,7 +3,7 @@ preemption-safe checkpointing, step-time watchdog and loss monitors.
 
 The port of ``repro/train/loop.py`` on one device (a device takes the
 mesh's place; data-parallel training over ranks waits for the LM sharding
-slice, ROADMAP M13b.3).
+slice, ROADMAP M13b.3b).
 
   * :func:`make_train_step` — ``train_step(params, opt_state, batch) ->
     (params, opt_state, metrics)``: the master weights are cast to
@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import build_lm, lm_loss, lm_params
+from repro_torch.models.lm import build_lm, lm_leaf_groups, lm_loss, lm_params, lm_stacked
 from repro_torch.obs import events, metrics
 from repro_torch.obs.health import HealthMonitor
 from repro_torch.optim.optimizers import (
@@ -65,24 +65,53 @@ class TrainConfig:
     health_policy: str = "abort"     # warn | abort | checkpoint-then-abort
 
 
-def _update_in_place(update: Callable, grads: Any, state, params: Any):
-    """``update(grads, state, params)`` applied leaf by leaf, each result
-    copied into the leaf's own tensors; returns ``(params, state)`` with
-    the state's step advanced. Each leaf's arithmetic is the tree update's."""
+def _stacked_state(opt_cfg: OptimizerConfig) -> bool:
+    """Whether the optimizer's state takes the JAX package's stacked LM
+    layout (:func:`~repro_torch.models.lm.lm_stacked`). AdamW's moments are
+    elementwise, so its per-layer state updates exactly as the stacked one
+    does; Adafactor couples the layers of a scanned leaf (it factors by the
+    stacked shape and clips the update over the whole leaf), so its state
+    is kept stacked and each update sees the stacked leaf."""
+    return opt_cfg.name == "adafactor"
+
+
+def _leaf_groups(cfg: ModelConfig, opt_cfg: OptimizerConfig, tree: Any) -> list:
+    """The tree's tensors that each optimizer state leaf updates, in the
+    state's flatten order: ``(tensors, stacked)`` pairs."""
+    if _stacked_state(opt_cfg):
+        return lm_leaf_groups(cfg, tree)
+    return [([t], False) for t in tree_flatten(tree)[0]]
+
+
+def _update_in_place(update: Callable, p_groups: list, g_groups: list, state):
+    """``update(grads, state, params)`` applied leaf by leaf of the state,
+    each on its group of parameters and gradients (stacked when the group
+    is, :func:`_leaf_groups`), the results copied into the parameters' own
+    tensors and the state's; returns the state with its step advanced.
+    Each leaf's arithmetic is the tree update's."""
     fields = state._fields[1:]
-    p_leaves = tree_flatten(params)[0]
-    g_leaves = tree_flatten(grads)[0]
     s_leaves = [tree_flatten(getattr(state, f))[0] for f in fields]
     step = state.step
     with torch.no_grad():
-        for i, (p, g) in enumerate(zip(p_leaves, g_leaves)):
+        for i, ((ps, stacked), (gs, _)) in enumerate(zip(p_groups, g_groups)):
             one = type(state)(state.step, *(leaves[i] for leaves in s_leaves))
+            p, g = (torch.stack(ps), torch.stack(gs)) if stacked else (ps[0], gs[0])
             new_p, new_s = update(g, one, p)
-            p.copy_(new_p)
+            for dst, src in zip(ps, new_p.unbind(0) if stacked else (new_p,)):
+                dst.copy_(src)
             for leaves, f in zip(s_leaves, fields):
                 leaves[i].copy_(getattr(new_s, f))
             step = new_s.step
-    return params, state._replace(step=step)
+    return state._replace(step=step)
+
+
+def _saveable(state: Any) -> Any:
+    """``state`` as the checkpoint store takes it: bfloat16 leaves (arctic's
+    parameters, qwen3-moe's moments) widened to float32 on the host, which
+    is exact; restoring into the bfloat16 template casts them back bit for
+    bit."""
+    return tree_map(lambda t: t.to("cpu", torch.float32)
+                    if isinstance(t, Tensor) and t.dtype == torch.bfloat16 else t, state)
 
 
 def _to_device(batch: Any, device) -> Any:
@@ -128,7 +157,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         else:
             loss, metrics_aux, grads = value_and_grad(leaves, treedef, batch)
         grads, gnorm = clip_by_global_norm(tree_unflatten(treedef, grads), opt_cfg.grad_clip)
-        params, opt_state = _update_in_place(update, grads, opt_state, params)
+        opt_state = _update_in_place(update, _leaf_groups(cfg, opt_cfg, params),
+                                     _leaf_groups(cfg, opt_cfg, grads), opt_state)
         out = {"loss": loss, "grad_norm": gnorm}
         out.update({k: v.detach() for k, v in metrics_aux.items() if k != "loss"})
         return params, opt_state, out
@@ -139,11 +169,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
 def init_train_state(cfg: ModelConfig, device=None, seed: int = 0):
     """``(params, opt_state)`` of ``cfg`` on ``device`` (``None``: the
     card): the weights :func:`~repro_torch.models.build_lm` draws from
-    ``seed`` and the optimizer the config names, freshly initialised."""
+    ``seed`` and the optimizer the config names, freshly initialised (in
+    the stacked layout for Adafactor, :func:`_stacked_state`)."""
     dev = resolve_device(device)
     params = tree_map(lambda p: p.detach(), lm_params(build_lm(cfg, seed, device=dev)))
-    opt_init, _ = make_optimizer(optimizer_config_from_model(cfg))
-    return params, opt_init(params)
+    opt_cfg = optimizer_config_from_model(cfg)
+    opt_init, _ = make_optimizer(opt_cfg)
+    if not _stacked_state(opt_cfg):
+        return params, opt_init(params)
+    # The state's shapes from the stacked layout's, then zeros on the device.
+    meta = lm_stacked(cfg, params, lambda ts, stacked: torch.empty(
+        ((len(ts),) if stacked else ()) + tuple(ts[0].shape), dtype=ts[0].dtype, device="meta"))
+    return params, tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
+                            opt_init(meta))
 
 
 def shape_for_microbatches(batch: Any, microbatches: int) -> Any:
@@ -266,7 +304,7 @@ def train(cfg: ModelConfig, train_cfg: TrainConfig, dataset, *, device=None, see
                 raise ValueError("health_policy='checkpoint-then-abort' needs ckpt_dir")
 
             def ckpt_fn(s, state):
-                return save_checkpoint(train_cfg.ckpt_dir, s, state,
+                return save_checkpoint(train_cfg.ckpt_dir, s, _saveable(state),
                                        {"step": s, "reason": "health-abort"})
         monitor = HealthMonitor(
             cadence=train_cfg.health_every,
@@ -296,18 +334,18 @@ def train(cfg: ModelConfig, train_cfg: TrainConfig, dataset, *, device=None, see
                 log_fn(f"[train] step {step} loss {loss:.4f} "
                        f"gnorm {float(step_metrics['grad_norm']):.3f} {dt*1e3:.0f}ms{flag}")
             if manager and step and step % train_cfg.ckpt_every == 0:
-                manager.save_async(step, (params, opt_state), {"step": step})
+                manager.save_async(step, _saveable((params, opt_state)), {"step": step})
             if preempted["flag"]:
                 log_fn(f"[train] SIGTERM at step {step}: sync checkpoint + exit")
                 if manager:
                     manager.wait()
-                    manager.save_async(step, (params, opt_state), {"step": step})
+                    manager.save_async(step, _saveable((params, opt_state)), {"step": step})
                     manager.wait()
                 break
         else:
             if manager:
                 manager.wait()
-                manager.save_async(train_cfg.steps - 1, (params, opt_state),
+                manager.save_async(train_cfg.steps - 1, _saveable((params, opt_state)),
                                    {"step": train_cfg.steps - 1})
                 manager.wait()
     finally:

@@ -3,8 +3,10 @@
 The port imports nothing of JAX, so it walks its own trees, with the rules
 ``jax.tree`` follows: dicts in sorted-key order, lists, tuples and
 NamedTuples (the optimizers' states) are nodes, ``None`` is an empty
-subtree, anything else is a leaf. Parameters, gradients, optimizer states,
-batches and checkpoints all go through these functions.
+subtree, anything else is a leaf; an ``is_leaf`` predicate, as
+``jax.tree``'s, makes more nodes leaves (a shape or a spec tuple).
+Parameters, gradients, optimizer states, batches and checkpoints all go
+through these functions.
 """
 
 from __future__ import annotations
@@ -42,37 +44,41 @@ class TreeDef:
     __repr__ = __str__
 
 
-def _flatten(tree: Any, path: str, leaves: list, paths: list) -> TreeDef:
+def _flatten(tree: Any, path: str, leaves: list, paths: list, is_leaf=None) -> TreeDef:
+    if is_leaf is not None and is_leaf(tree):
+        leaves.append(tree)
+        paths.append(path or "<root>")
+        return TreeDef("leaf")
     if tree is None:
         return TreeDef("none")
     if isinstance(tree, Mapping):
         keys = tuple(sorted(tree))
-        return TreeDef("dict", keys, tuple(_flatten(tree[k], f"{path}[{k!r}]", leaves, paths)
-                                           for k in keys))
+        return TreeDef("dict", keys, tuple(
+            _flatten(tree[k], f"{path}[{k!r}]", leaves, paths, is_leaf) for k in keys))
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return TreeDef("namedtuple", type(tree),
-                       tuple(_flatten(v, f"{path}.{f}", leaves, paths)
+                       tuple(_flatten(v, f"{path}.{f}", leaves, paths, is_leaf)
                              for f, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         return TreeDef(type(tree).__name__, None,
-                       tuple(_flatten(v, f"{path}[{i}]", leaves, paths)
+                       tuple(_flatten(v, f"{path}[{i}]", leaves, paths, is_leaf)
                              for i, v in enumerate(tree)))
     leaves.append(tree)
     paths.append(path or "<root>")
     return TreeDef("leaf")
 
 
-def tree_flatten_with_paths(tree: Any) -> tuple[list, list[str], TreeDef]:
+def tree_flatten_with_paths(tree: Any, is_leaf=None) -> tuple[list, list[str], TreeDef]:
     """``(leaves, paths, treedef)``: each leaf's path reads like
     ``['mu']['embed']``."""
     leaves: list = []
     paths: list = []
-    return leaves, paths, _flatten(tree, "", leaves, paths)
+    return leaves, paths, _flatten(tree, "", leaves, paths, is_leaf)
 
 
-def tree_flatten(tree: Any) -> tuple[list, TreeDef]:
+def tree_flatten(tree: Any, is_leaf=None) -> tuple[list, TreeDef]:
     """``(leaves, treedef)``, leaves in ``jax.tree.flatten``'s order."""
-    leaves, _, treedef = tree_flatten_with_paths(tree)
+    leaves, _, treedef = tree_flatten_with_paths(tree, is_leaf)
     return leaves, treedef
 
 
@@ -101,19 +107,19 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     return _build(treedef, iter(leaves))
 
 
-def _map_leaves(fn: Callable, tree: Any, rest: tuple) -> tuple[TreeDef, list]:
-    leaves, treedef = tree_flatten(tree)
-    others = [tree_flatten(t) for t in rest]
+def _map_leaves(fn: Callable, tree: Any, rest: tuple, is_leaf=None) -> tuple[TreeDef, list]:
+    leaves, treedef = tree_flatten(tree, is_leaf)
+    others = [tree_flatten(t, is_leaf) for t in rest]
     for _, d in others:
         if d != treedef:
             raise ValueError(f"tree structures differ: {treedef} vs {d}")
     return treedef, [fn(*xs) for xs in zip(leaves, *(o for o, _ in others))]
 
 
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+def tree_map(fn: Callable, tree: Any, *rest: Any, is_leaf=None) -> Any:
     """``fn`` over the leaves of ``tree`` (and of ``rest``, trees of the same
     structure, leaf by leaf), the structure kept."""
-    treedef, out = _map_leaves(fn, tree, rest)
+    treedef, out = _map_leaves(fn, tree, rest, is_leaf)
     return tree_unflatten(treedef, out)
 
 

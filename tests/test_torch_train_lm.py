@@ -333,8 +333,11 @@ def test_launcher_and_example_train_on_the_cpu(tmp_path, capsys):
             "--ckpt-every", "1"])
     assert "[train] step 0 loss" in capsys.readouterr().out
     assert latest_step(tmp_path / "a") == 1
-    with pytest.raises(KeyError, match=r"ROADMAP M13b\.3"):
-        launch(["--arch", "qwen3-moe-235b-a22b", "--smoke", "--device", "cpu"])
+    launch(["--arch", "qwen3-moe-235b-a22b", "--smoke", "--device", "cpu", "--steps", "2",
+            "--global-batch", "2", "--seq", "16"])
+    assert "[train] step 0 loss" in capsys.readouterr().out
+    with pytest.raises(KeyError, match=r"ROADMAP M13b\.4"):
+        launch(["--arch", "hubert-xlarge", "--smoke", "--device", "cpu"])
     env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
     out = subprocess.run(
         [sys.executable, str(REPO / "examples" / "torch_train_lm.py"), "--arch", "rwkv6-3b",

@@ -51,6 +51,21 @@ def test_map_split_returns_one_tree_per_value():
     assert tree_flatten(lo)[1] == tree_flatten(a)[1] == tree_flatten(hi)[1]
 
 
+def test_is_leaf_makes_tuples_leaves_as_jax_does():
+    # The MoE's shapes and specs are tuples, leaves beside the parameters.
+    shapes = {"router": (4, 8), "dense": {"w1": (4, 6), "w2": (6, 4)}}
+    axes = {"router": ("fsdp", "experts"), "dense": {"w1": ("fsdp", "mlp"),
+                                                     "w2": ("mlp", None)}}
+    is_tuple = lambda x: isinstance(x, tuple)  # noqa: E731
+    got = tree_map(lambda s, a: list(zip(a, s)), shapes, axes, is_leaf=is_tuple)
+    want = jax.tree.map(lambda s, a: list(zip(a, s)), shapes, axes, is_leaf=is_tuple)
+    assert got == want
+    assert tree_leaves(shapes) == jax.tree.leaves(shapes) == [4, 6, 6, 4, 4, 8]
+    assert tree_flatten(shapes, is_tuple)[0] == jax.tree.leaves(shapes, is_leaf=is_tuple)
+    with pytest.raises(ValueError, match="structures differ"):
+        tree_map(lambda s, a: s, shapes, {"router": axes["router"]}, is_leaf=is_tuple)
+
+
 def test_namedtuple_states_keep_their_class():
     for cls in (AdamWState, AdafactorState):
         st = cls(torch.tensor(1), {"w": torch.ones(2)}, [torch.zeros(2)])

@@ -141,11 +141,11 @@ def _numpy(y):
 
 
 def _shard(x, mesh, spec):
-    from repro_torch.dist import shard_block
+    from repro_torch.dist import shard_param
 
     if isinstance(x, dict):
-        return {f: shard_block(a, mesh, spec) for f, a in x.items()}
-    return shard_block(x, mesh, spec)
+        return {f: shard_param(a, mesh, spec) for f, a in x.items()}
+    return shard_param(x, mesh, spec)
 
 
 def _gather(y, mesh, spec):
@@ -518,6 +518,78 @@ def reduce_suite(rank, world, grads):
                             reduce_gradients(mine, group=alone, method="none"))
     out["wire"] = compress_bf16(mine["w"]).float().numpy()
     return out
+
+
+def _moe_cfg(arch: str, overrides: dict):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config(arch), **overrides)
+
+
+def moe_suite(rank, world, layer_cases, lm_cases):
+    """The expert-parallel MoE on gloo ranks, each case on a ``("data",
+    "model")`` mesh of the world's ranks (no JAX here).
+
+    ``layer_cases``: ``{key: (arch, config overrides, mesh shape, whole
+    MoE params (numpy tree), x (B, S, D))}``: every rank holds its
+    ``shard_moe_params`` pieces and its ``spec_for(batch)`` block of ``x``
+    and calls ``apply_moe`` under the ambient mesh (``S > 1``: the
+    expert-parallel path or its fallback; ``S == 1``: the one-token step);
+    returns ``(y gathered whole, aux)``. ``lm_cases``: ``{key: (arch,
+    overrides, mesh shape, JAX-layout numpy LM params, batch)}``: the
+    loss, its metrics and every gradient (the MoE leaves gathered whole)
+    through ``lm_loss`` with each MoE layer sharded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.sharding import gather_blocks, shard_param, spec_for, use_mesh
+    from repro_torch.interop import lm_tree_from_numpy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+    meshes = {}
+
+    def mesh_of(shape):
+        shape = tuple(shape)
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), backend="gloo", device="cpu")
+        return meshes[shape]
+
+    def tensors(tree, dtype):
+        return tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)).to(dtype), tree)
+
+    layers = {}
+    for key, (arch, over, shape, params, x) in layer_cases.items():
+        cfg, mesh = _moe_cfg(arch, over), mesh_of(shape)
+        mine = L.shard_moe_params(cfg, tensors(params, getattr(torch, cfg.param_dtype)), mesh)
+        xspec = spec_for(("batch", "seq", "embed"), mesh, x.shape)
+        xl = shard_param(torch.from_numpy(x.copy()), mesh, xspec)
+        with use_mesh(mesh):
+            y, aux = L.apply_moe(cfg, mine, xl)
+        layers[key] = (gather_blocks(y, mesh, xspec).float().numpy(), float(aux))
+
+    lms = {}
+    for key, (arch, over, shape, jtree, batch) in lm_cases.items():
+        cfg, mesh = _moe_cfg(arch, over), mesh_of(shape)
+        tree = tensors(lm_tree_from_numpy(cfg, jtree), getattr(torch, cfg.param_dtype))
+        for blk in tree["blocks"]:
+            blk["ffn"] = L.shard_moe_params(cfg, blk["ffn"], mesh)
+        leaves, treedef = tree_flatten(tree)
+        work = [p.requires_grad_(True) for p in leaves]
+        with use_mesh(mesh):
+            loss, metrics = lm_loss(cfg, tree_unflatten(treedef, work),
+                                    {k: torch.from_numpy(v) for k, v in batch.items()})
+        grads = tree_unflatten(treedef, list(torch.autograd.grad(loss, work)))
+        with torch.no_grad():
+            for blk in grads["blocks"]:
+                blk["ffn"] = L.gather_moe_params(cfg, blk["ffn"], mesh)
+        lms[key] = {"loss": float(loss.detach()), "aux_loss": float(metrics["aux_loss"].detach()),
+                    "grads": tree_map(lambda t: t.float().numpy(), grads)}
+    return {"layers": layers, "lms": lms}
 
 
 def failing_rank(rank, world, store):
