@@ -18,8 +18,10 @@ store, LM training at published widths on RecurrentGemma 2B (K6 forward
 and backward) and RWKV-6 3B (K7 and its backward kernel), the dense
 LMs (qwen1.5-0.5b served, with a 4096-token flash prefill, and trained;
 starcoder2-3b's 4096-token blocked local prefill), and the MoE LMs
-(qwen3-moe served at 4 layers and trained at 1, arctic served at 1, at
-published widths; the expert-parallel MoE on gloo ranks) — and holds
+(qwen3-moe served at 4 layers and trained at 1, arctic served and trained
+at 1, at published widths; the expert-parallel MoE on gloo ranks), and the
+LM trainer sharded over gloo ranks (FSDP storage, data-parallel compute) —
+and holds
 every hand-written kernel against its plain PyTorch version on the card. Each phase prints one JSON line (``t_s``: the
 script's seconds so far when it was printed):
 
@@ -277,7 +279,11 @@ script's seconds so far when it was printed):
               ``train()`` on ``qwen3-moe-235b-a22b`` at its published widths
               and 1 of 94 layers (3.70 G parameters), the same schedule: no
               kernel, finite losses near ln 151936, the profiled step's MoE
-              aux loss above 0
+              aux loss above 0 (its peak: the in-place clip and the update
+              slice by slice); (h) ``train()`` on ``arctic-480b`` at its
+              published widths and 1 of 35 layers (14.1 G parameters, bf16
+              weights and gradients, Adafactor), 3 steps: no kernel, finite
+              losses near ln 32000, aux above 0, peak memory
   moe_sharded the expert-parallel MoE (``apply_moe_sharded``) on 4 gloo ranks
               time-sharing the one card (TF32 off), ``("data", "model")``
               meshes (1, 4) and (2, 2): (a) a smoke MoE layer of each arch,
@@ -292,6 +298,35 @@ script's seconds so far when it was printed):
               over ``model`` exactly T_loc x D x 2 bytes, its host ms and
               the layer's; no kernel launched. Host times are ranks sharing
               one H100 through host memory: not a multi-GPU figure
+  train_sharded
+              the LM trainer sharded over gloo ranks time-sharing the one
+              card (TF32 off; each rank holds its pieces of every parameter,
+              gradient and moment by the JAX rules and computes its rows of
+              the global batch with gathered weights): (a) 4 ranks, the
+              smoke ``qwen1.5-0.5b``, ``recurrentgemma-2b`` (K6),
+              ``rwkv6-3b`` (K7, K7's backward), ``qwen3-moe-235b-a22b`` and
+              ``arctic-480b`` at f32 (MoE dropless), remat, 2 microbatches,
+              ``-100`` labels spread unevenly, 2 steps on each of (4, 1),
+              (2, 2), (1, 4) ``("data", "model")``: every rank's loss and
+              grad norm equal, within 1e-5 relative of one process's steps
+              on the whole batch on the card (the second grad norm 5e-5),
+              every parameter and moment gathered within 2e-4 (a bf16
+              leaf: and 2^-8 of its value), the port kernels' launches
+              exactly 3 K6, 2 K7 and 1 K7' a layer a microbatch on every
+              rank, summed over the ranks into the kernels line; (b)
+              ``qwen1.5-0.5b`` at published widths, 24 layers, on (4, 1),
+              4 steps of 4 x 256 tokens: losses within 1e-2 of the train
+              phase's one-device ones (bf16 compute), host ms a step
+              (median of the ranks, slowest), peak GB a rank and summed,
+              the bytes of gathers and gradient sums a rank a step equal to
+              ``shard_wire_reckoning`` from the shapes; (c)
+              ``qwen3-moe-235b-a22b`` at published widths, 1 of 94 layers,
+              on (1, 2) (64 experts a rank), 3 steps of 4 x 256 tokens: the
+              same figures, aux above 0. In (b) and (c) each rank runs one
+              step more under torch.profiler, split into its device kernel
+              time, its device copy time and its host time inside gloo's
+              collectives. Host times are ranks sharing one H100 through
+              host memory: not a multi-GPU figure
 
 Then the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (each
 kernel's launches from the path that runs it), and last
@@ -391,6 +426,22 @@ MOE_TOL = 2e-4  # float32, sharded against local (the JAX package's sharded chec
 MOE_TIMEOUT = 600  # seconds for the moe_sharded spawn, start-up included
 TRAIN_TOL = 2e-4  # a trainer step, card vs CPU at float32 (tests/test_torch_train_lm.py)
 DELTA_TOL = 1e-2  # each leaf's step delta, as a share of its largest (the same file)
+ARCTIC_TRAIN_ARCH = "arctic-480b"
+ARCTIC_TRAIN_LAYERS = 1  # 14.1 G parameters: bf16 weights and grads, Adafactor, sliced update
+ARCTIC_TRAIN_STEPS = 3
+SHARDED_RANKS = 4  # the train_sharded phase's gloo ranks, time-sharing the one card
+SHARDED_MESHES = ((4, 1), (2, 2), (1, 4))  # ("data", "model"), part (a)
+SHARDED_SMOKE = ("qwen1.5-0.5b", "recurrentgemma-2b", "rwkv6-3b", "qwen3-moe-235b-a22b",
+                 "arctic-480b")
+SHARDED_SMOKE_SEQ = {"rwkv6-3b": 128}  # two 64-step chunks: K7 and its backward run
+SHARDED_BATCH, SHARDED_MB, SHARDED_STEPS = 8, 2, 2  # part (a): 1 row a rank a microbatch
+SHARDED_DENSE_MESH, SHARDED_DENSE_STEPS = (4, 1), 4  # part (b): qwen1.5-0.5b, 24 layers
+SHARDED_MOE_MESH, SHARDED_MOE_STEPS = (1, 2), 3  # part (c): qwen3-moe, 64 experts a rank
+SHARDED_MOE_BATCH = TRAIN_BATCH  # rows of 256 tokens
+SHARDED_LOSS_REL = 1e-5  # both losses and the first grad norm (tests/test_torch_train_sharded.py)
+SHARDED_NORM2_REL = 5e-5  # the second grad norm, ranks against one process (same file)
+SHARDED_FULL_LOSS = 1e-2  # bf16 compute: 4 ranks' rows against one device's whole batch
+SHARDED_TIMEOUT = 900  # seconds for each spawn, start-up included
 L2_BYTES = 50 * 2**20  # the H100's L2 (data sheet)
 T_START = time.perf_counter()
 
@@ -929,6 +980,260 @@ def _moe_rank_body(rank, world, store):
         return found
     finally:
         dist.destroy_process_group()
+
+
+def sharded_smoke_cfg(arch):
+    """Part (a)'s config: the arch's smoke config at float32 compute, remat
+    on, and dropless for the MoE archs (each data rank routes its own
+    tokens: a capacity from a rank's tokens would drop others than one from
+    the whole batch)."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32", remat=True)
+    return dataclasses.replace(cfg, capacity_factor=MOE_DROPLESS) if cfg.n_experts else cfg
+
+
+def sharded_batches(vocab, seq, n, seed):
+    """``n`` global batches of SHARDED_BATCH rows, labels ``-100`` unevenly
+    over the rows (so over the ranks and microbatches)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        toks = rng.integers(0, vocab, (SHARDED_BATCH, seq + 1)).astype(np.int32)
+        labels = toks[:, 1:].copy()
+        labels[0, :seq // 3] = -100
+        labels[1, :seq - 1] = -100
+        labels[5, 3:seq // 2] = -100
+        labels[6, i] = -100
+        out.append({"tokens": toks[:, :-1].copy(), "labels": labels})
+    return out
+
+
+def shard_wire_reckoning(cfg, shape, tokens: int) -> dict:
+    """The bytes one rank of a ``("data", "model")`` mesh of ``shape``
+    receives by the trainer's parameter gathers and hands to its gradient
+    sums in one step of ``tokens`` (the global batch's), one microbatch,
+    from the shapes alone: each leaf's ``spec_for``, the compute dtype, one
+    gather a use (a block's leaves twice with remat, the forward's and the
+    recompute's; a tied embedding at each end), one sum a use in the
+    backward (the whole gradient all-reduced: gloo has no reduce-scatter),
+    and a leaf that no data axis splits summed whole by its ``copy_to``.
+    An MoE layer's ``ffn`` takes the expert-parallel path: its router
+    gathered whole in float32, its expert and dense leaves over the data
+    axes only (their ``model`` piece kept), and the tokens (compute dtype)
+    and gates (float32) entering the expert region summed over ``model``
+    in the backward."""
+    import math
+
+    from repro_torch.dist.sharding import _is_axes_leaf, spec_for
+    from repro_torch.models.lm import lm_axes, lm_meta
+    from repro_torch.tree import tree_flatten
+
+    sizes = dict(zip(("data", "model"), shape))
+    mesh = type("Shape", (), {"axis_names": tuple(sizes), "shape": tuple(shape)})()
+    itemsize = 4 if cfg.compute_dtype == "float32" else 2
+    got = {"gather": 0, "grad_sum": 0}
+
+    def add(ax_tree, m_tree, n_fwd, n_bwd, expert=False):
+        for ax, t in zip(tree_flatten(ax_tree, is_leaf=_is_axes_leaf)[0],
+                         tree_flatten(m_tree)[0]):
+            spec = spec_for(ax, mesh, t.shape)
+            entries = [(e,) if isinstance(e, str) else tuple(e or ()) for e in spec]
+            width = 4 if expert and ax == ("fsdp", "experts") else itemsize  # router: f32
+            size = t.numel() * width // math.prod(sizes[a] for e in entries for a in e)
+            if sizes["data"] > 1 and not any("data" in e for e in entries):
+                got["grad_sum"] += n_bwd * size  # copy_to over the data axis
+            # One gather a sharded dim, in dim order (``model`` kept on the
+            # expert path); the backward of each sums over its data axes the
+            # gradient of its output, the later gathers' narrowing undone.
+            for e in entries:
+                gathered = [a for a in e if not (expert and a == "model" and ax != (
+                    "fsdp", "experts"))]
+                count = math.prod(sizes[a] for a in gathered)
+                if count == 1:
+                    continue
+                got["gather"] += n_fwd * size * (count - 1)
+                size *= count
+                if "data" in gathered and sizes["data"] > 1:
+                    got["grad_sum"] += n_bwd * size
+
+    axes, meta = lm_axes(cfg), lm_meta(cfg)
+    ends = 2 if cfg.tied_embeddings else 1
+    add(axes["embed"], meta["embed"], ends, ends)
+    add(axes["final_norm"], meta["final_norm"], 1, 1)
+    if "head" in axes:
+        add(axes["head"], meta["head"], 1, 1)
+    n_fwd = 2 if cfg.remat else 1
+    for kind, ax, m in zip(cfg.layer_kinds, axes["blocks"], meta["blocks"]):
+        moe = bool(cfg.n_experts) and kind != "rwkv6"
+        add({k: v for k, v in ax.items() if not (moe and k == "ffn")},
+            {k: v for k, v in m.items() if not (moe and k == "ffn")}, n_fwd, 1)
+        if moe:
+            add(ax["ffn"], m["ffn"], n_fwd, 1, expert=True)
+            if sizes["model"] > 1:
+                t_loc = tokens // sizes["data"]
+                got["grad_sum"] += t_loc * cfg.d_model * itemsize + t_loc * cfg.top_k * 4
+    return got
+
+
+def _train_sharded_rank_body(rank, world, store, job):
+    """The sharded LM trainer on ``world`` gloo ranks time-sharing the one
+    card (TF32 off), or on the CPU when ``job["device"]`` is ``"cpu"`` (a
+    rehearsal). ``job["part"]``: ``"smoke"`` runs SHARDED_STEPS steps of
+    each of ``job["archs"]``' smoke configs (:func:`sharded_smoke_cfg`) on
+    each mesh of ``job["meshes"]``, SHARDED_MB microbatches, and returns
+    each case's metrics, its port-kernel launches and (rank 0) the
+    parameters and moments gathered whole; ``"full"`` runs ``job["steps"]``
+    steps of ``job["cfg"]`` on ``job["mesh"]`` over SyntheticLM batches of
+    ``job["batch"]`` x TRAIN_SEQ tokens and returns the metrics, host
+    seconds a step, peak memory and the bytes of gathers and gradient sums
+    a step (the metrics registry's counters), then one step more under
+    torch.profiler (:func:`_split_step`)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    cuda = job["device"] is None
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs import MetricsRegistry, metrics
+    from repro_torch.optim import optimizer_config_from_model
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.loop import train_shardings
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def mesh_of(shape):
+        return make_mesh(tuple(shape), ("data", "model"), backend="gloo", device=job["device"])
+
+    try:
+        found = {}
+        if job["part"] == "smoke":
+            meshes = {tuple(m): mesh_of(m) for m in job["meshes"]}
+            for arch in job["archs"]:
+                cfg = sharded_smoke_cfg(arch)
+                opt = dataclasses.replace(optimizer_config_from_model(cfg), warmup_steps=1)
+                batches = sharded_batches(cfg.vocab_size, SHARDED_SMOKE_SEQ.get(arch, 32),
+                                          SHARDED_STEPS, SEED)
+                for shape, mesh in meshes.items():
+                    params, state = init_train_state(cfg, seed=SEED, mesh=mesh)
+                    step = make_train_step(cfg, opt, microbatches=SHARDED_MB, mesh=mesh)
+                    out = {"loss": [], "grad_norm": []}
+                    _build.reset_launches()
+                    for batch in batches:
+                        batch = {k: v.reshape((SHARDED_MB, -1) + v.shape[1:])
+                                 for k, v in batch.items()}
+                        params, state, m = step(params, state, batch)
+                        out["loss"].append(float(m["loss"]))
+                        out["grad_norm"].append(float(m["grad_norm"]))
+                    sync()
+                    out["launches"] = dict(_build.LAUNCHES)
+                    p_sh, o_sh = train_shardings(cfg, mesh, opt)
+                    wholes = tree_map(lambda t, sh: sh.whole(t).to("cpu", torch.float32),
+                                      (params, state), (p_sh, o_sh))
+                    out["whole"] = tree_map(lambda t: t.numpy(), wholes) if rank == 0 else None
+                    found[f"{arch} {shape}"] = out
+                    del params, state, wholes
+            return found
+        cfg, mesh = job["cfg"], mesh_of(job["mesh"])
+        ds = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ, global_batch=job["batch"],
+                                    vocab_size=cfg.vocab_size, seed=SEED))
+        sync()
+        t0 = time.perf_counter()
+        params, state = init_train_state(cfg, seed=SEED, mesh=mesh)
+        sync()
+        init_s = time.perf_counter() - t0
+        step = make_train_step(cfg, optimizer_config_from_model(cfg), mesh=mesh)
+        reg = MetricsRegistry()
+        out = {"init_s": init_s, "loss": [], "grad_norm": [], "aux_loss": [], "host_s": [],
+               "gather_bytes": [], "grad_sum_bytes": [],
+               "piece_gb": sum(t.numel() * t.element_size()
+                               for t in tree_leaves((params, state))) / 1e9}
+        _build.reset_launches()
+        for i in range(job["steps"]):
+            before = dict(reg.counters)
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            with metrics.using(reg):
+                params, state, m = step(params, state, ds.batch_at(i))
+                loss = float(m["loss"])
+            sync()
+            out["host_s"].append(time.perf_counter() - t0)
+            out["loss"].append(loss)
+            out["grad_norm"].append(float(m["grad_norm"]))
+            out["aux_loss"].append(float(m["aux_loss"]))
+            for k in ("gather", "grad_sum"):
+                name = f"dist.{k}.bytes"
+                out[f"{k}_bytes"].append(reg.counters.get(name, 0) - before.get(name, 0))
+        out["launches"] = dict(_build.LAUNCHES)
+        out["finite"] = bool(np.all(np.isfinite(out["loss"] + out["grad_norm"])))
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        dist.barrier()
+        sync()
+        out["split"] = _split_step(lambda: step(params, state, ds.batch_at(job["steps"])), sync)
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _split_step(run, sync) -> dict:
+    """Where one sharded step's time goes on this rank: ``run()`` under
+    torch.profiler, its wall time, the device time of its kernels and of
+    its copies (``Memcpy`` / ``Memset``, the gloo staging among them), and
+    the host time inside ``torch.distributed.all_reduce`` / ``all_gather``
+    (gloo's work on host tensors, waiting for the other ranks included;
+    the staging copies stand outside it)."""
+    import torch
+    import torch.distributed as dist
+
+    inside = {"s": 0.0, "calls": 0}
+    real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def timed(fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                inside["s"] += time.perf_counter() - t0
+                inside["calls"] += 1
+        return call
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    for n, fn in real.items():
+        setattr(dist, n, timed(fn))
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            run()
+            sync()
+            wall_s = time.perf_counter() - t0
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+    seen = device_kernels(prof)
+    copy_us = sum(v["device_us"] for k, v in seen.items() if k.startswith(("Memcpy", "Memset")))
+    return {"wall_ms": wall_s * 1e3,
+            "device_kernel_ms": (sum(v["device_us"] for v in seen.values()) - copy_us) / 1e3,
+            "device_copy_ms": copy_us / 1e3,
+            "collective_host_ms": inside["s"] * 1e3, "collective_calls": inside["calls"]}
 
 
 def main() -> int:
@@ -2866,9 +3171,9 @@ def main() -> int:
         del card_state, host_state, before, start_state
     # (c) The full-width trainers, counted: RecurrentGemma here, RWKV-6 and
     # qwen1.5 after the drills.
-    def full_width_train(arch, want, layers=None):
+    def full_width_train(arch, want, layers=None, steps=TRAIN_STEPS):
         """``train()`` on ``arch`` at its published widths (``layers`` deep
-        when given), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens with
+        when given), ``steps`` steps of TRAIN_BATCH x TRAIN_SEQ tokens with
         the counters reset just before (they must read ``want``), then one
         step more, profiled (its aux loss: the MoE's, summed over layers).
         The state is freed before it returns."""
@@ -2887,7 +3192,7 @@ def main() -> int:
         held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors still alive
         _build.reset_launches()
         t0 = time.perf_counter()
-        params, opt_state, hist = train(full, TrainConfig(steps=TRAIN_STEPS, log_every=1), ds,
+        params, opt_state, hist = train(full, TrainConfig(steps=steps, log_every=1), ds,
                                         device=dev, seed=SEED, log_fn=logs.append)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
@@ -2896,8 +3201,8 @@ def main() -> int:
         check(launches == want, f"{arch} trainer launches {launches} != {want}")
         gnorms = [float(m) for m in re.findall(r"gnorm ([-+0-9.eEnaif]+)", " ".join(logs))]
         losses = [h["loss"] for h in hist]
-        check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
-              and len(gnorms) == TRAIN_STEPS and all(np.isfinite(gnorms)),
+        check(len(losses) == steps and all(np.isfinite(losses))
+              and len(gnorms) == steps and all(np.isfinite(gnorms)),
               f"{arch} trainer: losses {losses}, grad norms {gnorms}")
         # A random head's first loss is ln(vocab) plus the logits' spread.
         check(abs(losses[0] - np.log(full.vocab_size)) <= 2.0,
@@ -2905,7 +3210,7 @@ def main() -> int:
         n_params = sum(p.numel() for p in tree_flatten(params)[0])
         # One step more, profiled: the device's busy share of a full-width step.
         fstep = make_train_step(full, optimizer_config_from_model(full))
-        fbatch = ds.batch_at(TRAIN_STEPS)
+        fbatch = ds.batch_at(steps)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2926,10 +3231,10 @@ def main() -> int:
         return {"layers": full.n_layers, "reduced": reduced, "params": n_params,
                 "batch": TRAIN_BATCH, "aux_loss_profiled_step": aux_loss,
                 "seq": TRAIN_SEQ, "compute": full.compute_dtype, "remat": full.remat,
-                "steps": TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
+                "steps": steps, "losses": losses, "grad_norms": gnorms,
                 "host_ms_per_step": [h["dt"] * 1e3 for h in hist], "train_s": train_s,
                 "launches": launches,
-                "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+                "launches_per_step": {k: v / steps for k, v in launches.items()},
                 "peak_memory_gb": peak_gb, "held_before_gb": held_gb,
                 "profiled_step": {"window_us": prof_us, "device_busy_us": busy_us,
                                   "busy_share": busy_us / prof_us, "port_kernels": port_us,
@@ -2980,6 +3285,12 @@ def main() -> int:
     # (g) qwen3-moe at its published widths, one layer: the MoE (plain
     # tensor code) forward, remat recompute and backward; no kernel.
     trainers[MOE_TRAIN_ARCH] = full_width_train(MOE_TRAIN_ARCH, {}, layers=MOE_TRAIN_LAYERS)
+    # (h) arctic at its published widths, one layer, one process: Adafactor
+    # on 28.2 GB of bf16 weights and 28.2 GB of bf16 gradients, the clip
+    # and the update slice by slice (no float32 copy of a leaf); no kernel.
+    trainers[ARCTIC_TRAIN_ARCH] = full_width_train(ARCTIC_TRAIN_ARCH, {},
+                                                   layers=ARCTIC_TRAIN_LAYERS,
+                                                   steps=ARCTIC_TRAIN_STEPS)
     emit({"phase": "train", "device": smi, "archs": list(trainers),
           "k6_autograd": k6_autograd, "k6_k7_past_65535": wide,
           "smoke_step_card_vs_cpu_max_err": step_err,
@@ -3022,6 +3333,145 @@ def main() -> int:
           "meshes": [list(m) for m in MOE_MESHES], "tolerance_f32": MOE_TOL,
           "full_width_bf16_bound": moe_bound, "spawn_s": moe_s,
           "ranks": [{k: found[k] for k in ("forward", "lm", "full_width")} for found in moe]})
+
+    # -- train_sharded: the LM trainer sharded over gloo ranks sharing the card ----
+    from repro_torch.train import shape_for_microbatches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work_dir = ROOT / "build" / "repro_torch"
+    # (a) Smoke LMs at float32, every mesh, against one process on the card.
+    smoke = run_ranks(_train_sharded_rank_body, SHARDED_RANKS, work_dir,
+                      {"part": "smoke", "device": None, "archs": SHARDED_SMOKE,
+                       "meshes": SHARDED_MESHES}, timeout=SHARDED_TIMEOUT)
+    smoke_s = time.perf_counter() - t_phase
+    sharded_train_launches = {}
+    smoke_err = {}
+    for arch in SHARDED_SMOKE:
+        cfg = sharded_smoke_cfg(arch)
+        opt = dataclasses.replace(optimizer_config_from_model(cfg), warmup_steps=1)
+        params, state = init_train_state(cfg, dev, seed=SEED)
+        step = make_train_step(cfg, opt, microbatches=SHARDED_MB)
+        ref = {"loss": [], "grad_norm": []}
+        for batch in sharded_batches(cfg.vocab_size, SHARDED_SMOKE_SEQ.get(arch, 32),
+                                     SHARDED_STEPS, SEED):
+            params, state, m = step(params, state, shape_for_microbatches(batch, SHARDED_MB))
+            ref["loss"].append(float(m["loss"]))
+            ref["grad_norm"].append(float(m["grad_norm"]))
+        ref_leaves = [t.to("cpu", torch.float32).numpy()
+                      for t in tree_flatten((params, state))[0]]
+        bf16 = [t.dtype == torch.bfloat16 for t in tree_flatten((params, state))[0]]
+        del params, state, step
+        n_rglru = cfg.layer_kinds.count("rglru")
+        n_rwkv = cfg.layer_kinds.count("rwkv6")
+        per_rank = SHARDED_MB * SHARDED_STEPS
+        want = {k: v * per_rank for k, v in (("rglru_scan_cuda", 3 * n_rglru),
+                                              ("wkv6_cuda", 2 * n_rwkv),
+                                              ("wkv6_bwd_cuda", n_rwkv)) if v}
+        for shape in SHARDED_MESHES:
+            key = f"{arch} {shape}"
+            got = smoke[0][key]
+            for rank, found in enumerate(smoke):
+                check(found[key]["loss"] == got["loss"]
+                      and found[key]["grad_norm"] == got["grad_norm"],
+                      f"train_sharded {key}: rank {rank}'s metrics differ from rank 0's")
+                check(found[key]["launches"] == want,
+                      f"train_sharded {key} rank {rank} launches {found[key]['launches']} "
+                      f"!= {want}")
+                for k, v in found[key]["launches"].items():
+                    sharded_train_launches[k] = sharded_train_launches.get(k, 0) + v
+            rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+            err = {"loss_rel": max(rel(a, b) for a, b in zip(got["loss"], ref["loss"])),
+                   "grad_norm_1_rel": rel(got["grad_norm"][0], ref["grad_norm"][0]),
+                   "grad_norm_2_rel": rel(got["grad_norm"][1], ref["grad_norm"][1])}
+            leaves = tree_flatten(got["whole"])[0]
+            check(len(leaves) == len(ref_leaves), f"train_sharded {key}: tree differs")
+            err["leaf_max_abs"] = max(float(np.abs(a - b).max())
+                                      for a, b in zip(leaves, ref_leaves))
+            err["leaf_excess"] = max(float((np.abs(a - b) - TRAIN_TOL
+                                            - (2.0**-8 * np.abs(b) if w else 0)).max())
+                                     for a, b, w in zip(leaves, ref_leaves, bf16))
+            check(err["loss_rel"] <= SHARDED_LOSS_REL
+                  and err["grad_norm_1_rel"] <= SHARDED_LOSS_REL
+                  and err["grad_norm_2_rel"] <= SHARDED_NORM2_REL
+                  and err["leaf_excess"] <= 0,
+                  f"train_sharded {key} against one process: {err}")
+            smoke_err[key] = err
+            del got["whole"]
+    del smoke
+
+    def full_sharded(cfg, shape, steps, batch):
+        world = shape[0] * shape[1]
+        t0 = time.perf_counter()
+        ranks = run_ranks(_train_sharded_rank_body, world, work_dir,
+                          {"part": "full", "device": None, "cfg": cfg, "mesh": shape,
+                           "steps": steps, "batch": batch}, timeout=SHARDED_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        wire = shard_wire_reckoning(cfg, shape, batch * TRAIN_SEQ)
+        for rank, found in enumerate(ranks):
+            check(found["finite"] and found["loss"] == ranks[0]["loss"],
+                  f"train_sharded {cfg.name} rank {rank}: losses {found['loss']}")
+            check(not found["launches"], f"train_sharded {cfg.name} launched "
+                  f"{found['launches']}")
+            check(all(b == wire["gather"] for b in found["gather_bytes"])
+                  and all(b == wire["grad_sum"] for b in found["grad_sum_bytes"]),
+                  f"train_sharded {cfg.name} rank {rank} wire {found['gather_bytes']} "
+                  f"{found['grad_sum_bytes']} != reckoning {wire}")
+        check(abs(ranks[0]["loss"][0] - np.log(cfg.vocab_size)) <= 2.0,
+              f"train_sharded {cfg.name}: first loss {ranks[0]['loss'][0]}")
+        host_ms = [[r["host_s"][i] * 1e3 for r in ranks] for i in range(steps)]
+        split = [r["split"] for r in ranks]
+        check(all(sp["device_kernel_ms"] > 0 and sp["collective_calls"] > 0 for sp in split),
+              f"train_sharded {cfg.name}: the profiled step saw no kernel or collective {split}")
+        return {"layers": cfg.n_layers, "mesh": list(shape), "tokens": batch * TRAIN_SEQ,
+                "steps": steps, "loss": ranks[0]["loss"], "grad_norm": ranks[0]["grad_norm"],
+                "aux_loss": ranks[0]["aux_loss"],
+                "host_ms_median": [statistics.median(s) for s in host_ms],
+                "host_ms_slowest": [max(s) for s in host_ms],
+                "init_s": [r["init_s"] for r in ranks],
+                "peak_gb": [r["peak_gb"] for r in ranks],
+                "peak_gb_sum": sum(r["peak_gb"] for r in ranks),
+                "pieces_gb": [r["piece_gb"] for r in ranks],
+                "gather_bytes_per_step": ranks[0]["gather_bytes"],
+                "grad_sum_bytes_per_step": ranks[0]["grad_sum_bytes"],
+                "wire_reckoning": wire, "spawn_s": spawn_s,
+                "profiled_step_split": split,
+                "profiled_step_device_kernel_ms_sum": sum(sp["device_kernel_ms"] for sp in split)}
+
+    # (b) qwen1.5-0.5b at published widths, all 24 layers, on (4, 1).
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_cfg = get_config(DENSE_TRAIN_ARCH)
+    dense = full_sharded(dense_cfg, SHARDED_DENSE_MESH, SHARDED_DENSE_STEPS, TRAIN_BATCH)
+    dense["one_device_loss"] = trainers[DENSE_TRAIN_ARCH]["losses"][:SHARDED_DENSE_STEPS]
+    dense["loss_abs_err"] = max(abs(a - b) for a, b in zip(dense["loss"],
+                                                           dense["one_device_loss"]))
+    check(dense["loss_abs_err"] <= SHARDED_FULL_LOSS,
+          f"train_sharded {DENSE_TRAIN_ARCH} against one device: {dense}")
+    # (c) qwen3-moe at published widths, 1 of 94 layers, on (1, 2).
+    moe_full = get_config(MOE_TRAIN_ARCH)
+    moe_cfg = dataclasses.replace(moe_full, n_layers=MOE_TRAIN_LAYERS)
+    moe_run = full_sharded(moe_cfg, SHARDED_MOE_MESH, SHARDED_MOE_STEPS, SHARDED_MOE_BATCH)
+    moe_run["reduced"] = {"n_layers": [moe_full.n_layers, MOE_TRAIN_LAYERS]}
+    if SHARDED_MOE_BATCH != TRAIN_BATCH:
+        moe_run["reduced"]["batch"] = [TRAIN_BATCH, SHARDED_MOE_BATCH]
+    check(all(a > 0 for a in moe_run["aux_loss"]), f"train_sharded MoE aux: {moe_run}")
+    if SHARDED_MOE_BATCH == TRAIN_BATCH:
+        moe_run["one_device_loss"] = trainers[MOE_TRAIN_ARCH]["losses"][:SHARDED_MOE_STEPS]
+        moe_run["loss_abs_err"] = max(abs(a - b) for a, b in zip(moe_run["loss"],
+                                                                 moe_run["one_device_loss"]))
+        check(moe_run["loss_abs_err"] <= SHARDED_FULL_LOSS,
+              f"train_sharded {MOE_TRAIN_ARCH} against one device: {moe_run}")
+    emit({"phase": "train_sharded", "device": smi,
+          "note": "gloo ranks time-sharing one card, collectives staged through host memory: "
+                  "not a multi-GPU figure",
+          "smoke": {"archs": list(SHARDED_SMOKE), "meshes": [list(m) for m in SHARDED_MESHES],
+                    "microbatches": SHARDED_MB, "steps": SHARDED_STEPS,
+                    "errors_vs_one_process": smoke_err,
+                    "launches_summed_over_ranks": sharded_train_launches,
+                    "spawn_s": smoke_s},
+          "dense": dense, "moe": moe_run, "seconds": time.perf_counter() - t_phase})
 
     # -- result lines ----------------------------------------------------------
     # Launches: K1-K3 from the hdiff path (K2 runs on the hdiff, elementary
@@ -3116,7 +3566,8 @@ def main() -> int:
             ("stencil_program_cuda", "src/repro/ir/lower_pallas.py:273",
              driver_launches[KERNEL_N_OUT], driver_err, sw_timing),
             ("rglru_scan_cuda", "src/repro/kernels/rglru/kernel.py:49",
-             trainers[TRAIN_ARCH]["launches"]["rglru_scan_cuda"], k6_err, k6_train_timing)):
+             trainers[TRAIN_ARCH]["launches"]["rglru_scan_cuda"]
+             + sharded_train_launches.get("rglru_scan_cuda", 0), k6_err, k6_train_timing)):
         kernels.append({
             "name": site, "route": "cuda",
             "source": ("src/repro_torch/csrc/rglru.cu" if site == "rglru_scan_cuda"
@@ -3132,7 +3583,8 @@ def main() -> int:
              "src/repro/kernels/wkv6/ref.py:36")):
         t = {k: v for k, v in k7_train_timing[site].items() if k not in ("bytes", "flops")}
         kernels.append({"name": site, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": rwkv_launches[site], "max_abs_err": worst[site], **t})
+                        "launches": rwkv_launches[site] + sharded_train_launches.get(site, 0),
+                        "max_abs_err": worst[site], **t})
     for k in kernels:  # a time under its bound would make the bound no bound
         check(k["ms"] >= k["bound_ms"],
               f"{k['name']} ({k['replaces']}): {k['ms']} ms under its bound {k['bound_ms']} ms")

@@ -5,6 +5,8 @@ few hundred steps on deterministic synthetic data, with checkpoint/restart.
   PYTHONPATH=src python examples/torch_train_lm.py --steps 300 --scale full
   PYTHONPATH=src python examples/torch_train_lm.py --scale tiny --steps 20 --device cpu
   PYTHONPATH=src python examples/torch_train_lm.py --arch arctic-480b --smoke --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 2 examples/torch_train_lm.py --smoke \
+      --device cpu --backend gloo
 
 The port of ``examples/train_lm.py``, with the same flags, ``--device``
 added (default: the card, which it raises without) and ``--smoke`` (the
@@ -16,7 +18,10 @@ its RG-LRU layers through the scan kernel K6 forward and backward,
 ``rwkv6-3b`` its time mix through K7 and K7's backward kernel,
 ``qwen3-moe-235b-a22b`` and ``arctic-480b`` their MoE FFNs (plain tensor
 code). Loss must drop; checkpoints land in ``--ckpt-dir`` and a rerun
-resumes from the last one.
+resumes from the last one. Under torchrun (``WORLD_SIZE`` > 1) the ranks
+join one process group on ``--backend`` (``nccl``: one card a rank;
+``gloo``: ranks may share a card, or the CPU) and train sharded on
+``make_host_mesh()``, as the JAX example trains on its host mesh.
 """
 
 import argparse
@@ -37,7 +42,13 @@ def main(argv=None) -> None:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default=None, help="torch device; default: the card")
     ap.add_argument("--smoke", action="store_true", help="the arch's reduced config")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default="nccl",
+                    help="collectives under torchrun (gloo: ranks may share a card)")
     args = ap.parse_args(argv)
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import DataConfig, SyntheticLM
@@ -78,7 +89,15 @@ def main(argv=None) -> None:
         ckpt_every=100,
         ckpt_dir=args.ckpt_dir,
     )
-    _, _, hist = train(cfg, tc, ds, device=args.device)
+    group = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if group:
+        dist.init_process_group(args.backend, init_method="env://")
+    try:
+        mesh = make_host_mesh(backend=args.backend, device=args.device)
+        _, _, hist = train(cfg, tc, ds, mesh=mesh, device=args.device)
+    finally:
+        if group:
+            dist.destroy_process_group()
     if hist:
         print(
             f"loss: first10={sum(h['loss'] for h in hist[:10])/max(len(hist[:10]),1):.4f} "

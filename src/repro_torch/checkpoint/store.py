@@ -30,6 +30,17 @@ layer.
 Leaves are saved as numpy arrays. bfloat16 has no numpy dtype where
 ``ml_dtypes`` is not installed, and the port writes no encoding of its own:
 saving a bfloat16 leaf raises a ``TypeError`` naming it.
+
+**Pieces.** With ``shardings`` (a tree of
+:class:`~repro_torch.dist.sharding.NamedSharding` matching the tree), the
+tree holds this rank's pieces: every rank calls the save, each leaf is
+gathered whole onto rank 0's host one leaf at a time (bfloat16 widened to
+float32 there, which is exact), rank 0 writes the format above, and every
+rank returns once COMMIT is written. The gathers run on the calling
+thread; :class:`CheckpointManager` writes on its thread only after them.
+A restore with ``shardings`` reads each whole leaf, checks it as above and
+keeps this rank's piece: checkpoints are mesh-agnostic, so a relaunch on
+another mesh (or on one device) re-shards them.
 """
 
 from __future__ import annotations
@@ -60,10 +71,36 @@ def _host_array(x: Any, path: str, *, copy: bool) -> np.ndarray:
     return np.array(x, copy=True) if copy else np.asarray(x)
 
 
-def host_tree(tree: Any) -> Any:
-    """``tree`` with every leaf a host numpy copy (the async snapshot)."""
+def host_tree(tree: Any, shardings: Any = None) -> Any:
+    """``tree`` with every leaf a host numpy copy (the async snapshot). With
+    ``shardings`` the leaves are this rank's pieces, gathered whole onto
+    rank 0 (:func:`~repro_torch.dist.sharding.gather_to_host`, bfloat16
+    widened to float32): rank 0 gets the tree, the other ranks ``None``."""
     leaves, paths, treedef = tree_flatten_with_paths(tree)
-    return tree_unflatten(treedef, [_host_array(x, p, copy=True) for x, p in zip(leaves, paths)])
+    if shardings is None:
+        return tree_unflatten(treedef, [_host_array(x, p, copy=True)
+                                        for x, p in zip(leaves, paths)])
+    from repro_torch.dist.sharding import gather_to_host
+
+    shs = tree_flatten(shardings)[0]
+    if len(shs) != len(leaves):
+        raise ValueError(f"{len(shs)} shardings for {len(leaves)} leaves")
+    out = []
+    for x, p, sh in zip(leaves, paths, shs):
+        whole = gather_to_host(torch.as_tensor(x), sh)
+        if whole is not None:
+            out.append(_host_array(whole.float() if whole.dtype == torch.bfloat16 else whole, p,
+                                   copy=False))
+    return tree_unflatten(treedef, out) if out else None
+
+
+def _agree(mesh, failed: bool) -> bool:
+    """Whether any rank of ``mesh`` failed (a max over the mesh): every rank
+    leaves a collective save together, raising together."""
+    from repro_torch.dist.sharding import all_reduce
+
+    flag = torch.tensor(float(failed), device="cpu" if mesh.backend == "gloo" else mesh.device)
+    return bool(all_reduce(flag, torch.distributed.ReduceOp.MAX, mesh).item())
 
 
 def tree_health(host_leaves: list[np.ndarray]) -> dict:
@@ -92,10 +129,23 @@ def tree_health(host_leaves: list[np.ndarray]) -> dict:
     }
 
 
-def save_checkpoint(root: str | Path, step: int, tree: Any, extra: dict | None = None) -> Path:
+def save_checkpoint(root: str | Path, step: int, tree: Any, extra: dict | None = None,
+                    shardings: Any = None) -> Path:
     """Synchronous atomic save of ``tree`` (tensors, numpy arrays or
     scalars in dicts, lists, tuples, NamedTuples). Returns the step's
-    directory."""
+    directory. With ``shardings`` every rank calls it with its pieces
+    (:func:`host_tree`); rank 0 writes and all return after COMMIT."""
+    if shardings is not None:
+        mesh = tree_flatten(shardings)[0][0].mesh
+        snapshot, error = host_tree(tree, shardings), None
+        if snapshot is not None:
+            try:
+                save_checkpoint(root, step, snapshot, extra)
+            except BaseException as e:  # noqa: BLE001 - raised after the ranks agree
+                error = e
+        if _agree(mesh, error is not None):
+            raise error or RuntimeError(f"checkpoint step {step}: rank 0 failed to write it")
+        return Path(root) / f"step_{step:08d}"
     root = Path(root)
     root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step:08d}"
@@ -151,12 +201,17 @@ def restore_checkpoint(
     tree_like: Any,
     device=None,
     *,
+    shardings: Any = None,
     verify_health: bool = True,
 ) -> tuple[Any, dict]:
     """Restores step ``step`` (None: the latest) into the structure of
     ``tree_like``; returns ``(tree of tensors, extra)``. Each leaf takes the
     dtype of its ``tree_like`` leaf and lands on ``device``, or else on the
-    device of its ``tree_like`` leaf (the CPU for numpy leaves).
+    device of its ``tree_like`` leaf (the CPU for numpy leaves). With
+    ``shardings`` (a matching tree of
+    :class:`~repro_torch.dist.sharding.NamedSharding`) ``tree_like`` holds
+    this rank's pieces, and each whole leaf is cut to this rank's piece on
+    the CURRENT mesh: the elastic re-mesh path.
 
     ``arrays.npz`` is never trusted blindly: every leaf's shape and dtype is
     checked against ``meta.json`` (a ``ValueError`` naming the leaf), and
@@ -206,6 +261,12 @@ def restore_checkpoint(
         raise ValueError(
             f"checkpoint has {len(host_leaves)} leaves, target structure has {len(ref_leaves)}"
         )
+    if shardings is not None:
+        shs = tree_flatten(shardings)[0]
+        if len(shs) != len(ref_leaves):
+            raise ValueError(f"{len(shs)} shardings for {len(ref_leaves)} leaves")
+        host_leaves = [sh.piece(torch.from_numpy(np.asarray(h, order="C"))).numpy()
+                       for h, sh in zip(host_leaves, shs)]
     for i, (h, r) in enumerate(zip(host_leaves, ref_leaves)):
         if tuple(h.shape) != tuple(np.shape(r)):
             raise ValueError(f"leaf {i}: checkpoint shape {h.shape} != target {np.shape(r)}")
@@ -220,18 +281,28 @@ def restore_checkpoint(
 
 
 class CheckpointManager:
-    """Async, retention-managed checkpointing for the train loop."""
+    """Async, retention-managed checkpointing for the train loop. With a
+    ``mesh`` every rank calls :meth:`save_async` and :meth:`wait` at the
+    same points (both are collectives): rank 0 writes, and :meth:`wait`
+    returns on every rank once its write is done, raising on every rank
+    if it failed."""
 
-    def __init__(self, root: str | Path, keep_last: int = 3):
+    def __init__(self, root: str | Path, keep_last: int = 3, mesh=None):
         self.root = Path(root)
         self.keep_last = keep_last
+        self.mesh = mesh
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
-    def save_async(self, step: int, tree: Any, extra: dict | None = None) -> None:
-        """Copies ``tree`` to host memory now, writes it on a thread."""
+    def save_async(self, step: int, tree: Any, extra: dict | None = None,
+                   shardings: Any = None) -> None:
+        """Copies ``tree`` to host memory now (with ``shardings``: gathers
+        its pieces onto rank 0's host, :func:`host_tree`), writes it on a
+        thread."""
         self.wait()  # one in-flight save at a time
-        snapshot = host_tree(tree)
+        snapshot = host_tree(tree, shardings)
+        if snapshot is None:
+            return
 
         def _write():
             try:
@@ -248,8 +319,10 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self.mesh is not None and _agree(self.mesh, err is not None):
+            raise err or RuntimeError("a checkpoint write failed on rank 0")
+        if err is not None:
             raise err
 
     def _gc(self) -> None:

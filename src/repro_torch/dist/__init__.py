@@ -1,12 +1,14 @@
 """repro_torch.dist: the distribution layer on ``torch.distributed``.
 
-The port of ``repro.dist`` (the GSPMD tree placement ``tree_shardings`` /
-``constrain`` waits for the LM sharding slice, ROADMAP M13b.3b):
+The port of ``repro.dist`` (all but ``constrain``, which annotates
+intermediates for the GSPMD partitioner; see :mod:`repro_torch.dist.sharding`):
 
   * :mod:`repro_torch.dist.sharding` — the rank mesh (:class:`Mesh`), its
-    axis sizes and groups, ``shard_param`` / ``gather_blocks``, the logical-axis rules (``spec_for``), the ambient
-    mesh (``use_mesh``) and the collectives with gradients the
-    expert-parallel MoE runs.
+    axis sizes and groups, ``shard_param`` / ``gather_blocks``, the
+    logical-axis rules (``spec_for``), the placement of whole trees
+    (``NamedSharding``, ``sharding_for``, ``tree_shardings``), the ambient
+    mesh (``use_mesh``) and the collectives with gradients that the
+    expert-parallel MoE and the sharded LM trainer run.
   * :mod:`repro_torch.dist.halo` — ``make_sharded_hdiff`` (depth-parallel
     planes + radius-2 row halo exchange, matching the single-device hdiff),
     ``exchange_halos_2d`` (row and col bands + diagonal corners, behind
@@ -37,14 +39,18 @@ from repro_torch.dist.halo import (
 from repro_torch.dist.reduce import compress_bf16, decompress_bf16, reduce_gradients
 from repro_torch.dist.sharding import (
     Mesh,
+    NamedSharding,
     gather_blocks,
     shard_param,
+    sharding_for,
     spec_for,
+    tree_shardings,
     use_mesh,
 )
 
 __all__ = [
     "Mesh",
+    "NamedSharding",
     "compress_bf16",
     "count_wire",
     "decompress_bf16",
@@ -64,8 +70,10 @@ __all__ = [
     "program_halo_exchange_bytes_per_shard",
     "reduce_gradients",
     "shard_param",
+    "sharding_for",
     "spec_for",
     "start_exchange",
+    "tree_shardings",
     "use_mesh",
     "wire_drift_report",
 ]

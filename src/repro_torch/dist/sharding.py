@@ -37,9 +37,23 @@ over the axes the caller names and keeps this rank's piece; *copy_to* is
 the identity forward and a sum backward, *sum_over* the reverse (the
 Megatron f and g).
 
-Not ported: ``tree_shardings``, ``sharding_for`` and ``constrain``, which
-place whole parameter trees and annotate intermediates for the GSPMD
-partitioner (ROADMAP M13b.3b).
+**Trees.** :class:`NamedSharding` is one tensor's placement (a mesh and
+a spec): :meth:`~NamedSharding.piece` cuts a rank's piece from the whole,
+:meth:`~NamedSharding.whole` joins the pieces again. :func:`sharding_for`
+gives the placement of one tensor's logical axes and
+:func:`tree_shardings` of a whole tree of them (the JAX ``_is_axes_leaf``
+rule: a tuple of names and ``None`` is one leaf), which is how the LM
+trainer stores its parameters, gradients and optimizer moments: a rank
+holds the pieces GSPMD would place on its device (ZeRO-3 / FSDP storage).
+:func:`gather_param` turns a piece into the whole parameter a block
+computes with, and :func:`gather_to_host` assembles a whole leaf on one
+rank's host for a checkpoint.
+
+Not ported: ``constrain``. The JAX package annotates intermediates with
+sharding constraints for the GSPMD partitioner, which then splits the
+computation itself. In the port each rank computes its rows of the batch
+with whole (gathered) weights, so there is no partitioner to steer; a
+constraint never changes values.
 """
 
 from __future__ import annotations
@@ -54,6 +68,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.obs import metrics
+from repro_torch.tree import tree_flatten, tree_unflatten
 
 Tensor = torch.Tensor
 
@@ -250,6 +265,102 @@ def gather_blocks(block: Tensor, mesh: Mesh,
 
 
 
+# -- placements of whole trees -------------------------------------------------------
+
+
+def _is_axes_leaf(x) -> bool:
+    """A tuple of logical axis names and ``None``: one leaf of an axes tree."""
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
+
+
+def _is_shape_leaf(x) -> bool:
+    """A shape (a tuple of ints, ``torch.Size``) or anything with one."""
+    return hasattr(x, "shape") or (isinstance(x, tuple) and all(isinstance(e, int) for e in x))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """One tensor's placement on a mesh: ``spec`` (one entry per dim, as
+    :func:`spec_for` gives) over ``mesh`` (a :class:`Mesh`; a duck type
+    with ``axis_names`` and ``shape`` serves for specs alone)."""
+
+    mesh: Any
+    spec: tuple
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        """The mesh axes the spec names, in spec order."""
+        return tuple(a for entry in self.spec for a in _entry_axes(entry))
+
+    @property
+    def replicas(self) -> int:
+        """How many ranks hold each piece: the mesh's size over the pieces'
+        count."""
+        sizes = _mesh_sizes(self.mesh)
+        return math.prod(sizes.values()) // math.prod(sizes[a] for a in self.axes)
+
+    def counts(self) -> tuple[int, ...]:
+        """Each dim's number of pieces."""
+        sizes = _mesh_sizes(self.mesh)
+        return tuple(math.prod(sizes[a] for a in _entry_axes(e)) for e in self.spec)
+
+    def piece_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        """The shape of a piece of a tensor of global ``shape``."""
+        return tuple(int(n) // c for n, c in zip(shape, self.counts()))
+
+    def global_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        """The global shape of a tensor whose pieces have ``shape``."""
+        return tuple(int(n) * c for n, c in zip(shape, self.counts()))
+
+    def piece(self, t: Tensor) -> Tensor:
+        """This rank's piece of the whole tensor ``t`` (:func:`shard_param`)."""
+        return shard_param(t, self.mesh, self.spec)
+
+    def whole(self, piece: Tensor) -> Tensor:
+        """The whole tensor, on every rank (:func:`gather_blocks`)."""
+        return gather_blocks(piece, self.mesh, self.spec)
+
+
+def sharding_for(logical_axes: Sequence[str | None], mesh, shape: Sequence[int],
+                 mode: str = "train") -> NamedSharding:
+    """The placement of a tensor with ``logical_axes`` and ``shape`` on
+    ``mesh`` by the rules (:func:`spec_for`)."""
+    return NamedSharding(mesh, spec_for(logical_axes, mesh, shape, mode=mode))
+
+
+def tree_shardings(axes_tree: Any, mesh, shapes_tree: Any, mode: str = "train") -> Any:
+    """A tree of logical-axis tuples and a tree of the same structure
+    holding each leaf's global shape (tuples, or tensors, meta ones
+    included) mapped to :class:`NamedSharding` leaves."""
+    axes, treedef = tree_flatten(axes_tree, is_leaf=_is_axes_leaf)
+    shapes, shape_def = tree_flatten(shapes_tree, is_leaf=_is_shape_leaf)
+    if shape_def != treedef:
+        raise ValueError(f"axes and shapes trees differ: {treedef} vs {shape_def}")
+    return tree_unflatten(treedef, [
+        sharding_for(ax, mesh, tuple(getattr(shp, "shape", shp)), mode=mode)
+        for ax, shp in zip(axes, shapes)])
+
+
+def gather_to_host(piece: Tensor, sharding: NamedSharding, dst: int = 0) -> Tensor | None:
+    """The whole tensor assembled on rank ``dst``'s host from every rank's
+    ``piece`` (``None`` on the other ranks): a collective over the mesh,
+    one leaf at a time, so no rank holds a whole tree (checkpoints)."""
+    mesh, spec = sharding.mesh, sharding.spec
+    src = piece.detach()
+    src = src.to("cpu") if mesh.backend == "gloo" else src.to(mesh.device)
+    src = src.contiguous()
+    mine = mesh.rank_of(mesh.coords) == dst
+    parts = [torch.empty_like(src) for _ in range(mesh.size)] if mine else None
+    dist.gather(src, parts, dst=dst, group=mesh.group)
+    if not mine:
+        return None
+    shape = sharding.global_shape(src.shape)
+    out = torch.empty(shape, dtype=src.dtype)
+    for r, part in enumerate(parts):
+        out[_block_index(shape, mesh, spec, mesh.coords_of(r))] = part.to("cpu")
+    return out
+
+
 # -- ambient mesh -----------------------------------------------------------------
 
 _AMBIENT: ContextVar[Any] = ContextVar("repro_torch_ambient_mesh", default=None)
@@ -362,6 +473,7 @@ def _all_gather_dim(t: Tensor, mesh: Mesh, axes: tuple[str, ...], dim: int) -> T
     src = _wire(t, mesh)
     parts = [torch.empty_like(src) for _ in members]
     dist.all_gather(parts, src, group=mesh.axis_group(axes))
+    metrics.inc("dist.gather.bytes", (len(members) - 1) * src.numel() * src.element_size())
     order = sorted(range(len(members)),
                    key=lambda i: _piece(mesh, axes, mesh.coords_of(members[i]))[0])
     return torch.cat([parts[i] for i in order], dim=dim).to(t.device)
@@ -369,6 +481,14 @@ def _all_gather_dim(t: Tensor, mesh: Mesh, axes: tuple[str, ...], dim: int) -> T
 
 def _all_reduce_sum(t: Tensor, mesh: Mesh, axes: tuple[str, ...]) -> Tensor:
     return all_reduce(t, dist.ReduceOp.SUM, mesh, mesh.axis_group(axes))
+
+
+def _grad_sum(g: Tensor, mesh: Mesh, axes: tuple[str, ...]) -> Tensor:
+    """A gradient summed over ``axes`` (the whole tensor all-reduced: gloo
+    has no reduce-scatter), its bytes counted under ``dist.grad_sum.bytes``
+    when metrics are on."""
+    metrics.inc("dist.grad_sum.bytes", g.numel() * g.element_size())
+    return _all_reduce_sum(g, mesh, axes)
 
 
 class _GatherDim(torch.autograd.Function):
@@ -381,7 +501,7 @@ class _GatherDim(torch.autograd.Function):
     def backward(ctx, g):
         mesh, axes, dim = ctx.mesh, ctx.axes, ctx.dim
         if ctx.sum_axes:
-            g = _all_reduce_sum(g, mesh, ctx.sum_axes)
+            g = _grad_sum(g, mesh, ctx.sum_axes)
         index, count = _piece(mesh, axes, mesh.coords)
         size = g.shape[dim] // count
         return g.narrow(dim, index * size, size).contiguous(), None, None, None, None
@@ -395,7 +515,7 @@ class _CopyTo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_sum(g, ctx.mesh, ctx.axes), None, None
+        return _grad_sum(g, ctx.mesh, ctx.axes), None, None
 
 
 class _SumOver(torch.autograd.Function):
@@ -452,3 +572,40 @@ def mean_over(t: Tensor, mesh: Mesh, axes: Sequence[str]) -> Tensor:
     """Mean over ``axes``, forward and backward (the derivative of the sum
     of every rank's loss)."""
     return _MeanOver.apply(t, mesh, tuple(axes))
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The axes that carry batch/data parallelism (pod folds into data)."""
+    return tuple(a for a in mesh.axis_names if a in _DATA_AXES)
+
+
+def data_axes_of(mesh) -> tuple[str, ...]:
+    """The mesh's :func:`data_axes` of more than one rank: those a sum over
+    the data ranks has to cross."""
+    return tuple(a for a in data_axes(mesh) if mesh.axis_size(a) > 1)
+
+
+def gather_param(piece: Tensor, sharding: NamedSharding, dtype=None, *,
+                 keep: Sequence[str] = ()) -> Tensor:
+    """The parameter a computation reads, from this rank's ``piece`` of it
+    under ``sharding``: cast to ``dtype`` first (so the wire carries the
+    compute dtype, as the JAX trainer's master-weight cast asks), then
+    gathered whole over every mesh axis of its spec but those in ``keep``
+    (the expert-parallel MoE keeps its ``model`` piece of the experts).
+
+    Backward: the gradient is summed over every data axis of the mesh once
+    (their ranks hold other rows of the batch) — by the gathers'
+    reduce-scatter over the data axes the spec names, and by
+    :func:`copy_to` over the others — and over ``model`` it keeps this
+    rank's piece unsummed (every model rank computes the same gradient)."""
+    mesh, spec = sharding.mesh, sharding.spec
+    x = piece.to(dtype) if dtype is not None and piece.is_floating_point() else piece
+    dp = data_axes_of(mesh)
+    rest = tuple(a for a in dp if a not in sharding.axes)
+    if rest:
+        x = copy_to(x, mesh, rest)
+    for dim, entry in enumerate(spec):
+        axes = tuple(a for a in _entry_axes(entry) if a not in keep)
+        if axes:
+            x = gather_dim(x, mesh, axes, dim, sum_grad_over=tuple(a for a in axes if a in dp))
+    return x

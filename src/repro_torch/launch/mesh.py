@@ -1,10 +1,18 @@
 """Device meshes over an initialised ``torch.distributed`` process group.
 
-The port's ``repro/launch/mesh.py::make_mesh``: where JAX lays a mesh over
-the devices one process sees, here each rank is one shard, so the mesh
-lays its shape over the ranks of the default process group. Nothing here
+The port of ``repro/launch/mesh.py``: where JAX lays a mesh over the
+devices one process sees, here each rank is one shard, so the mesh lays
+its shape over the ranks of the default process group. Nothing here
 initialises that group: the caller does (``init_process_group`` with its
 own address, world size and rank), and chooses the backend there.
+
+  * :func:`make_mesh` — any shape over named axes;
+  * :func:`make_host_mesh` — ``("data", "model")`` over whatever ranks the
+    group has, or ``None`` (one device) when there is no group;
+  * :func:`make_production_mesh` — the JAX package's pod meshes, (16, 16)
+    over ``("data", "model")`` or (2, 16, 16) over ``("pod", "data",
+    "model")``, on a group of 256 or 512 ranks;
+  * :func:`mesh_axis_names`, :func:`data_axes`, :func:`n_devices`.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import Mesh, rank_coords
+from repro_torch.dist.sharding import data_axes  # noqa: F401  (one definition, re-exported)
 
 BACKENDS = ("nccl", "gloo")
 
@@ -67,3 +76,33 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, backend: str,
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError("a nccl mesh computes on CUDA devices; use backend='gloo' on the CPU")
     return Mesh(axes, shape, rank_coords(rank, shape), dev, backend, dist.group.WORLD)
+
+
+def make_host_mesh(model: int = 1, *, backend: str, device=None) -> Mesh | None:
+    """A ``(world // model, model)`` mesh over ``("data", "model")`` spanning
+    the initialised process group, or ``None`` when no group is initialised
+    (one device: the caller trains without a mesh)."""
+    if not dist.is_available() or not dist.is_initialized():
+        return None
+    n = dist.get_world_size()
+    if n % model:
+        raise ValueError(f"{n} ranks not divisible by model={model}")
+    return make_mesh((n // model, model), ("data", "model"), backend=backend, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, backend: str, device=None) -> Mesh:
+    """The JAX package's production mesh: (16, 16) over ``("data",
+    "model")``, or (2, 16, 16) over ``("pod", "data", "model")`` with
+    ``multi_pod``. Raises unless the group has 256 (512) ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, backend=backend, device=device)
+
+
+def mesh_axis_names(mesh: Mesh) -> tuple[str, ...]:
+    return tuple(mesh.axis_names)
+
+
+def n_devices(mesh: Mesh | None) -> int:
+    """The mesh's ranks (1 without a mesh)."""
+    return 1 if mesh is None else mesh.size

@@ -3,22 +3,28 @@ or file-backed token stream.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
       --steps 1000 --ckpt-dir ckpts/rg [--smoke] [--device cpu]
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --backend nccl                       # one card a rank
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --backend gloo                       # ranks sharing one card, or --device cpu
 
-The port of ``repro/launch/train.py``, with the same flags and
-``--device`` added (default: the card; ``--device cpu`` with ``--smoke``
-is what the CPU can run). ``--arch`` takes the architectures whose blocks
-the port runs (recurrent, dense and MoE); any other (cross-attention,
-audio) raises and names the ROADMAP item that ports it.
-The JAX launcher's collective-overlap flags and multi-host initialisation
-belong to the TPU and to the LM sharding slice (ROADMAP M13b.3b): this
-launcher trains on one device, so ``--grad-compression`` is carried in the
-config and reduces nothing.
+The port of ``repro/launch/train.py``, with the same flags, ``--device``
+added (default: the card; ``--device cpu`` with ``--smoke`` is what the CPU
+can run) and ``--backend``. Under torchrun's environment (``WORLD_SIZE`` >
+1) it initialises the process group with ``--backend`` (default
+``nccl``) and trains sharded on ``make_host_mesh()``, where the JAX
+launcher calls ``jax.distributed.initialize()``; without it, on one
+device. ``--arch`` takes the architectures whose blocks the port runs
+(recurrent, dense and MoE); any other (cross-attention, audio) raises and
+names the ROADMAP item that ports it. ``--grad-compression`` is carried in
+the config and reduces nothing, as in the JAX launcher's ``train()``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 
 def main(argv=None) -> None:
@@ -34,7 +40,13 @@ def main(argv=None) -> None:
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--data", default="synthetic", help="synthetic | path to token file")
     ap.add_argument("--device", default=None, help="torch device; default: the card")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default="nccl",
+                    help="collectives under torchrun (gloo: ranks may share a card)")
     args = ap.parse_args(argv)
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import DataConfig, make_dataset
@@ -58,7 +70,15 @@ def main(argv=None) -> None:
         ckpt_dir=args.ckpt_dir,
         grad_compression=args.grad_compression,
     )
-    train(cfg, tc, make_dataset(dc), device=args.device)
+    group = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if group:
+        dist.init_process_group(args.backend, init_method="env://")
+    try:
+        mesh = make_host_mesh(backend=args.backend, device=args.device)
+        train(cfg, tc, make_dataset(dc), mesh=mesh, device=args.device)
+    finally:
+        if group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -25,7 +25,8 @@ as there:
   (:func:`_local_attention_blocked`). Both are plain tensor code, as the
   jnp is: no library attention kernel, the same ``-1e30`` fill and the
   same output (zero) on a row with no visible key. The JAX package's
-  sharding constraints are no-ops on one device and are dropped.
+  sharding constraints are dropped: the port computes with whole weights
+  (the sharded trainer gathers them), so they would constrain nothing.
 
 * The MoE (:func:`apply_moe`) is the JAX package's sort-based capacity
   dispatch in plain tensor code: a float32 router, a stable sort, an
@@ -103,12 +104,20 @@ class Init:
     """Fan-in scaled initialiser on a :class:`torch.Generator`, mirroring
     the JAX package's ``PBuilder``: a normal draw in float32 scaled by
     ``scale / sqrt(fan_in)`` (fan-in over every axis but the last, unless
-    ``fan_axes`` says otherwise), then cast to the parameter dtype."""
+    ``fan_axes`` says otherwise), then cast to the parameter dtype.
 
-    def __init__(self, generator: torch.Generator, dtype: torch.dtype, device):
+    Every leaf it makes passes through ``place`` (default: kept as it is)
+    before the init function sees it: the sharded trainer keeps a rank's
+    piece there and frees the rest, so a rank never holds two whole leaves.
+    On the ``"meta"`` device (``generator=None``) it draws nothing and
+    gives the shapes alone."""
+
+    def __init__(self, generator: torch.Generator | None, dtype: torch.dtype, device,
+                 place=None):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(device)
+        self.place = place if place is not None else (lambda t: t)
 
     def fan_in(self, shape, *, scale: float = 1.0, fan_axes=None) -> Tensor:
         fan = 1
@@ -119,10 +128,10 @@ class Init:
                         device=self.device)
         # In place: the same bits as ``x * std`` without a second float32
         # copy (an arctic expert stack draws 4.46 G values).
-        return x.mul_(std).to(self.dtype)
+        return self.place(x.mul_(std).to(self.dtype))
 
     def const(self, shape, value: float) -> Tensor:
-        return torch.full(tuple(shape), value, dtype=self.dtype, device=self.device)
+        return self.place(torch.full(tuple(shape), value, dtype=self.dtype, device=self.device))
 
     def zeros(self, shape) -> Tensor:
         return self.const(shape, 0.0)
@@ -134,6 +143,12 @@ class Init:
 # ---------------------------------------------------------------------------
 # Norms and RoPE.
 # ---------------------------------------------------------------------------
+
+
+# The logical axes of each parameter group's tensors (the JAX ``init_*``'s),
+# one table per group kind beside its init; ``spec_for`` maps them to a
+# mesh and :func:`repro_torch.models.lm.lm_axes` assembles an LM's.
+NORM_AXES = {"scale": (None,), "bias": (None,)}
 
 
 def init_norm(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
@@ -172,6 +187,17 @@ def rope_rotate(x: Tensor, positions: Tensor, theta: float) -> Tensor:
 # ---------------------------------------------------------------------------
 # Attention (causal self-attention, sliding window, GQA, ring cache).
 # ---------------------------------------------------------------------------
+
+
+ATTENTION_AXES = {
+    "wq": ("fsdp", "heads", "head_dim"),
+    "wk": ("fsdp", "kv_heads", "head_dim"),
+    "wv": ("fsdp", "kv_heads", "head_dim"),
+    "wo": ("heads", "head_dim", "fsdp"),
+    "bq": ("heads", "head_dim"),
+    "bk": ("kv_heads", "head_dim"),
+    "bv": ("kv_heads", "head_dim"),
+}
 
 
 def init_attention(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
@@ -490,6 +516,9 @@ def cache_fill_from_prefill(cfg: ModelConfig, cache: dict, k: Tensor, v: Tensor)
 # ---------------------------------------------------------------------------
 
 
+FFN_AXES = {"w1": ("fsdp", "mlp"), "w3": ("fsdp", "mlp"), "w2": ("mlp", "fsdp")}
+
+
 def init_ffn(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
     d, f = cfg.d_model, cfg.d_ff
     p = {"w1": ini.fan_in((d, f))}
@@ -527,7 +556,7 @@ MOE_AXES = {
     "w1": ("experts", "fsdp", "mlp"),
     "w3": ("experts", "fsdp", "mlp"),
     "w2": ("experts", "mlp", "fsdp"),
-    "dense": {"w1": ("fsdp", "mlp"), "w3": ("fsdp", "mlp"), "w2": ("mlp", "fsdp")},
+    "dense": FFN_AXES,
 }
 
 
@@ -568,21 +597,17 @@ def _route(cfg: ModelConfig, router: Tensor, xt: Tensor):
     return probs, gate, idx
 
 
-def _data_axes(mesh) -> tuple[str, ...]:
-    return tuple(a for a in ("pod", "data") if mesh is not None and a in mesh.axis_names)
-
-
 def _aux_loss(probs: Tensor, idx: Tensor, e: int, mesh=None) -> Tensor:
     """The Switch load-balancing loss ``E * sum_e f_e * P_e``: ``P_e`` the
     mean router probability, ``f_e`` the share of assignments (a count, so
     it carries no gradient). On a mesh with data axes both are averaged
     over the data ranks BEFORE their product, so the loss is the estimator
     over the whole batch (mean-of-products != product-of-means)."""
-    from repro_torch.dist.sharding import mean_over
+    from repro_torch.dist.sharding import data_axes_of, mean_over
 
     me = probs.mean(0)
     ce = torch.bincount(idx.reshape(-1), minlength=e).to(torch.float32) / idx.numel()
-    dp = _data_axes(mesh)
+    dp = data_axes_of(mesh) if mesh is not None else ()
     if dp:
         me, ce = mean_over(me, mesh, dp), mean_over(ce, mesh, dp)
     return e * torch.sum(me * ce)
@@ -649,8 +674,11 @@ def apply_moe(cfg: ModelConfig, p, x: Tensor) -> tuple[Tensor, Tensor]:
     path on its tokens, ``aux`` over the whole batch. That gather moves
     every rank's whole layer for each token (9.8 GB a qwen3-moe layer at
     published widths): it is for tests only, and no serving path runs it
-    (a sharded decode that moves tokens, not weights, is ROADMAP
-    M13b.3b)."""
+    (a sharded decode must move tokens, not weights: a ROADMAP path
+    item). Under a mesh without ``model`` (the trainer's data-only
+    meshes) the local path runs on this rank's tokens with the weights
+    its caller gathered, and ``aux`` is still taken over every data
+    rank's tokens."""
     from repro_torch.dist.sharding import _ambient_mesh
 
     mesh = _ambient_mesh()
@@ -658,7 +686,7 @@ def apply_moe(cfg: ModelConfig, p, x: Tensor) -> tuple[Tensor, Tensor]:
         if x.shape[1] > 1:
             return apply_moe_sharded(cfg, p, x)
         return _apply_moe_local(cfg, gather_moe_params(cfg, p, mesh), x, mesh=mesh)
-    return _apply_moe_local(cfg, p, x)
+    return _apply_moe_local(cfg, p, x, mesh=mesh)
 
 
 def _apply_moe_local(cfg: ModelConfig, p, x: Tensor, mesh=None) -> tuple[Tensor, Tensor]:
@@ -714,30 +742,18 @@ def moe_specs(cfg: ModelConfig, mesh) -> dict:
                     shapes, {n: MOE_AXES[n] for n in shapes}, is_leaf=_is_tuple)
 
 
-def _gather(w: Tensor, spec, mesh, dtype, *, keep_model: bool = True,
-            data_axes: tuple = ()) -> Tensor:
-    """``w`` cast to ``dtype``, its sharded dims gathered back; the expert
-    (``model``) dim stays this rank's unless ``keep_model`` is False. The
-    gradient sums over the data axes (their ranks hold other tokens) and
-    not over ``model`` (every model rank computes the same gradient of
-    what it gathered)."""
-    from repro_torch.dist.sharding import _entry_axes, gather_dim
+def _gather(w: Tensor, spec, mesh, dtype, keep: tuple = ("model",)) -> Tensor:
+    """``w`` cast to ``dtype``, its sharded dims gathered back but those over
+    ``keep`` (:func:`~repro_torch.dist.sharding.gather_param`)."""
+    from repro_torch.dist.sharding import NamedSharding, gather_param
 
-    out = w.to(dtype)
-    for dim, entry in enumerate(spec):
-        axes = tuple(a for a in _entry_axes(entry) if a != "model" or not keep_model)
-        if axes:
-            out = gather_dim(out, mesh, axes, dim,
-                             sum_grad_over=tuple(a for a in axes if a in data_axes))
-    return out
+    return gather_param(w, NamedSharding(mesh, spec), dtype, keep=keep)
 
 
 def gather_moe_params(cfg: ModelConfig, p, mesh) -> dict:
     """This rank's pieces of one MoE layer gathered whole (every sharded dim,
     ``model`` too), in the parameter dtype: what the local path reads."""
-    dp = _data_axes(mesh)
-    return tree_map(lambda spec, w: _gather(w, spec, mesh, w.dtype, keep_model=False,
-                                            data_axes=dp),
+    return tree_map(lambda spec, w: _gather(w, spec, mesh, w.dtype, keep=()),
                     moe_specs(cfg, mesh), _tree(p), is_leaf=_is_tuple)
 
 
@@ -775,7 +791,6 @@ def apply_moe_sharded(cfg: ModelConfig, p, x: Tensor) -> tuple[Tensor, Tensor]:
     cdt = dt(cfg, "compute")
     b_, s, d = x.shape
     e = cfg.n_experts
-    dp = _data_axes(mesh)
     mp = mesh.axis_size("model")
     if e % mp:
         return _apply_moe_local(cfg, gather_moe_params(cfg, p, mesh), x, mesh=mesh)
@@ -784,8 +799,7 @@ def apply_moe_sharded(cfg: ModelConfig, p, x: Tensor) -> tuple[Tensor, Tensor]:
 
     t_loc = b_ * s
     xt = x.reshape(t_loc, d)
-    router = _gather(p["router"], specs["router"], mesh, torch.float32, keep_model=False,
-                     data_axes=dp)
+    router = _gather(p["router"], specs["router"], mesh, torch.float32, keep=())
     probs, gate, idx = _route(cfg, router, xt)
     aux = _aux_loss(probs, idx, e, mesh)
 
@@ -794,7 +808,7 @@ def apply_moe_sharded(cfg: ModelConfig, p, x: Tensor) -> tuple[Tensor, Tensor]:
     xt_in = copy_to(xt, mesh, ("model",))
     xe, buf_tok, buf_gate = _dispatch_local(xt_in, copy_to(gate, mesh, ("model",)), idx,
                                             j * e_loc, (j + 1) * e_loc, capacity, e_loc, cdt)
-    w = {n: _gather(p[n], specs[n], mesh, cdt, data_axes=dp) for n in ("w1", "w3", "w2")}
+    w = {n: _gather(p[n], specs[n], mesh, cdt) for n in ("w1", "w3", "w2")}
     y = _combine(_experts(xe, w, cdt), buf_tok, buf_gate, t_loc)
 
     if cfg.moe_dense_residual:
@@ -804,7 +818,7 @@ def apply_moe_sharded(cfg: ModelConfig, p, x: Tensor) -> tuple[Tensor, Tensor]:
         if "model" not in specs["dense"]["w2"]:
             raise NotImplementedError(
                 f"d_ff {cfg.d_ff} does not split over a model axis of {mp}")
-        dw = {n: _gather(p["dense"][n], specs["dense"][n], mesh, cdt, data_axes=dp)
+        dw = {n: _gather(p["dense"][n], specs["dense"][n], mesh, cdt)
               for n in ("w1", "w3", "w2")}
         xc = xt_in.to(cdt)
         hd = F.silu(xc @ dw["w1"]) * (xc @ dw["w3"])

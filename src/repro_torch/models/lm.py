@@ -9,7 +9,14 @@ frontends are not (ROADMAP M13b.4). :func:`build_lm` returns an
 :class:`LM` module whose blocks stand in layer order, the block pattern
 cycled to ``n_layers``; the JAX package's scan over stacked superblocks
 becomes a plain loop over an ``nn.ModuleList``, and its sharding
-constraints (no-ops on one device) are dropped.
+constraints are dropped (the port computes with whole weights).
+
+Logical axes and shapes: :func:`lm_axes` gives every parameter's JAX
+logical axes in the per-layer layout (from each block kind's table beside
+its init), :func:`lm_meta` every leaf's global shape on the meta device,
+and :func:`lm_tree` draws a tree leaf by leaf through an
+:class:`~repro_torch.models.layers.Init`, whose ``place`` lets the sharded
+trainer keep a rank's piece of each leaf.
 
 Serving entry points (functions of ``(cfg, model, ...)``, as in the JAX
 package; ``cfg`` may differ from ``model.cfg`` in its compute dtype), all
@@ -108,28 +115,45 @@ def lm_params(model: LM) -> dict:
     return tree
 
 
-def lm_stacked(cfg: ModelConfig, tree: dict, fn) -> dict:
+def lm_stacked(cfg: ModelConfig, tree: dict, fn, is_leaf=None) -> dict:
     """``tree`` (the per-layer layout of :func:`lm_params`) in the JAX
     package's layout: ``{"embed", "scan": {"b<i>": ...}, "tail": [...],
     "final_norm", "head"?}``, the scanned superblocks' leaves stacked on a
     leading ``n_super`` axis there. Each leaf is ``fn(tensors, stacked)``:
     the per-layer tensors of one JAX leaf and whether the JAX package
-    stacks them."""
+    stacks them. ``is_leaf`` as in :func:`~repro_torch.tree.tree_map`
+    (a tree of logical axes: :func:`stack_axes`)."""
     width, n_super = len(cfg.block_pattern), cfg.n_super
     blocks = tree["blocks"]
 
     def one(t):
         return fn([t], False)
 
-    out = {"embed": one(tree["embed"]), "final_norm": tree_map(one, tree["final_norm"]),
-           "tail": [tree_map(one, b) for b in blocks[n_super * width:]]}
+    out = {"embed": one(tree["embed"]),
+           "final_norm": tree_map(one, tree["final_norm"], is_leaf=is_leaf),
+           "tail": [tree_map(one, b, is_leaf=is_leaf) for b in blocks[n_super * width:]]}
     if n_super:
         out["scan"] = {f"b{i}": tree_map(lambda *ts: fn(list(ts), True),
-                                         *blocks[i:n_super * width:width])
+                                         *blocks[i:n_super * width:width], is_leaf=is_leaf)
                        for i in range(width)}
     if "head" in tree:
         out["head"] = one(tree["head"])
     return out
+
+
+def stack_axes(axes: list, stacked: bool) -> tuple:
+    """One JAX leaf's logical axes from its layers' (an ``fn`` of
+    :func:`lm_stacked`): ``("layers",) + ax`` on a scanned leaf, as the
+    JAX ``build_lm`` writes them."""
+    return ("layers",) + axes[0] if stacked else axes[0]
+
+
+def stack_meta(tensors: list, stacked: bool) -> Tensor:
+    """One JAX leaf's global shape and dtype from its layers' (an ``fn`` of
+    :func:`lm_stacked`), on the meta device."""
+    t = tensors[0]
+    return torch.empty(((len(tensors),) if stacked else ()) + tuple(t.shape), dtype=t.dtype,
+                       device="meta")
 
 
 def lm_leaf_groups(cfg: ModelConfig, tree: dict) -> list[tuple[list, bool]]:
@@ -156,6 +180,64 @@ def _init_block(cfg: ModelConfig, kind: str, ini: L.Init) -> dict:
             "norm2": L.init_norm(cfg, ini), "ffn": ffn(cfg, ini)}
 
 
+def lm_tree(cfg: ModelConfig, ini: L.Init) -> dict:
+    """A parameter tree of ``cfg`` (:func:`lm_params`'s layout) drawn leaf by
+    leaf from ``ini``: :func:`build_lm`'s weights, or with ``ini.place`` a
+    rank's pieces of them (the sharded trainer)."""
+    _check_kinds(cfg)
+    params = {"embed": ini.fan_in((cfg.vocab_size, cfg.d_model), fan_axes=(1,))}
+    params["blocks"] = [_init_block(cfg, kind, ini) for kind in cfg.layer_kinds]
+    params["final_norm"] = L.init_norm(cfg, ini)
+    if not cfg.tied_embeddings:
+        params["head"] = ini.fan_in((cfg.d_model, cfg.vocab_size))
+    return params
+
+
+def lm_meta(cfg: ModelConfig) -> dict:
+    """``cfg``'s parameter tree on the meta device: every leaf's global shape
+    and dtype, nothing allocated."""
+    return lm_tree(cfg, L.Init(None, L.dt(cfg), "meta"))
+
+
+def lm_draw_order(cfg: ModelConfig) -> list[int]:
+    """The flatten-order index of each leaf :func:`lm_tree` draws, in the
+    order it draws them."""
+    drawn: list = []
+    meta = lm_tree(cfg, L.Init(None, L.dt(cfg), "meta", place=lambda t: drawn.append(t) or t))
+    index = {id(t): i for i, t in enumerate(tree_leaves(meta))}
+    return [index[id(t)] for t in drawn]
+
+
+def _block_axes(cfg: ModelConfig, kind: str) -> dict:
+    mixer = {"attn": L.ATTENTION_AXES, "local_attn": L.ATTENTION_AXES,
+             "rglru": R.RGLRU_AXES, "rwkv6": R.RWKV_TMIX_AXES}[kind]
+    if kind == "rwkv6":
+        ffn = R.RWKV_CMIX_AXES
+    else:
+        ffn = L.MOE_AXES if cfg.n_experts else L.FFN_AXES
+    return {"norm1": L.NORM_AXES, "mixer": mixer, "norm2": L.NORM_AXES, "ffn": ffn}
+
+
+def _pick(table: dict, tree: dict) -> dict:
+    """The entries of ``table`` (nested groups nested) that ``tree`` has."""
+    return {k: _pick(table[k], v) if isinstance(v, dict) else table[k] for k, v in tree.items()}
+
+
+def lm_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter of ``cfg``'s LM, in
+    :func:`lm_params`'s per-layer layout: the JAX ``build_lm``'s axes tree,
+    read from each block kind's table. ``lm_stacked(cfg, lm_axes(cfg),
+    stack_axes, is_leaf=...)`` gives it in the JAX layout."""
+    meta = lm_meta(cfg)
+    out = {"embed": ("vocab", "fsdp"),
+           "blocks": [_pick(_block_axes(cfg, kind), b)
+                      for kind, b in zip(cfg.layer_kinds, meta["blocks"])],
+           "final_norm": _pick(L.NORM_AXES, meta["final_norm"])}
+    if "head" in meta:
+        out["head"] = ("fsdp", "vocab")
+    return out
+
+
 def build_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
     """A model of ``cfg``'s published shapes with random weights drawn from
     ``seed`` (fan-in init, as the JAX package's ``build_lm``), made
@@ -163,13 +245,7 @@ def build_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
     _check_kinds(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    ini = L.Init(gen, L.dt(cfg), dev)
-    params = {"embed": ini.fan_in((cfg.vocab_size, cfg.d_model), fan_axes=(1,))}
-    params["blocks"] = [_init_block(cfg, kind, ini) for kind in cfg.layer_kinds]
-    params["final_norm"] = L.init_norm(cfg, ini)
-    if not cfg.tied_embeddings:
-        params["head"] = ini.fan_in((cfg.d_model, cfg.vocab_size))
-    return LM(cfg, params)
+    return LM(cfg, lm_tree(cfg, L.Init(gen, L.dt(cfg), dev)))
 
 
 # ---------------------------------------------------------------------------
@@ -303,42 +379,49 @@ def lm_decode(cfg: ModelConfig, model: LM, token: Tensor, cache: list, pos: int)
 # ---------------------------------------------------------------------------
 
 
-def lm_forward_train(cfg: ModelConfig, params, tokens: Tensor):
+def lm_forward_train(cfg: ModelConfig, params, tokens: Tensor, *, whole=None):
     """The forward under autograd: ``(logits (B, S, V), aux)``, gradients
     flowing to every tensor of ``params`` (a tree, :func:`lm_params`) that
     requires them. With ``cfg.remat`` each block runs under
     ``torch.utils.checkpoint`` (its activations recomputed in the backward,
     the expert-parallel MoE's collectives with them, on every rank in one
-    order; only ``remat_policy="full"`` is ported)."""
+    order; only ``remat_policy="full"`` is ported).
+
+    ``whole(key, tree)`` (the sharded trainer's) turns the pieces of
+    ``params[key]`` (``key``: ``"embed"``, ``"head"``, ``"final_norm"`` or a
+    block's index) into the parameters the computation reads. It is called
+    inside each block's checkpointed function, so the remat recompute
+    gathers again and no whole block outlives its use, and at either end
+    for the embedding, the final norm and the head."""
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} is not ported; the port rematerialises "
             "whole blocks (remat_policy='full')")
-    x = _embed(cfg, params, tokens)
+    get = whole if whole is not None else (lambda key, tree: tree)
+    x = _embed(cfg, {"embed": get("embed", params["embed"])}, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     # The backward's recompute runs after the caller's ``use_mesh`` block
     # has exited: each block re-installs the mesh it ran under.
     mesh = _ambient_mesh()
-    for kind, p in zip(cfg.layer_kinds, params["blocks"]):
-        def block(x, kind=kind, p=p):
+    for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["blocks"])):
+        def block(x, i=i, kind=kind, p=p):
             with use_mesh(mesh):
-                x, _, aux = _apply_block(cfg, kind, p, x, cache=None, pos=None, prefill=False)
+                x, _, aux = _apply_block(cfg, kind, get(i, p), x, cache=None, pos=None,
+                                         prefill=False)
             return x, aux
 
         x, aux = checkpoint(block, x, use_reentrant=False) if cfg.remat else block(x)
         if aux is not None:
             aux_total = aux_total + aux
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    return _logits(cfg, params, x), aux_total
+    x = L.apply_norm(cfg, get("final_norm", params["final_norm"]), x)
+    key = "embed" if cfg.tied_embeddings else "head"
+    return _logits(cfg, {key: get(key, params[key])}, x), aux_total
 
 
-def lm_loss(cfg: ModelConfig, params, batch) -> tuple[Tensor, dict]:
-    """Cross-entropy train loss, the JAX package's: ``batch`` holds
-    ``"tokens"`` and ``"labels"`` (B, S) tensors, labels ``-100`` where
-    padded. Written as logsumexp minus a one-hot contraction, as there.
-    Returns ``(loss + 0.01 * aux, {"loss", "aux_loss", "ntokens"})``."""
-    logits, aux = lm_forward_train(cfg, params, batch["tokens"])
-    labels = batch["labels"]
+def token_nll(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
+    """``(sum of the valid tokens' negative log-likelihoods, their count)``:
+    labels ``-100`` where padded. Written as logsumexp minus a one-hot
+    contraction, as the JAX package's loss is."""
     valid = labels >= 0
     labels_safe = labels.clamp_min(0).to(torch.long)
 
@@ -347,7 +430,17 @@ def lm_loss(cfg: ModelConfig, params, batch) -> tuple[Tensor, dict]:
     onehot = torch.zeros_like(logits).scatter_(-1, labels_safe[..., None], 1.0)
     label_logit = torch.einsum("bsv,bsv->bs", logits32, onehot.to(torch.float32))
     nll = torch.where(valid, lse - label_logit, 0.0)
-    denom = valid.sum().clamp_min(1)
-    loss = nll.sum() / denom
+    return nll.sum(), valid.sum()
+
+
+def lm_loss(cfg: ModelConfig, params, batch) -> tuple[Tensor, dict]:
+    """Cross-entropy train loss, the JAX package's: ``batch`` holds
+    ``"tokens"`` and ``"labels"`` (B, S) tensors, labels ``-100`` where
+    padded (:func:`token_nll`). Returns ``(loss + 0.01 * aux, {"loss",
+    "aux_loss", "ntokens"})``."""
+    logits, aux = lm_forward_train(cfg, params, batch["tokens"])
+    nll, count = token_nll(logits, batch["labels"])
+    denom = count.clamp_min(1)
+    loss = nll / denom
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux_loss": aux, "ntokens": denom}

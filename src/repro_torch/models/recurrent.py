@@ -43,6 +43,15 @@ F32 = torch.float32
 _RGLRU_C = 8.0
 
 
+# The logical axes of each block's tensors (the JAX ``init_*``'s), beside
+# its init, as ``layers.ATTENTION_AXES`` is kept.
+RGLRU_AXES = {
+    "w_gate": ("fsdp", "mlp"), "w_branch": ("fsdp", "mlp"), "conv_k": (None, "mlp"),
+    "conv_b": ("mlp",), "w_a": ("mlp", None), "b_a": (None,), "w_x": ("mlp", None),
+    "b_x": (None,), "lam": (None,), "w_out": ("mlp", "fsdp"),
+}
+
+
 def init_rglru(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
     d, w = cfg.d_model, cfg.rnn_width
     return {
@@ -112,6 +121,16 @@ def rglru_cache_init(cfg: ModelConfig, batch: int, *, device) -> dict:
 # ---------------------------------------------------------------------------
 
 _LORA = 64
+
+
+RWKV_TMIX_AXES = {
+    **{f"mu_{nm}": (None,) for nm in ("x", "w", "k", "v", "r", "g")},
+    **{f"lora_a_{nm}": ("fsdp", None) for nm in ("w", "k", "v", "r", "g")},
+    **{f"lora_b_{nm}": (None, "fsdp") for nm in ("w", "k", "v", "r", "g")},
+    "decay_base": (None,), "bonus": (None, None),
+    **{nm: ("fsdp", None) for nm in ("wr", "wk", "wv", "wg")},
+    "wo": (None, "fsdp"), "ln_scale": (None,),
+}
 
 
 def init_rwkv_tmix(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
@@ -184,6 +203,10 @@ def apply_rwkv_tmix(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None
     y = y * F.silu(g)
     out = y @ p["wo"].to(F32)
     return out.to(x.dtype), {"state": state.to(F32), "x_prev": x32[:, -1]}
+
+
+RWKV_CMIX_AXES = {"mu_k": (None,), "mu_r": (None,), "wk": ("fsdp", "mlp"),
+                  "wv": ("mlp", "fsdp"), "wr": ("fsdp", None)}
 
 
 def init_rwkv_cmix(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:

@@ -9,7 +9,10 @@ from repro_torch.optim.optimizers import (
     adamw_init,
     adamw_update,
     clip_by_global_norm,
+    clip_in_place,
     make_optimizer,
+    opt_state_axes,
     optimizer_config_from_model,
     schedule_lr,
+    update_in_place,
 )

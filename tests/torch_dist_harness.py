@@ -598,3 +598,121 @@ def failing_rank(rank, world, store):
         raise ValueError("rank 1 failed on purpose")
     time.sleep(60)
     return rank
+
+
+def _numpy_tree(tree):
+    """A tree of tensors as float32 numpy (bfloat16 widened, exact)."""
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: (t.float() if t.dtype == torch.bfloat16 else t).numpy(), tree)
+
+
+def train_suite(rank, world, cases, ckpt_root, ckpt_case):
+    """The sharded LM trainer on gloo ranks (no JAX here).
+
+    ``cases``: ``{key: (arch, config overrides, optimizer overrides, mesh
+    shape, mesh axes, microbatches, [global batch of each step])}``: each
+    rank builds ``init_train_state`` on the mesh from the seed, runs
+    ``make_train_step`` on the global batches, and returns each step's
+    loss, grad norm and aux loss, its pieces' bytes (and each leaf's
+    replica count), and (rank 0) the parameters and moments gathered
+    whole. ``ckpt_case``: ``(arch, overrides, [global batch of each
+    step])`` for the checkpoint drills under ``ckpt_root``: two steps of
+    ``train()`` on ``(2, 2)``, that checkpoint restored onto ``(4, 1)``,
+    the run resumed there to step 4, and a SIGTERM sent to rank 1 at step
+    2 of a run on ``(2, 2)``."""
+    import dataclasses
+    import signal
+    from fractions import Fraction
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import optimizer_config_from_model
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step, train
+    from repro_torch.train.loop import train_shardings
+    from repro_torch.tree import tree_flatten, tree_map
+
+    meshes = {}
+
+    def mesh_of(shape, axes):
+        key = (tuple(shape), tuple(axes))
+        if key not in meshes:
+            meshes[key] = make_mesh(key[0], key[1], backend="gloo", device="cpu")
+        return meshes[key]
+
+    def wholes(tree, shardings):
+        out = tree_map(lambda t, sh: sh.whole(t), tree, shardings)
+        return _numpy_tree(out) if rank == 0 else None
+
+    def shares(tree, shardings):
+        pieces, _ = tree_flatten(tree)
+        shs, _ = tree_flatten(shardings)
+        return {"bytes": sum(t.numel() * t.element_size() for t in pieces),
+                "per_replica": sum(Fraction(t.numel() * t.element_size(), sh.replicas)
+                                   for t, sh in zip(pieces, shs))}
+
+    found = {}
+    for key, (arch, over, opt_over, shape, axes, mb, batches) in cases.items():
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
+        opt_cfg = dataclasses.replace(optimizer_config_from_model(cfg), **opt_over)
+        mesh = mesh_of(shape, axes)
+        params, state = init_train_state(cfg, seed=SEED_TRAIN, mesh=mesh)
+        p_sh, o_sh = train_shardings(cfg, mesh, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, microbatches=mb, mesh=mesh)
+        out = {"loss": [], "grad_norm": [], "aux_loss": [],
+               "shares": [shares(params, p_sh), shares(state, o_sh)]}
+        for batch in batches:
+            if mb > 1:
+                batch = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])
+                         for k, v in batch.items()}
+            params, state, m = step(params, state, batch)
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+            out["aux_loss"].append(float(m["aux_loss"]) if "aux_loss" in m else None)
+        out["params"], out["state"] = wholes(params, p_sh), wholes(state, o_sh)
+        found[key] = out
+
+    class Data:
+        def __init__(self, batches):
+            self.batches = batches
+
+        def batch_at(self, step):
+            return self.batches[step]
+
+    arch, over, batches = ckpt_case
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    data = Data(batches)
+    quiet = lambda msg: None  # noqa: E731
+    root = f"{ckpt_root}/resume"
+    m22 = mesh_of((2, 2), ("data", "model"))
+    m41 = mesh_of((4, 1), ("data", "model"))
+    tc = TrainConfig(steps=2, ckpt_every=100, ckpt_dir=root, log_every=100)
+    p22, s22, first = train(cfg, tc, data, mesh=m22, seed=SEED_TRAIN, log_fn=quiet)
+    saved = wholes((p22, s22), train_shardings(cfg, m22))
+    like = init_train_state(cfg, seed=SEED_TRAIN + 1, mesh=m41)
+    restored, extra = restore_checkpoint(root, 1, like, shardings=train_shardings(cfg, m41))
+    back = wholes(restored, train_shardings(cfg, m41))
+    tc = TrainConfig(steps=4, ckpt_every=100, ckpt_dir=root, log_every=100)
+    *_, rest = train(cfg, tc, data, mesh=m41, seed=SEED_TRAIN, log_fn=quiet)
+
+    def preempt(msg):
+        if rank == 1 and "step 2 " in msg:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    root = f"{ckpt_root}/sigterm"
+    tc = TrainConfig(steps=6, ckpt_every=100, ckpt_dir=root, log_every=1)
+    *_, cut = train(cfg, tc, data, mesh=m22, seed=SEED_TRAIN, log_fn=preempt)
+    found["ckpt"] = {"first": [h["loss"] for h in first], "saved": saved, "restored": back,
+                     "extra": extra, "rest": [(h["step"], h["loss"]) for h in rest],
+                     "sigterm_steps": [h["step"] for h in cut],
+                     "sigterm_latest": latest_step(root)}
+    return found
+
+
+SEED_TRAIN = 3
