@@ -19,9 +19,11 @@ and backward) and RWKV-6 3B (K7 and its backward kernel), the dense
 LMs (qwen1.5-0.5b served, with a 4096-token flash prefill, and trained;
 starcoder2-3b's 4096-token blocked local prefill), and the MoE LMs
 (qwen3-moe served at 4 layers and trained at 1, arctic served and trained
-at 1, at published widths; the expert-parallel MoE on gloo ranks), and the
-LM trainer sharded over gloo ranks (FSDP storage, data-parallel compute) —
-and holds
+at 1, at published widths; the expert-parallel MoE on gloo ranks), the
+media LMs (llama-3.2-vision served at one superblock of published widths,
+with and without media; hubert-xlarge encoded and trained at published
+widths and depth), and the LM trainer sharded over gloo ranks (FSDP
+storage, data-parallel compute) — and holds
 every hand-written kernel against its plain PyTorch version on the card. Each phase prints one JSON line (``t_s``: the
 script's seconds so far when it was printed):
 
@@ -67,9 +69,10 @@ script's seconds so far when it was printed):
               bit-equal; K3 (one int32 frame per 64x64 tile, register
               windows down runs of rows) also on inputs at the sign test's
               edges, bit-equal; and each LM at full width and
-              reduced depth (RWKV-6 2 layers, RecurrentGemma 3, qwen1.5-0.5b
-              and starcoder2-3b 2), float32, a 128-token prefill on the card
-              against the same on the CPU (the plain versions), and for the
+              reduced depth (RWKV-6 2 layers, RecurrentGemma 3, qwen1.5-0.5b,
+              starcoder2-3b and hubert-xlarge 2), float32, a 128-token prefill
+              (hubert: a forward over 128 frames) on the card against the
+              same on the CPU (the plain versions), and for the
               two dense LMs a 4096-token one (the flash scan, the blocked
               local path): last logits and every cache leaf within
               1e-3 * max|.|. The gradient path's K2 programs (every
@@ -122,26 +125,48 @@ script's seconds so far when it was printed):
               qwen1.5-0.5b), 8 requests of 512, 256, 128, 64, 512, 256, 192
               and 100 tokens (qwen1.5-0.5b: and one of 4096, which takes the
               flash scan in each of its 24 layers, counted), 16 new tokens
-              each; then the MoE LMs the same way, depth cut to fit the
-              card (``reduced``): qwen3-moe-235b-a22b 4 of 94 layers,
-              arctic-480b 1 of 35; the counters must read exactly K7 = 7 x
-              32 = 224 (the 100-token prompt takes the sequential path), K6
-              = 8 x 18 = 144 and no kernel for the dense and MoE LMs; every
+              each; then the MoE LMs and llama-3.2-vision the same way,
+              depth cut to fit the card (``reduced``): qwen3-moe-235b-a22b 4
+              of 94 layers, arctic-480b 1 of 35, llama-3.2-vision-90b 5 of
+              100 (one superblock with its cross_attn layer; served without
+              media, as the JAX server serves it); the counters must read
+              exactly K7 = 7 x 32 = 224 (the 100-token prompt takes the
+              sequential path), K6 = 8 x 18 = 144 and no kernel for the
+              dense, MoE and vision LMs; every
               request finishes and every logit is finite; seconds per
               prefill by length, per decode step and per token, tokens/s
               and GB of parameters; then, at float32 (an MoE LM dropless:
               capacity factor 64), a 128-token prefill plus 64 decode steps
               against one 192-token prefill (last logits and every cache
-              leaf within 1e-3 * max|.|);
+              leaf within 1e-3 * max|.|; not for llama-vision, whose
+              memory-less prefill attends to the whole prompt in its cross
+              layers);
               then steady state: three synchronised 512-token prefills, 20
               decode tokens, and one torch.profiler window of each (device
               busy share, the six kernels with the most device time, and
               the device time of K6 / K7 themselves); the
               bytes a decode token's operations move, casts included, and
-              their time at 3.35 TB/s, the decode token's floor. Then
+              their time at 3.35 TB/s, the decode token's floor, and the
+              port's analytic bound of a 512-token prefill and a decode
+              token (``analytic_bound``). llama-vision's media path
+              (``serve_media``): every cross gate set to 0.5, at float32 a
+              512-token prefill against memory (1, 1024, 8192) and 16
+              decode tokens held to one 528-token prefill within 1e-3 *
+              max|.|, other memory moving the logits by more than 1e-3 of
+              their largest; then at bf16 the same, counted (no kernel),
+              timed, profiled, with its bytes floor and bounds. Then
               starcoder2-3b (3.0 G parameters): one 4096-token prefill
               through the blocked local path (window 4096, 256-token blocks,
               counted in each of its 30 layers), finite logits, seconds
+  encode      hubert-xlarge at its published widths and depth (48 layers,
+              0.95 G parameters) from the seed, bf16 compute, frames from
+              the seed: ``lm_forward`` at (4, 512) and (1, 4096) frames,
+              three synchronised calls each with the counters reset just
+              before (no kernel), the flash scan counted (48 calls a
+              forward at 4096 frames, each without a causal mask; none at
+              512), finite logits, a profiled call's busy share and the
+              analytic bound; the bidirectional check at float32 (one
+              channel of the last frame moves the first position's logits)
   obs         the port's metrics registry, enabled around the elementary
               phase's lower_cuda calls: call counters against the calls made
               and the launch counters, each timer's mean beside the device
@@ -254,8 +279,9 @@ script's seconds so far when it was printed):
               timed; K6 at 65537x4x32, K7 at batch and heads 65537 and K7's
               backward at batch 65537, two launches each; K7 and its
               backward timed cold at the trainer's (4, 256, 40, 64); (b) a
-              RecurrentGemma and an RWKV-6 (128 tokens, two chunks)
-              smoke-config train step at
+              RecurrentGemma, an RWKV-6 (128 tokens, two chunks), a
+              llama-vision (memory in every batch, its gates at 0.5) and a
+              hubert (frames) smoke-config train step at
               f32 on the card (the second, at the full learning rate) within
               2e-4 of the CPU's, each parameter's step delta within 1e-2 of
               its largest on the CPU; (c) ``train()`` on
@@ -283,7 +309,14 @@ script's seconds so far when it was printed):
               slice by slice); (h) ``train()`` on ``arctic-480b`` at its
               published widths and 1 of 35 layers (14.1 G parameters, bf16
               weights and gradients, Adafactor), 3 steps: no kernel, finite
-              losses near ln 32000, aux above 0, peak memory
+              losses near ln 32000, aux above 0, peak memory; (i)
+              ``train()`` on ``hubert-xlarge`` at its published widths and
+              depth (0.95 G parameters), 4 steps of 4 x 256 frames: no
+              kernel, finite losses near ln 504. Each full-width trainer
+              prints its step's analytic bound. llama-vision is not trained
+              at published widths: one superblock's 6.38 G parameters need
+              about 89 GB of f32 masters, f32 gradients, bf16 moments and
+              the bf16 compute copy
   moe_sharded the expert-parallel MoE (``apply_moe_sharded``) on 4 gloo ranks
               time-sharing the one card (TF32 off), ``("data", "model")``
               meshes (1, 4) and (2, 2): (a) a smoke MoE layer of each arch,
@@ -296,16 +329,23 @@ script's seconds so far when it was printed):
               4) (32 experts a rank), bf16, 4 x 256 tokens: rank 0's output
               within 4 bf16 steps of max|y| of the local layer, each sum
               over ``model`` exactly T_loc x D x 2 bytes, its host ms and
-              the layer's; no kernel launched. Host times are ranks sharing
-              one H100 through host memory: not a multi-GPU figure
+              the layer's; (d) the same layer on one decode token a row (4
+              x 1): the expert-parallel path, whose only gather is the
+              router's pieces (D x E/4 x 4 x 3 bytes a rank) and only sum
+              the outputs (4 x D x 2 bytes), where a whole layer's gather
+              once moved 7.2 GB a rank; no kernel launched. Host times are
+              ranks sharing one H100 through host memory: not a multi-GPU
+              figure
   train_sharded
               the LM trainer sharded over gloo ranks time-sharing the one
               card (TF32 off; each rank holds its pieces of every parameter,
               gradient and moment by the JAX rules and computes its rows of
               the global batch with gathered weights): (a) 4 ranks, the
               smoke ``qwen1.5-0.5b``, ``recurrentgemma-2b`` (K6),
-              ``rwkv6-3b`` (K7, K7's backward), ``qwen3-moe-235b-a22b`` and
-              ``arctic-480b`` at f32 (MoE dropless), remat, 2 microbatches,
+              ``rwkv6-3b`` (K7, K7's backward), ``qwen3-moe-235b-a22b``,
+              ``arctic-480b``, ``llama-3.2-vision-90b`` (memory in every
+              batch) and ``hubert-xlarge`` (frames) at f32 (MoE dropless),
+              remat, 2 microbatches,
               ``-100`` labels spread unevenly, 2 steps on each of (4, 1),
               (2, 2), (1, 4) ``("data", "model")``: every rank's loss and
               grad norm equal, within 1e-5 relative of one process's steps
@@ -378,15 +418,23 @@ K7_TOL = 1e-5  # times max|y|, plus 1e-6: summation order in the four products
 H100_TF32_TENSOR = 495e12  # FLOP/s, TF32 on the tensor cores, dense (H100 SXM data sheet)
 ORACLE_TOL = 3e-4  # the JAX package's bound for the chunked kernel vs wkv6_ref
 SLICE_TOL = 1e-3  # times max|.|: the whole model, card vs CPU or decode vs prefill
+VISION_ARCH = "llama-3.2-vision-90b"
 SERVE_ARCHS = ("rwkv6-3b", "recurrentgemma-2b", "qwen1.5-0.5b", "qwen3-moe-235b-a22b",
-               "arctic-480b")
+               "arctic-480b", VISION_ARCH)
 # Depth cuts at published widths: qwen3-moe's 94 layers are 9.8 GB each in
 # float32 (4 layers and the head: 44.2 GB), arctic's 35 are 27.3 GB each in
 # bfloat16 (1 layer: 28.2 GB, and its float32 check casts a 17.9 GB expert
-# stack).
-SERVE_LAYERS = {"qwen3-moe-235b-a22b": 4, "arctic-480b": 1}
+# stack), llama-vision's 100 are 3.4 GB each in float32 (one superblock of 4
+# attn layers and its cross_attn, the least depth that holds one, and the
+# embedding and head: 25.5 GB).
+SERVE_LAYERS = {"qwen3-moe-235b-a22b": 4, "arctic-480b": 1, VISION_ARCH: 5}
 MOE_DROPLESS = 64.0  # capacity factor of an MoE arch's decode-vs-prefill checks
-SLICE_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3, "qwen1.5-0.5b": 2, "starcoder2-3b": 2}
+MEDIA_GATE = 0.5  # every cross-attention gate on the media path (zero at init: a dead path)
+MEDIA_PROMPT, MEDIA_NEW = 512, 16  # the media path's prompt and decode tokens
+ENCODE_ARCH = "hubert-xlarge"
+ENCODE_SHAPES = ((4, 512), (1, 4096))  # (batch, frames); the second past FLASH_THRESHOLD
+SLICE_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3, "qwen1.5-0.5b": 2, "starcoder2-3b": 2,
+                ENCODE_ARCH: 2}
 LONG_PROMPT = 4096  # past FLASH_THRESHOLD: the flash scan (qwen1.5) or blocked local path
 LONG_ARCHS = {"qwen1.5-0.5b": "_flash_fwd_scan", "starcoder2-3b": "_local_attention_blocked"}
 SERVE_PROMPTS = (512, 256, 128, 64, 512, 256, 192, 100)
@@ -431,8 +479,9 @@ ARCTIC_TRAIN_LAYERS = 1  # 14.1 G parameters: bf16 weights and grads, Adafactor,
 ARCTIC_TRAIN_STEPS = 3
 SHARDED_RANKS = 4  # the train_sharded phase's gloo ranks, time-sharing the one card
 SHARDED_MESHES = ((4, 1), (2, 2), (1, 4))  # ("data", "model"), part (a)
+AUDIO_TRAIN_ARCH = ENCODE_ARCH  # frames (4, 256, 1280) a step
 SHARDED_SMOKE = ("qwen1.5-0.5b", "recurrentgemma-2b", "rwkv6-3b", "qwen3-moe-235b-a22b",
-                 "arctic-480b")
+                 "arctic-480b", VISION_ARCH, AUDIO_TRAIN_ARCH)
 SHARDED_SMOKE_SEQ = {"rwkv6-3b": 128}  # two 64-step chunks: K7 and its backward run
 SHARDED_BATCH, SHARDED_MB, SHARDED_STEPS = 8, 2, 2  # part (a): 1 row a rank a microbatch
 SHARDED_DENSE_MESH, SHARDED_DENSE_STEPS = (4, 1), 4  # part (b): qwen1.5-0.5b, 24 layers
@@ -860,8 +909,11 @@ def _moe_rank_body(rank, world, store):
     path on ``(1, 4)`` against the local path's. (c) One qwen3-moe MoE layer
     at its published widths on ``(1, 4)`` (32 experts a rank) at bfloat16,
     4 x 256 tokens, timed, its sums over ``model`` counted by the metrics
-    registry; rank 0 also runs the local layer on the whole weights. No
-    launch of a port kernel anywhere."""
+    registry; rank 0 also runs the local layer on the whole weights. (d)
+    The same layer on one decode token a row (4 x 1): the expert-parallel
+    path, its gathers' and sums' bytes counted (the router's pieces and
+    the combined outputs; no expert weight), timed; rank 0 against the
+    local layer. No launch of a port kernel anywhere."""
     import torch
     import torch.distributed as dist
 
@@ -975,6 +1027,34 @@ def _moe_rank_body(rank, world, store):
                 max_abs_err=(y.float() - y_ref.float()).abs().max().item(),
                 max_abs_ref=y_ref.float().abs().max().item(),
                 aux_rel_err=abs(aux.item() - aux_ref.item()) / aux_ref.item())
+        # (d) One decode token a row, the layer's weights where they are.
+        x1 = x[:, :1].contiguous()
+        reg1, secs1 = MetricsRegistry(), []
+        for i in range(4):  # call 1 counted; calls 1-3 timed
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_mesh(mesh), metrics.using(reg1 if i == 1 else None), torch.no_grad():
+                y1, _ = L.apply_moe(cfg, mine, x1)
+            torch.cuda.synchronize()
+            if i:
+                secs1.append(time.perf_counter() - t0)
+        mp = mesh.axis_size("model")
+        layer_bytes = sum(w.numel() * w.element_size() for w in mine.values()) * mp
+        found["one_token"] = {
+            "tokens": x1.shape[0], "layer_s_calls_1_3": secs1,
+            "gather_bytes": reg1.counters.get("dist.gather.bytes", 0),
+            "sum_over_bytes": reg1.counters.get("dist.sum_over.bytes", 0),
+            "router_piece_bytes": cfg.d_model * (cfg.n_experts // mp) * 4 * (mp - 1),
+            "outputs_bytes": x1.shape[0] * cfg.d_model * x1.element_size(),
+            "whole_layer_gather_bytes": layer_bytes * (mp - 1) // mp,
+            "finite": bool(torch.isfinite(y1).all())}
+        if rank == 0:
+            with torch.no_grad():
+                y1_ref, _ = L._apply_moe_local(cfg, whole, x1)
+            found["one_token"].update(
+                max_abs_err=(y1.float() - y1_ref.float()).abs().max().item(),
+                max_abs_ref=y1_ref.float().abs().max().item())
         found["launches"] = dict(_build.LAUNCHES)
         dist.barrier()
         return found
@@ -993,21 +1073,23 @@ def sharded_smoke_cfg(arch):
     return dataclasses.replace(cfg, capacity_factor=MOE_DROPLESS) if cfg.n_experts else cfg
 
 
-def sharded_batches(vocab, seq, n, seed):
-    """``n`` global batches of SHARDED_BATCH rows, labels ``-100`` unevenly
-    over the rows (so over the ranks and microbatches)."""
+def sharded_batches(cfg, seq, n, seed):
+    """``n`` global batches of SHARDED_BATCH rows for ``cfg``, labels
+    ``-100`` unevenly over the rows (so over the ranks and microbatches),
+    with ``cfg``'s media (:func:`with_media`)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     out = []
     for i in range(n):
-        toks = rng.integers(0, vocab, (SHARDED_BATCH, seq + 1)).astype(np.int32)
+        toks = rng.integers(0, cfg.vocab_size, (SHARDED_BATCH, seq + 1)).astype(np.int32)
         labels = toks[:, 1:].copy()
         labels[0, :seq // 3] = -100
         labels[1, :seq - 1] = -100
         labels[5, 3:seq // 2] = -100
         labels[6, i] = -100
-        out.append({"tokens": toks[:, :-1].copy(), "labels": labels})
+        out.append(with_media(cfg, {"tokens": toks[:, :-1].copy(), "labels": labels},
+                              seed + 1 + i))
     return out
 
 
@@ -1126,7 +1208,7 @@ def _train_sharded_rank_body(rank, world, store, job):
             for arch in job["archs"]:
                 cfg = sharded_smoke_cfg(arch)
                 opt = dataclasses.replace(optimizer_config_from_model(cfg), warmup_steps=1)
-                batches = sharded_batches(cfg.vocab_size, SHARDED_SMOKE_SEQ.get(arch, 32),
+                batches = sharded_batches(cfg, SHARDED_SMOKE_SEQ.get(arch, 32),
                                           SHARDED_STEPS, SEED)
                 for shape, mesh in meshes.items():
                     params, state = init_train_state(cfg, seed=SEED, mesh=mesh)
@@ -1236,6 +1318,291 @@ def _split_step(run, sync) -> dict:
             "collective_host_ms": inside["s"] * 1e3, "collective_calls": inside["calls"]}
 
 
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def model_err(label, got, want):
+    """Max over (logits, cache leaves) of |got - want| / max|want|;
+    integer leaves (slot positions) must be equal."""
+    import torch
+
+    worst_rel = 0.0
+    for g, w in zip(leaves(got), leaves(want)):
+        g, w = g.cpu(), w.cpu()
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{label}: leaf shape/dtype")
+        if not w.is_floating_point():
+            check(torch.equal(g, w), f"{label}: integer leaf differs")
+            continue
+        check(bool(torch.isfinite(g).all()), f"{label}: non-finite values")
+        scale = w.abs().max().item()
+        rel = (g - w).abs().max().item() / scale if scale else (g - w).abs().max().item()
+        worst_rel = max(worst_rel, rel)
+    check(worst_rel <= SLICE_TOL, f"{label}: relative error {worst_rel} > {SLICE_TOL}")
+    return worst_rel
+
+
+@contextlib.contextmanager
+def counting(name):
+    """The keyword arguments of each call of ``repro_torch.models.layers.<name>``
+    (an attention path of plain tensor code, which no launch counter sees)
+    while the block runs."""
+    from repro_torch.models import layers as lm_layers
+
+    orig, calls = getattr(lm_layers, name), []
+
+    def counted(*args, **kw):
+        calls.append(kw)
+        return orig(*args, **kw)
+
+    setattr(lm_layers, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(lm_layers, name, orig)
+
+
+def synced(fn):
+    """``(fn(), host seconds)``, the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profiled_window(fn, n):
+    """``n`` calls of ``fn`` (after one warm-up) under torch.profiler: the
+    window's host µs, the device's busy µs and share, the six kernels with
+    the most device time and the port's own recurrence kernels (K6, K7),
+    listed whether or not they are among those six."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    seen = device_kernels(prof)
+    busy = sum(v["device_us"] for v in seen.values())
+    top = sorted(seen.items(), key=lambda kv: -kv[1]["device_us"])[:6]
+    return {"calls": n, "window_us": window_us, "device_busy_us": busy,
+            "busy_share": busy / window_us, "top_kernels": {k[:60]: v for k, v in top},
+            "port_kernels": {k[:60]: v for k, v in seen.items()
+                             if "rglru_kernel" in k or "wkv6_" in k}}
+
+
+def analytic_bound(cfg, kind, seq, batch) -> dict:
+    """The least time of one ``kind`` step (``"train"``, ``"prefill"`` or
+    ``"decode"`` at context ``seq``) of ``cfg`` (its own depth) on ``batch``
+    rows of ``seq`` tokens by the port's analytic model
+    (``repro_torch.launch.analytic``): the larger of its bytes
+    (``cell_hbm_bytes``) at 3.35 TB/s and its FLOPs (``cell_flops``) at the
+    dense rate of the compute dtype (bf16 on the tensor cores, 989 TFLOP/s;
+    f32 67 TFLOP/s, TF32 being off here)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import H100_SXM
+    from repro_torch.launch.analytic import cell_flops, cell_hbm_bytes
+
+    shape = ShapeConfig(f"{kind}_{seq}", seq, batch, kind)
+    flops, nbytes = cell_flops(cfg, shape)["analytic"], cell_hbm_bytes(cfg, shape)
+    rate = H100_SXM.peak_flops_bf16 if cfg.compute_dtype == "bfloat16" else H100_SXM.peak_flops_f32
+    t_bytes, t_ops = nbytes / H100_SXM.hbm_bw, flops / rate
+    return {"ms": max(t_bytes, t_ops) * 1e3, "by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "bytes": nbytes}
+
+
+def with_media(cfg, batch, seed):
+    """``batch`` (numpy tokens and labels) with what ``cfg``'s frontend reads,
+    drawn from a numpy ``seed``: ``memory`` (rows, M, D) beside the tokens
+    for the vision frontend, frames (rows, S, D) in their place for the
+    audio one; unchanged for a text LM."""
+    import numpy as np
+
+    if not cfg.frontend:
+        return batch
+    rng = np.random.default_rng(seed)
+    out = dict(batch)
+    if cfg.frontend == "audio":
+        out["tokens"] = rng.standard_normal(np.shape(batch["tokens"]) + (cfg.d_model,)).astype(
+            np.float32)
+    else:
+        rows = np.shape(batch["tokens"])[:-1]
+        out["memory"] = rng.standard_normal(rows + (cfg.num_media_tokens, cfg.d_model)).astype(
+            np.float32)
+    return out
+
+
+class MediaData:
+    """A dataset's batches with ``cfg``'s media (:func:`with_media`, seeded
+    by the step)."""
+
+    def __init__(self, cfg, base):
+        self.cfg, self.base = cfg, base
+
+    def batch_at(self, step):
+        return with_media(self.cfg, self.base.batch_at(step), SEED + step)
+
+
+def set_gates(blocks, value):
+    """Every cross-attention ``gate`` of ``blocks`` (a model's or a parameter
+    tree's) set to ``value``, in place; returns how many."""
+    import torch
+
+    n = 0
+    with torch.no_grad():
+        for b in blocks:
+            if "gate" in b["mixer"]:
+                b["mixer"]["gate"].fill_(value)
+                n += 1
+    return n
+
+
+def serve_media(cfg, model, dev) -> dict:
+    """llama-vision's media path on the served model (its gates set to
+    MEDIA_GATE): at float32, a MEDIA_PROMPT-token prefill against ``memory``
+    (1, num_media_tokens, D) and MEDIA_NEW decode tokens, the last logits
+    and every cache leaf held to one prefill of the whole within SLICE_TOL,
+    and other memory moving the prefill's logits; then at the published
+    compute dtype, counted (no port kernel), timed and profiled, with the
+    decode token's bytes floor and the analytic bounds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import H100_SXM
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_cache, lm_decode, lm_prefill
+
+    gates = set_gates(model.blocks, MEDIA_GATE)
+    check(gates == cfg.layer_kinds.count("cross_attn") and gates > 0, f"{gates} gates set")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    shape = (1, cfg.num_media_tokens, cfg.d_model)
+    memory = torch.randn(shape, generator=gen, device=dev)
+    other = torch.randn(shape, generator=gen, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (1, MEDIA_PROMPT + MEDIA_NEW))).to(dev)
+    max_len = 1024
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    first, cache = lm_prefill(cfg32, model, toks[:, :MEDIA_PROMPT],
+                              build_cache(cfg32, 1, max_len, device=dev), memory=memory)
+    last = first
+    for t in range(MEDIA_PROMPT, MEDIA_PROMPT + MEDIA_NEW):
+        last, cache = lm_decode(cfg32, model, toks[:, t], cache, t)
+    want = lm_prefill(cfg32, model, toks, build_cache(cfg32, 1, max_len, device=dev),
+                      memory=memory)
+    decode_err = model_err(f"{cfg.name} media decode vs prefill", (last, cache), want)
+    moved, _ = lm_prefill(cfg32, model, toks[:, :MEDIA_PROMPT],
+                          build_cache(cfg32, 1, max_len, device=dev), memory=other)
+    memory_rel = ((moved - first).abs().max() / first.abs().max()).item()
+    check(memory_rel > 1e-3, f"{cfg.name}: other memory moved the logits by {memory_rel}")
+    del cache, want, moved, first, last
+
+    torch.cuda.reset_peak_memory_stats()
+
+    def prefill():
+        return lm_prefill(cfg, model, toks[:, :MEDIA_PROMPT],
+                          build_cache(cfg, 1, max_len, device=dev), memory=memory)
+
+    _build.reset_launches()
+    prefill_s = [synced(prefill)[1] for _ in range(3)]
+    (logits, cache), _ = synced(prefill)
+    decode_s, finite = [], [torch.isfinite(logits).all()]
+    for i in range(MEDIA_NEW):
+        (logits, cache), sec = synced(lambda i=i: lm_decode(
+            cfg, model, logits.argmax(-1), cache, MEDIA_PROMPT + i))
+        decode_s.append(sec)
+        finite.append(torch.isfinite(logits).all())
+    check(not _build.LAUNCHES, f"{cfg.name} media path launched {dict(_build.LAUNCHES)}")
+    check(bool(torch.stack(finite).all()), f"{cfg.name}: non-finite media logits")
+    pos = MEDIA_PROMPT + MEDIA_NEW
+    tok = logits.argmax(-1)
+    decode_bytes = moved_bytes(lambda: lm_decode(cfg, model, tok, cache, pos))
+    windows = {"prefill_512": profiled_window(prefill, 1),
+               "decode": profiled_window(lambda: lm_decode(cfg, model, tok, cache, pos), 5)}
+    return {"gates": gates, "gate": MEDIA_GATE, "memory_shape": list(shape),
+            "prompt": MEDIA_PROMPT, "new_tokens": MEDIA_NEW,
+            "decode_vs_prefill_rel_err_f32": decode_err, "other_memory_rel_change": memory_rel,
+            "prefill_512_s": prefill_s, "decode_token_s": {
+                "median": statistics.median(decode_s), "min": min(decode_s),
+                "max": max(decode_s)},
+            "decode_bytes_gb": decode_bytes / 1e9,
+            "decode_bound_ms": decode_bytes / H100_SXM.hbm_bw * 1e3,
+            "analytic_bound": {"prefill_512": analytic_bound(cfg, "prefill", MEDIA_PROMPT, 1),
+                               "decode": analytic_bound(cfg, "decode", pos, 1)},
+            "profiled": windows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def encode_phase(dev) -> dict:
+    """hubert-xlarge at its published widths and depth from the seed,
+    frames from the seed, with the launch counters reset just before each
+    shape: ``lm_forward`` at each of ENCODE_SHAPES (bf16 compute), three
+    synchronised calls; the flash scan's calls counted (one a layer a call
+    past FLASH_THRESHOLD, each without a causal mask), no port kernel;
+    finite logits; a profiled call's busy share; the analytic bound; then
+    the bidirectional check at float32: one channel of the last frame
+    moves the first position's logits."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_lm, lm_forward
+    from repro_torch.models import layers as lm_layers
+
+    cfg = get_config(ENCODE_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = synced(lambda: build_lm(cfg, SEED, device=dev))
+    params_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    runs = {}
+    for b, s in ENCODE_SHAPES:
+        frames = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+        _build.reset_launches()
+        secs = []
+        with counting("_flash_fwd_scan") as calls:
+            for _ in range(3):
+                (logits, _), sec = synced(lambda: lm_forward(cfg, model, frames))
+                secs.append(sec)
+        want_calls = 3 * cfg.n_layers if s > lm_layers.FLASH_THRESHOLD else 0
+        check(len(calls) == want_calls and not any(c["causal"] for c in calls),
+              f"{cfg.name} {b}x{s}: {len(calls)} flash calls (want {want_calls}), causal "
+              f"{[c['causal'] for c in calls][:1]}")
+        check(not _build.LAUNCHES, f"{cfg.name} launched {dict(_build.LAUNCHES)}")
+        check(tuple(logits.shape) == (b, s, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), f"{cfg.name} {b}x{s}: logits")
+        runs[f"{b}x{s}"] = {"batch": b, "frames": s, "forward_s": secs,
+                            "frames_per_s": b * s / min(secs),
+                            "flash_scan_calls_per_forward": len(calls) // 3,
+                            "analytic_bound": analytic_bound(cfg, "prefill", s, b),
+                            "profiled": profiled_window(lambda: lm_forward(cfg, model, frames),
+                                                        1)}
+        del frames, logits
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    x = torch.randn((1, 64, cfg.d_model), generator=gen, device=dev)
+    x2 = x.clone()
+    x2[:, -1, 0] += 1.0
+    l1, _ = lm_forward(cfg32, model, x)
+    l2, _ = lm_forward(cfg32, model, x2)
+    first_change = (l2[:, 0] - l1[:, 0]).abs().max().item()
+    check(first_change > 1e-6, f"{cfg.name}: the last frame did not move the first position")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    return {"arch": cfg.name, "layers": cfg.n_layers, "params_gb": params_gb,
+            "build_s": build_s, "compute": cfg.compute_dtype, "runs": runs,
+            "bidirectional_first_position_change": first_change, "peak_gb": peak_gb}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1273,7 +1640,7 @@ def main() -> int:
     from repro_torch.kernels.wkv6 import wkv6_backward_plain, wkv6_plain, wkv6_ref
     from repro_torch.models import layers as lm_layers
     from repro_torch.configs import get_config
-    from repro_torch.models import build_cache, build_lm, lm_decode, lm_prefill
+    from repro_torch.models import build_cache, build_lm, lm_decode, lm_forward, lm_prefill
     from repro_torch.obs import MetricsRegistry, metrics, profiler_trace, runtime_metadata
     from repro_torch.ir.lower_cuda import _KERNELS
     from repro_torch.obs.health import HealthMonitor, NumericsError
@@ -1651,63 +2018,30 @@ def main() -> int:
         results.append({"kernel": "wkv6_bwd_cuda", "case": tag, "grads": grads})
         del bwd_in, got, plain, xs, y_p, s_p, auto
 
-    def leaves(tree):
-        if isinstance(tree, dict):
-            return [x for v in tree.values() for x in leaves(v)]
-        if isinstance(tree, (list, tuple)):
-            return [x for v in tree for x in leaves(v)]
-        return [tree]
-
-    def model_err(label, got, want):
-        """Max over (logits, cache leaves) of |got - want| / max|want|;
-        integer leaves (slot positions) must be equal."""
-        worst_rel = 0.0
-        for g, w in zip(leaves(got), leaves(want)):
-            g, w = g.cpu(), w.cpu()
-            check(g.shape == w.shape and g.dtype == w.dtype, f"{label}: leaf shape/dtype")
-            if not w.is_floating_point():
-                check(torch.equal(g, w), f"{label}: integer leaf differs")
-                continue
-            check(bool(torch.isfinite(g).all()), f"{label}: non-finite values")
-            scale = w.abs().max().item()
-            rel = (g - w).abs().max().item() / scale if scale else (g - w).abs().max().item()
-            worst_rel = max(worst_rel, rel)
-        check(worst_rel <= SLICE_TOL, f"{label}: relative error {worst_rel} > {SLICE_TOL}")
-        return worst_rel
-
-    @contextlib.contextmanager
-    def counting(name):
-        """Counts the calls of ``lm_layers.<name>`` (an attention path of
-        plain tensor code) while the block runs."""
-        orig, calls = getattr(lm_layers, name), []
-
-        def counted(*args, **kw):
-            calls.append(1)
-            return orig(*args, **kw)
-
-        setattr(lm_layers, name, counted)
-        try:
-            yield calls
-        finally:
-            setattr(lm_layers, name, orig)
-
     # The slice at full width and reduced depth, card against CPU: a
-    # 128-token prefill, and for the dense LMs one of LONG_PROMPT tokens
-    # through the flash scan or the blocked local path (plain tensor code,
-    # which no launch counter sees: its calls are counted, one a layer).
+    # 128-token prefill (the encoder: a forward over 128 frames), and for
+    # the dense LMs one of LONG_PROMPT tokens through the flash scan or the
+    # blocked local path (plain tensor code, which no launch counter sees:
+    # its calls are counted, one a layer).
     slices, long_paths = {}, {}
     for arch in SLICE_LAYERS:
         cfg = dataclasses.replace(get_config(arch), n_layers=SLICE_LAYERS[arch],
                                   compute_dtype="float32")
         model = build_lm(cfg, SEED, device="cpu")
         lengths = (128, LONG_PROMPT) if arch in LONG_ARCHS else (128,)
-        toks = {n: torch.from_numpy(np.random.default_rng(SEED).integers(
-            0, cfg.vocab_size, (1, n))) for n in lengths}
+        toks = {n: torch.from_numpy(
+            np.random.default_rng(SEED).standard_normal((1, n, cfg.d_model)).astype(np.float32)
+            if cfg.frontend == "audio"
+            else np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, n)))
+            for n in lengths}
 
         def prefill(n, device):
             with counting(LONG_ARCHS.get(arch, "_flash_fwd_scan")) as long_calls:
-                out = lm_prefill(cfg, model, toks[n].to(device),
-                                 build_cache(cfg, 1, max(256, n + 16), device=device))
+                if cfg.frontend == "audio":
+                    out = lm_forward(cfg, model, toks[n].to(device))
+                else:
+                    out = lm_prefill(cfg, model, toks[n].to(device),
+                                     build_cache(cfg, 1, max(256, n + 16), device=device))
             check(len(long_calls) == (cfg.n_layers if n > lm_layers.FLASH_THRESHOLD else 0),
                   f"{arch} {n}-token prefill on {device}: {len(long_calls)} long-path calls")
             return out, len(long_calls)
@@ -2046,8 +2380,9 @@ def main() -> int:
     serve_launches: dict[str, int] = {}
     want_launches = {"rwkv6-3b": {"wkv6_cuda": 7 * 32},
                      "recurrentgemma-2b": {"rglru_scan_cuda": 8 * 18},
-                     # dense attention and the MoE are plain tensor code
-                     "qwen1.5-0.5b": {}, "qwen3-moe-235b-a22b": {}, "arctic-480b": {}}
+                     # dense attention, cross-attention and the MoE are plain tensor code
+                     "qwen1.5-0.5b": {}, "qwen3-moe-235b-a22b": {}, "arctic-480b": {},
+                     VISION_ARCH: {}}
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
         reduced = None
@@ -2101,17 +2436,22 @@ def main() -> int:
         tokens = srv.stats["tokens_out"]
 
         # Decode against prefill, float32, on the card; an MoE arch dropless
-        # (capacity drops tokens at prefill shapes and never at decode).
+        # (capacity drops tokens at prefill shapes and never at decode). A
+        # vision LM's memory-less prefill attends to the whole prompt in its
+        # cross layers, so its decode matches no longer prefill: it is held
+        # on the media path (serve_media) instead.
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         if cfg.n_experts:
             cfg32 = dataclasses.replace(cfg32, capacity_factor=MOE_DROPLESS)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 192))).to(dev)
-        last, cache = lm_prefill(cfg32, model, toks[:, :128],
-                                 build_cache(cfg32, 1, 1024, device=dev))
-        for t in range(128, 192):
-            last, cache = lm_decode(cfg32, model, toks[:, t], cache, t)
-        want = lm_prefill(cfg32, model, toks, build_cache(cfg32, 1, 1024, device=dev))
-        decode_err = model_err(f"{arch} decode vs prefill", (last, cache), want)
+        decode_err = last = want = None
+        if cfg.frontend != "vision":
+            last, cache = lm_prefill(cfg32, model, toks[:, :128],
+                                     build_cache(cfg32, 1, 1024, device=dev))
+            for t in range(128, 192):
+                last, cache = lm_decode(cfg32, model, toks[:, t], cache, t)
+            want = lm_prefill(cfg32, model, toks, build_cache(cfg32, 1, 1024, device=dev))
+            decode_err = model_err(f"{arch} decode vs prefill", (last, cache), want)
 
         # Steady state, one lane, every kernel already loaded: synchronised
         # 512-token prefills and decode tokens, then a profiled window of
@@ -2120,13 +2460,6 @@ def main() -> int:
 
         def one_prefill():
             return lm_prefill(cfg, model, prompt, build_cache(cfg, 1, 1024, device=dev))
-
-        def synced(fn):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0
 
         warm_prefill = [synced(one_prefill)[1] for _ in range(3)]
         (logits, cache), _ = synced(one_prefill)
@@ -2139,30 +2472,9 @@ def main() -> int:
         # weights, and every cast copy written and read again) at 3.35 TB/s.
         tok = logits.argmax(-1)
         decode_bytes = moved_bytes(lambda: lm_decode(cfg, model, tok, cache, 600))
-        windows = {}
-        for label, fn, n in (("prefill_512", one_prefill, 1),
-                             ("decode", lambda: lm_decode(cfg, model, logits.argmax(-1), cache,
-                                                          600), 5)):
-            fn()
-            torch.cuda.synchronize()
-            activities = [torch.profiler.ProfilerActivity.CPU,
-                          torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=activities) as prof:
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-                window_us = (time.perf_counter() - t0) * 1e6
-            seen = device_kernels(prof)
-            busy = sum(v["device_us"] for v in seen.values())
-            top = sorted(seen.items(), key=lambda kv: -kv[1]["device_us"])[:6]
-            # The port's own recurrence kernels (K6, K7), listed whether or not
-            # they are among the six with the most device time.
-            port = {k[:60]: v for k, v in seen.items() if "rglru_kernel" in k or "wkv6_" in k}
-            windows[label] = {"calls": n, "window_us": window_us, "device_busy_us": busy,
-                              "busy_share": busy / window_us,
-                              "top_kernels": {k[:60]: v for k, v in top},
-                              "port_kernels": port}
+        windows = {"prefill_512": profiled_window(one_prefill, 1),
+                   "decode": profiled_window(lambda: lm_decode(cfg, model, logits.argmax(-1),
+                                                               cache, 600), 5)}
         emit({"phase": "serve", "arch": arch, "reduced": reduced, "device": smi,
               "params_gb": params_gb, "build_s": build_s,
               "launches": launches_here, "long_prefill_path_calls": len(long_calls),
@@ -2180,7 +2492,12 @@ def main() -> int:
                   "max": max(warm_decode)},
               "decode_bytes_gb": decode_bytes / 1e9,
               "decode_bound_ms": decode_bytes / H100_SXM.hbm_bw * 1e3,
-              "profiled": windows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+              "analytic_bound": {"prefill_512": analytic_bound(cfg, "prefill", 512, 1),
+                                 "decode": analytic_bound(cfg, "decode", 600, 1),
+                                 "prefill_long": analytic_bound(cfg, "prefill", LONG_PROMPT, 1)
+                                 if long else None},
+              "profiled": windows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "media": serve_media(cfg, model, dev) if cfg.frontend == "vision" else None})
         del model, srv, cache, last, want, finite
         gc.collect()
         torch.cuda.empty_cache()
@@ -2209,8 +2526,16 @@ def main() -> int:
     emit({"phase": "serve", "arch": arch, "params_gb": params_gb, "prefill_tokens": LONG_PROMPT,
           "block_size": lm_layers._pick_block_size(LONG_PROMPT, cfg.window),
           "long_prefill_path_calls": len(long_calls), "prefill_s": long_s,
+          "analytic_bound": analytic_bound(cfg, "prefill", LONG_PROMPT, 1),
           "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
     del model, cache, logits, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- encode: the audio encoder at its published shapes, counted ---------------
+    t_phase = time.perf_counter()
+    emit({"phase": "encode", "device": smi, **encode_phase(dev),
+          "seconds": time.perf_counter() - t_phase})
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3117,14 +3442,21 @@ def main() -> int:
         finally:
             wkv6_ops.wkv6_cuda, wkv6_ops.wkv6_bwd_cuda = kernels
 
+    # llama-vision with memory in every batch and its gates at MEDIA_GATE (at
+    # their zero init the cross layers would train nothing), hubert on frames.
     step_err, delta_err = {}, {}
-    for arch, seq in ((TRAIN_ARCH, 32), (RWKV_TRAIN_ARCH, 128)):
+    smoke_launches = {TRAIN_ARCH: {"rglru_scan_cuda"},
+                      RWKV_TRAIN_ARCH: {"wkv6_cuda", "wkv6_bwd_cuda"}}
+    for arch, seq in ((TRAIN_ARCH, 32), (RWKV_TRAIN_ARCH, 128), (VISION_ARCH, 32),
+                      (AUDIO_TRAIN_ARCH, 32)):
         small = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
-        sdata = SyntheticLM(DataConfig(seq_len=seq, global_batch=4,
-                                       vocab_size=small.vocab_size, seed=SEED))
+        sdata = MediaData(small, SyntheticLM(DataConfig(
+            seq_len=seq, global_batch=4, vocab_size=small.vocab_size, seed=SEED)))
         sstep = make_train_step(small, dataclasses.replace(optimizer_config_from_model(small),
                                                            warmup_steps=1))
-        host_state = sstep(*init_train_state(small, "cpu", seed=SEED), sdata.batch_at(0))[:2]
+        state0 = init_train_state(small, "cpu", seed=SEED)
+        set_gates(state0[0]["blocks"], MEDIA_GATE)
+        host_state = sstep(*state0, sdata.batch_at(0))[:2]
         before = [t.clone() for t in tree_flatten(host_state[0])[0]]
         start_state = tree_map(lambda t: t.clone(), host_state)  # the step updates in place
 
@@ -3135,8 +3467,7 @@ def main() -> int:
 
         _build.reset_launches()
         card_state, m_card = card_step()
-        check(set(_build.LAUNCHES) == ({"wkv6_cuda", "wkv6_bwd_cuda"} if arch == RWKV_TRAIN_ARCH
-                                       else {"rglru_scan_cuda"}),
+        check(set(_build.LAUNCHES) == smoke_launches.get(arch, set()),
               f"{arch} smoke step launches {dict(_build.LAUNCHES)}")
         *host_state, m_host = sstep(*host_state, sdata.batch_at(1))
         step_err[arch] = max([abs(float(m_card["loss"]) - float(m_host["loss"]))] + [
@@ -3182,8 +3513,8 @@ def main() -> int:
         if layers:
             reduced = {"n_layers": [full.n_layers, layers]}
             full = dataclasses.replace(full, n_layers=layers)
-        ds = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                                    vocab_size=full.vocab_size, seed=SEED))
+        ds = MediaData(full, SyntheticLM(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                                    vocab_size=full.vocab_size, seed=SEED)))
         logs = []
         gc.collect()
         torch.cuda.empty_cache()
@@ -3230,6 +3561,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         return {"layers": full.n_layers, "reduced": reduced, "params": n_params,
                 "batch": TRAIN_BATCH, "aux_loss_profiled_step": aux_loss,
+                "analytic_bound_per_step": analytic_bound(full, "train", TRAIN_SEQ, TRAIN_BATCH),
                 "seq": TRAIN_SEQ, "compute": full.compute_dtype, "remat": full.remat,
                 "steps": steps, "losses": losses, "grad_norms": gnorms,
                 "host_ms_per_step": [h["dt"] * 1e3 for h in hist], "train_s": train_s,
@@ -3291,6 +3623,12 @@ def main() -> int:
     trainers[ARCTIC_TRAIN_ARCH] = full_width_train(ARCTIC_TRAIN_ARCH, {},
                                                    layers=ARCTIC_TRAIN_LAYERS,
                                                    steps=ARCTIC_TRAIN_STEPS)
+    # (i) hubert at its published widths and depth (48 layers, 0.95 G), on
+    # frames of 4 x 256: no kernel, finite losses near ln 504. (llama-vision
+    # is not trained at published widths: one superblock's 6.38 G
+    # parameters need about 89 GB of masters, gradients, moments and the
+    # compute copy, more than the card's 80 GB.)
+    trainers[AUDIO_TRAIN_ARCH] = full_width_train(AUDIO_TRAIN_ARCH, {})
     emit({"phase": "train", "device": smi, "archs": list(trainers),
           "k6_autograd": k6_autograd, "k6_k7_past_65535": wide,
           "smoke_step_card_vs_cpu_max_err": step_err,
@@ -3327,12 +3665,23 @@ def main() -> int:
     moe_bound = mp * 2.0**-7 * full0["max_abs_ref"]
     check(full0["max_abs_err"] <= moe_bound and full0["aux_rel_err"] <= 1e-5,
           f"moe_sharded full width bf16 vs local: {full0} (bound {moe_bound})")
+    # (d) A decode token moves tokens, not weights: the router's pieces and
+    # the combined outputs alone cross ``model``.
+    for rank, found in enumerate(moe):
+        one = found["one_token"]
+        check(one["finite"] and one["gather_bytes"] == one["router_piece_bytes"]
+              and one["sum_over_bytes"] == one["outputs_bytes"],
+              f"moe_sharded rank {rank} one-token step wire: {one}")
+    one0 = moe[0]["one_token"]
+    check(one0["max_abs_err"] <= mp * 2.0**-7 * one0["max_abs_ref"],
+          f"moe_sharded one-token step bf16 vs local: {one0}")
     emit({"phase": "moe_sharded", "device": smi,
           "note": f"{MOE_RANKS} gloo ranks time-sharing one card, sums staged through host "
                   "memory: not a multi-GPU figure",
           "meshes": [list(m) for m in MOE_MESHES], "tolerance_f32": MOE_TOL,
           "full_width_bf16_bound": moe_bound, "spawn_s": moe_s,
-          "ranks": [{k: found[k] for k in ("forward", "lm", "full_width")} for found in moe]})
+          "ranks": [{k: found[k] for k in ("forward", "lm", "full_width", "one_token")}
+                    for found in moe]})
 
     # -- train_sharded: the LM trainer sharded over gloo ranks sharing the card ----
     from repro_torch.train import shape_for_microbatches
@@ -3354,7 +3703,7 @@ def main() -> int:
         params, state = init_train_state(cfg, dev, seed=SEED)
         step = make_train_step(cfg, opt, microbatches=SHARDED_MB)
         ref = {"loss": [], "grad_norm": []}
-        for batch in sharded_batches(cfg.vocab_size, SHARDED_SMOKE_SEQ.get(arch, 32),
+        for batch in sharded_batches(cfg, SHARDED_SMOKE_SEQ.get(arch, 32),
                                      SHARDED_STEPS, SEED):
             params, state, m = step(params, state, shape_for_microbatches(batch, SHARDED_MB))
             ref["loss"].append(float(m["loss"]))

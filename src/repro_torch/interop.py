@@ -19,8 +19,9 @@ pytree as numpy (``jax.tree.map(np.asarray, params)``), unstacks its
 scanned superblocks (leading axis ``n_super``) and its tail into the
 port's per-layer blocks (:func:`lm_tree_from_numpy`, which
 ``optimizer_state_from_numpy(..., cfg=...)`` applies to an LM's AdamW
-moments), nested groups (arctic's MoE ``dense`` branch) kept nested,
-and returns an :class:`~repro_torch.models.LM`;
+moments), nested groups (arctic's MoE ``dense`` branch) kept nested and
+a stacked scalar (llama-vision's cross ``gate``, ``(n_super,)``) one 0-d
+tensor a layer, and returns an :class:`~repro_torch.models.LM`;
 :func:`lm_cache_to_numpy` turns the port's per-layer cache back into the
 JAX package's ``{"scan": ..., "tail": [...]}`` layout, for comparison.
 """

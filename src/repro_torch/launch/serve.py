@@ -5,7 +5,9 @@ continuous-batching engine over a synthetic request stream.
       --requests 8 --lanes 4
 
 Runs on the card unless ``--device cpu`` is given (with ``--smoke`` for
-the reduced config, which is what the CPU can run).
+the reduced config, which is what the CPU can run). An encoder
+(hubert-xlarge) has no decode and is refused, as the JAX launcher refuses
+it; a vision LM is served without media, as the JAX server serves it.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ def main(argv=None) -> None:
     from repro_torch.serve import BatchedServer
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if not cfg.supports_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
     model = build_lm(cfg, args.seed, device=args.device)
     srv = BatchedServer(cfg, model, lanes=args.lanes, max_len=args.max_len)
 

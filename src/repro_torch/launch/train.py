@@ -14,10 +14,13 @@ can run) and ``--backend``. Under torchrun's environment (``WORLD_SIZE`` >
 1) it initialises the process group with ``--backend`` (default
 ``nccl``) and trains sharded on ``make_host_mesh()``, where the JAX
 launcher calls ``jax.distributed.initialize()``; without it, on one
-device. ``--arch`` takes the architectures whose blocks the port runs
-(recurrent, dense and MoE); any other (cross-attention, audio) raises and
-names the ROADMAP item that ports it. ``--grad-compression`` is carried in
-the config and reduces nothing, as in the JAX launcher's ``train()``.
+device. The token stream feeds every text LM; llama-3.2-vision trains on
+it without media (no ``memory``: its cross-attention layers read the
+tokens), as the JAX launcher trains it. hubert-xlarge takes frame
+embeddings, which the token stream does not make: the launcher refuses it
+with a ``ValueError`` (the JAX launcher fails on the shapes).
+``--grad-compression`` is carried in the config and reduces nothing, as in
+the JAX launcher's ``train()``.
 """
 
 from __future__ import annotations
@@ -53,6 +56,10 @@ def main(argv=None) -> None:
     from repro_torch.train import TrainConfig, train
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.frontend == "audio":
+        raise ValueError(f"{cfg.name} trains on frame embeddings (B, S, {cfg.d_model}); the "
+                         "launcher's token stream has no frames (drive train() with a "
+                         "dataset that yields them)")
     if args.smoke:
         cfg = dataclasses.replace(cfg, remat=False)
 

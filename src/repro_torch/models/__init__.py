@@ -1,10 +1,12 @@
 """Model zoo of the port: the recurrent LMs (RWKV-6, RecurrentGemma), the
-dense ones (qwen1.5, starcoder2, nemotron-4, glm4) and the MoE ones
-(qwen3-moe, arctic)."""
+dense ones (qwen1.5, starcoder2, nemotron-4, glm4), the MoE ones
+(qwen3-moe, arctic), llama-3.2-vision (cross-attention) and hubert (an
+audio encoder)."""
 
 from repro_torch.models.lm import (
     LM,
     build_cache,
+    cache_axes,
     build_lm,
     lm_decode,
     lm_forward,

@@ -1,11 +1,13 @@
 """Transformer building blocks: norms, RoPE, GQA self-attention (full,
-sliding-window, flash-style for long prefills, blocked local) with a ring
-cache, the dense FFN and the MoE (local and expert-parallel).
+sliding-window, flash-style for long prefills, blocked local, bidirectional
+for the encoder) with a ring cache, tanh-gated cross-attention over media
+tokens, the dense FFN and the MoE (local and expert-parallel).
 
-The port of the parts of ``repro/models/layers.py`` that the recurrent LMs
-(RWKV-6, RecurrentGemma), the dense ones (qwen1.5, starcoder2,
-nemotron-4, glm4) and the MoE ones (qwen3-moe, arctic) run. Conventions,
-as there:
+The port of ``repro/models/layers.py``, for every LM of the registry: the
+recurrent ones (RWKV-6, RecurrentGemma), the dense ones (qwen1.5,
+starcoder2, nemotron-4, glm4), the MoE ones (qwen3-moe, arctic),
+llama-3.2-vision's cross-attention and hubert's encoder. Conventions, as
+there:
 
 * A parameter group is a :class:`Params` module of named tensors and
   nested groups (the JAX package's dict leaves, same names and shapes). Tensors are stored in
@@ -37,7 +39,11 @@ as there:
   :class:`~repro_torch.dist.sharding.Mesh` with gradient-carrying
   collectives.
 
-Not ported yet (ROADMAP M13b.4): cross-attention.
+* Cross-attention (``attention_apply(..., cross=True, memory=...)``) takes
+  its keys and values from ``memory`` (``(B, M, D)`` media embeddings; from
+  ``x`` itself when ``memory`` is None, as the JAX package does), with no
+  rotation and no mask, and scales its output by ``tanh(gate)``: a scalar
+  parameter initialised to zero, so at init the layer adds nothing.
 """
 
 from __future__ import annotations
@@ -197,10 +203,11 @@ ATTENTION_AXES = {
     "bq": ("heads", "head_dim"),
     "bk": ("kv_heads", "head_dim"),
     "bv": ("kv_heads", "head_dim"),
+    "gate": (),
 }
 
 
-def init_attention(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
+def init_attention(cfg: ModelConfig, ini: Init, *, cross: bool = False) -> dict[str, Tensor]:
     d, h, k, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if cfg.pad_heads_to:
         # Padded heads are drawn like the rest and killed by a mask at use
@@ -214,15 +221,20 @@ def init_attention(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
     }
     if cfg.qkv_bias:
         p.update(bq=ini.zeros((h, dh)), bk=ini.zeros((k, dh)), bv=ini.zeros((k, dh)))
+    if cross:
+        p["gate"] = ini.zeros(())  # tanh-gated cross-attention (llama-vision)
     return p
 
 
-def _project_qkv(cfg: ModelConfig, p, x: Tensor):
+def _project_qkv(cfg: ModelConfig, p, x: Tensor, memory: Tensor | None = None):
+    """q from ``x``; k and v from ``memory`` when given (cross-attention),
+    else from ``x``."""
     cdt = dt(cfg, "compute")
     x = x.to(cdt)
+    src = x if memory is None else memory.to(cdt)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(cdt))
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(cdt))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -407,22 +419,31 @@ def _local_attention_blocked(q: Tensor, k: Tensor, v: Tensor, *, window: int,
 
 
 def attention_apply(cfg: ModelConfig, p, x: Tensor, *, window: int = 0,
+                    cross: bool = False, memory: Tensor | None = None,
                     cache: dict | None = None, pos: int | None = None,
                     force_flash: bool | None = None):
-    """Causal self-attention, plain tensor code.
+    """Self- or cross-attention, plain tensor code.
 
     Prefill: ``x (B,S,D)``, ``cache=None`` -> ``(y, None)``: a masked
-    softmax up to ``FLASH_THRESHOLD`` tokens, the flash-style scan (or the
-    blocked local path) above it or when ``force_flash`` says so. Decode:
-    ``x (B,1,D)`` with ``cache`` and the absolute position ``pos`` ->
-    ``(y, cache)``, the cache updated in place.
+    softmax up to ``FLASH_THRESHOLD`` tokens (causal, or bidirectional when
+    ``cfg.causal`` is False), the flash-style scan (or the blocked local
+    path) above it or when ``force_flash`` says so. Decode: ``x (B,1,D)``
+    with ``cache`` and the absolute position ``pos`` -> ``(y, cache)``, the
+    cache updated in place. ``cross``: keys and values from ``memory`` (from
+    ``x`` when it is None), no rotation, no mask, the output scaled by
+    ``tanh(gate)`` -> ``(y, cache)``, the cache untouched.
     """
     cdt = dt(cfg, "compute")
     _, s, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, memory if cross else None)
 
-    if cache is None:
+    if cross:
+        # No positional rotation, no mask: memory is a set of media tokens.
+        scores = _gqa_scores(q, k).to(torch.float32) * scale
+        w = torch.softmax(scores, dim=-1).to(cdt)
+        out = _gqa_out(w, v)
+    elif cache is None:
         if cfg.rope:
             positions = torch.arange(s, device=x.device)
             q = rope_rotate(q, positions, cfg.rope_theta)
@@ -463,10 +484,21 @@ def attention_apply(cfg: ModelConfig, p, x: Tensor, *, window: int = 0,
         head_mask = ((torch.arange(h_pad, device=out.device) % g_new) < g_real).to(out.dtype)
         out = out * head_mask[None, None, :, None]
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
+    if cross and "gate" in p:
+        y = torch.tanh(p["gate"].to(torch.float32)).to(cdt) * y
     return y, cache
 
 
 # -- cache ---------------------------------------------------------------
+
+
+# The logical axes of an attention cache's leaves (a cross-attention cache
+# has no ``slot_pos``).
+CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+    "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
+    "slot_pos": (None,),
+}
 
 
 def make_buf(shape, dtype, device, fill=0) -> Tensor:
@@ -665,27 +697,23 @@ def _dispatch_local(xt: Tensor, gate: Tensor, idx: Tensor, e_lo: int, e_hi: int,
 
 
 def apply_moe(cfg: ModelConfig, p, x: Tensor) -> tuple[Tensor, Tensor]:
-    """MoE dispatcher, as in the JAX package: under an ambient mesh with a
-    ``model`` axis a sequence longer than one token takes the
-    expert-parallel path (:func:`apply_moe_sharded`); anything else the
-    local one. The port has no GSPMD to gather sharded weights for the
-    local path, so under such a mesh a one-token step first gathers this
-    rank's pieces whole (:func:`gather_moe_params`) and runs the local
-    path on its tokens, ``aux`` over the whole batch. That gather moves
-    every rank's whole layer for each token (9.8 GB a qwen3-moe layer at
-    published widths): it is for tests only, and no serving path runs it
-    (a sharded decode must move tokens, not weights: a ROADMAP path
-    item). Under a mesh without ``model`` (the trainer's data-only
-    meshes) the local path runs on this rank's tokens with the weights
-    its caller gathered, and ``aux`` is still taken over every data
-    rank's tokens."""
+    """MoE dispatcher: under an ambient mesh with a ``model`` axis every
+    step, a one-token decode step included, takes the expert-parallel path
+    (:func:`apply_moe_sharded`): each rank runs its ``E / mp`` experts on
+    the tokens, and only the tokens' combined outputs cross ``model``. (The
+    JAX package sends a one-token step to its local path, whose sharded
+    weights GSPMD then gathers: the port has no partitioner, and gathering
+    a layer's pieces whole would move 9.8 GB a qwen3-moe layer for each
+    token; :func:`gather_moe_params` stays for tests.) Anything else takes
+    the local path. Under a mesh without ``model`` (the trainer's data-only
+    meshes) the local path runs on this rank's tokens with the weights its
+    caller gathered, and ``aux`` is still taken over every data rank's
+    tokens."""
     from repro_torch.dist.sharding import _ambient_mesh
 
     mesh = _ambient_mesh()
     if mesh is not None and "model" in mesh.axis_names:
-        if x.shape[1] > 1:
-            return apply_moe_sharded(cfg, p, x)
-        return _apply_moe_local(cfg, gather_moe_params(cfg, p, mesh), x, mesh=mesh)
+        return apply_moe_sharded(cfg, p, x)
     return _apply_moe_local(cfg, p, x, mesh=mesh)
 
 

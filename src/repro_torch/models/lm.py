@@ -1,11 +1,15 @@
-"""The LMs as one composable decoder: the recurrent ones (RWKV-6,
-RecurrentGemma), the dense ones (qwen1.5, starcoder2, nemotron-4, glm4) and
-the MoE ones (qwen3-moe, arctic).
+"""The LMs as one composable decoder/encoder: the recurrent ones (RWKV-6,
+RecurrentGemma), the dense ones (qwen1.5, starcoder2, nemotron-4, glm4),
+the MoE ones (qwen3-moe, arctic), llama-3.2-vision and hubert.
 
-The port of ``repro/models/lm.py`` for the block kinds ported so far
-(``attn``, ``local_attn``, ``rglru``, ``rwkv6``, each with the MoE in place
-of its FFN when the config has experts); cross-attention and media
-frontends are not (ROADMAP M13b.4). :func:`build_lm` returns an
+The port of ``repro/models/lm.py`` for every block kind (``attn``,
+``local_attn``, ``cross_attn``, ``rglru``, ``rwkv6``, each with the MoE in
+place of its FFN when the config has experts) and both media frontends:
+``frontend="vision"`` reads ``memory`` (``(B, num_media_tokens, D)``
+image-patch embeddings) in its ``cross_attn`` layers, and
+``frontend="audio"`` takes precomputed frame embeddings ``(B, S, D)`` in
+place of tokens (its ``embed`` table is built and never read, as in the
+JAX package; the trainer gives it a zero gradient). :func:`build_lm` returns an
 :class:`LM` module whose blocks stand in layer order, the block pattern
 cycled to ``n_layers``; the JAX package's scan over stacked superblocks
 becomes a plain loop over an ``nn.ModuleList``, and its sharding
@@ -20,30 +24,44 @@ trainer keep a rank's piece of each leaf.
 
 Serving entry points (functions of ``(cfg, model, ...)``, as in the JAX
 package; ``cfg`` may differ from ``model.cfg`` in its compute dtype), all
-without gradients:
+without gradients and all taking ``memory=`` (vision):
 
-  * :func:`lm_forward` — tokens -> (logits (B, S, V), aux: the MoE loss
-    summed over layers)
+  * :func:`lm_forward` — tokens (or frames) -> (logits (B, S, V), aux: the
+    MoE loss summed over layers)
   * :func:`lm_prefill` — runs the prompt, fills the cache -> (last logits, cache)
   * :func:`lm_decode`  — one token with the cache at position ``pos``
 
-A cache (:func:`build_cache`) is a list with one entry per layer.
+A cache (:func:`build_cache`) is a list with one entry per layer; a
+``cross_attn`` layer's holds the media keys and values ``{"k", "v"}``
+(``(B, num_media_tokens, K, Dh)``), written by the prefill and read by
+every decode step. A prefill without ``memory`` takes them from the prompt
+itself and REPLACES the entry with the prompt's ``(B, S, K, Dh)``, as the
+JAX package does (its server never passes ``memory``).
 
 Training works on a parameter TREE, as the JAX package's does:
 :func:`lm_params` gives a model's ``{"embed", "blocks": [per layer
 {"norm1", "mixer", "norm2", "ffn"}], "final_norm", "head"?}`` (the
 module's own tensors, no copies), :func:`lm_forward_train` runs it under
 autograd (each block under ``torch.utils.checkpoint`` when ``cfg.remat``,
-where the JAX package uses ``jax.checkpoint``), and :func:`lm_loss` is the
+where the JAX package uses ``jax.checkpoint``; ``remat_policy="dots"``
+keeps the matmuls' outputs and recomputes the rest, as ``dots_saveable``
+does), and :func:`lm_loss` is the
 JAX package's cross-entropy. The serving functions take the module or a
 tree alike: both are read as ``params["name"]``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -53,15 +71,6 @@ from repro_torch.models import recurrent as R
 from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
-PORTED_KINDS = ("attn", "local_attn", "rglru", "rwkv6")
-
-
-def _check_kinds(cfg: ModelConfig) -> None:
-    missing = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
-    if missing or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {missing or cfg.block_pattern} and media frontends "
-            f"are not ported yet (ROADMAP M13b.4); ported kinds: {PORTED_KINDS}")
 
 
 class Block(nn.Module):
@@ -84,7 +93,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        _check_kinds(cfg)
         if len(params["blocks"]) != cfg.n_layers:
             raise ValueError(f"{len(params['blocks'])} blocks for {cfg.n_layers} layers")
         self.cfg = cfg
@@ -171,6 +179,7 @@ def lm_leaf_groups(cfg: ModelConfig, tree: dict) -> list[tuple[list, bool]]:
 
 def _init_block(cfg: ModelConfig, kind: str, ini: L.Init) -> dict:
     mixer = {"attn": L.init_attention, "local_attn": L.init_attention,
+             "cross_attn": lambda cfg, ini: L.init_attention(cfg, ini, cross=True),
              "rglru": R.init_rglru, "rwkv6": R.init_rwkv_tmix}[kind]
     if kind == "rwkv6":
         ffn = R.init_rwkv_cmix
@@ -184,7 +193,6 @@ def lm_tree(cfg: ModelConfig, ini: L.Init) -> dict:
     """A parameter tree of ``cfg`` (:func:`lm_params`'s layout) drawn leaf by
     leaf from ``ini``: :func:`build_lm`'s weights, or with ``ini.place`` a
     rank's pieces of them (the sharded trainer)."""
-    _check_kinds(cfg)
     params = {"embed": ini.fan_in((cfg.vocab_size, cfg.d_model), fan_axes=(1,))}
     params["blocks"] = [_init_block(cfg, kind, ini) for kind in cfg.layer_kinds]
     params["final_norm"] = L.init_norm(cfg, ini)
@@ -210,7 +218,7 @@ def lm_draw_order(cfg: ModelConfig) -> list[int]:
 
 def _block_axes(cfg: ModelConfig, kind: str) -> dict:
     mixer = {"attn": L.ATTENTION_AXES, "local_attn": L.ATTENTION_AXES,
-             "rglru": R.RGLRU_AXES, "rwkv6": R.RWKV_TMIX_AXES}[kind]
+             "cross_attn": L.ATTENTION_AXES, "rglru": R.RGLRU_AXES, "rwkv6": R.RWKV_TMIX_AXES}[kind]
     if kind == "rwkv6":
         ffn = R.RWKV_CMIX_AXES
     else:
@@ -242,7 +250,6 @@ def build_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
     """A model of ``cfg``'s published shapes with random weights drawn from
     ``seed`` (fan-in init, as the JAX package's ``build_lm``), made
     directly on ``device`` (``None`` means the card)."""
-    _check_kinds(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return LM(cfg, lm_tree(cfg, L.Init(gen, L.dt(cfg), dev)))
@@ -256,6 +263,11 @@ def build_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> LM:
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, length: int, device):
     if kind in ("attn", "local_attn"):
         return L.init_cache(cfg, batch, min(length, cfg.window or length), device=device)
+    if kind == "cross_attn":
+        # The media keys and values, filled at prefill, read by every decode.
+        shape = (batch, cfg.num_media_tokens, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": L.make_buf(shape, L.dt(cfg, "compute"), device),
+                "v": L.make_buf(shape, L.dt(cfg, "compute"), device)}
     if kind == "rglru":
         return R.rglru_cache_init(cfg, batch, device=device)
     if kind == "rwkv6":
@@ -265,9 +277,19 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, length: int, device):
 
 def build_cache(cfg: ModelConfig, batch: int, length: int, *, device=None) -> list:
     """Empty serving caches, one per layer. ``length`` is the max context;
-    local attention clamps its ring to the window."""
+    local attention clamps its ring to the window. On ``device="meta"``:
+    the shapes and dtypes alone."""
     dev = resolve_device(device)
     return [_block_cache(cfg, kind, batch, length, dev) for kind in cfg.layer_kinds]
+
+
+def cache_axes(cfg: ModelConfig) -> list:
+    """The logical axes of every leaf of :func:`build_cache`'s cache, one
+    entry per layer (the JAX ``build_cache``'s axes, per layer)."""
+    table = {"attn": L.CACHE_AXES, "local_attn": L.CACHE_AXES,
+             "cross_attn": {k: L.CACHE_AXES[k] for k in ("k", "v")},
+             "rglru": R.RGLRU_CACHE_AXES, "rwkv6": R.RWKV_CACHE_AXES}
+    return [table[kind] for kind in cfg.layer_kinds]
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +297,7 @@ def build_cache(cfg: ModelConfig, batch: int, length: int, *, device=None) -> li
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill):
+def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill, memory=None):
     """One block of ``kind`` with parameters ``p`` (a :class:`Block` or its
     tree). Returns ``(x, new cache, aux)``, ``aux`` the MoE loss (None
     without experts, so other blocks add no work)."""
@@ -294,6 +316,16 @@ def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill):
                     k = L.rope_rotate(k, torch.arange(h.shape[1], device=h.device),
                                       cfg.rope_theta)
                 new_cache = L.cache_fill_from_prefill(cfg, cache, k, v)
+    elif kind == "cross_attn":
+        if cache is not None and not prefill:
+            y = _cross_attn_cached(cfg, p["mixer"], h, cache)
+        else:
+            y, _ = L.attention_apply(cfg, p["mixer"], h, cross=True, memory=memory)
+            if prefill:
+                # Without memory the keys and values are the prompt's: the
+                # entry is replaced, shape and all, as in the JAX package.
+                _, k, v = L._project_qkv(cfg, p["mixer"], h, memory)
+                new_cache = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
     elif kind == "rglru":
         y, c2 = R.apply_rglru(cfg, p["mixer"], h, cache=None if prefill else cache)
         if cache is not None:
@@ -318,13 +350,30 @@ def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill):
     return x + y, new_cache, aux
 
 
-def _run_blocks(cfg, params, x: Tensor, *, cache=None, pos=None, prefill=False):
+def _cross_attn_cached(cfg, p, x: Tensor, cache: dict) -> Tensor:
+    """A decode step's cross-attention against the media keys and values
+    the prefill wrote (the cache is read, never written)."""
+    cdt = L.dt(cfg, "compute")
+    q = torch.einsum("bsd,dhk->bshk", x.to(cdt), p["wq"].to(cdt))
+    if "bq" in p:
+        q = q + p["bq"].to(cdt)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    scores = L._gqa_scores(q, cache["k"].to(cdt)).to(torch.float32) * scale
+    w = torch.softmax(scores, dim=-1).to(cdt)
+    out = L._gqa_out(w, cache["v"].to(cdt))
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
+    if "gate" in p:
+        y = torch.tanh(p["gate"].to(torch.float32)).to(cdt) * y
+    return y
+
+
+def _run_blocks(cfg, params, x: Tensor, *, memory=None, cache=None, pos=None, prefill=False):
     """Every block in layer order -> ``(x, new cache, aux summed over layers)``."""
     new_cache = [] if cache is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["blocks"])):
         x, c, aux = _apply_block(cfg, kind, p, x, cache=None if cache is None else cache[i],
-                                 pos=pos, prefill=prefill)
+                                 pos=pos, prefill=prefill, memory=memory)
         if aux is not None:
             aux_total = aux_total + aux
         if cache is not None:
@@ -333,6 +382,9 @@ def _run_blocks(cfg, params, x: Tensor, *, cache=None, pos=None, prefill=False):
 
 
 def _embed(cfg, params, tokens: Tensor) -> Tensor:
+    if cfg.frontend == "audio":
+        # Precomputed frame embeddings (the conv feature extractor is a stub).
+        return tokens.to(L.dt(cfg, "compute"))
     # Gather, then cast: the same values as casting the table first.
     return params["embed"][tokens.to(torch.long)].to(L.dt(cfg, "compute"))
 
@@ -345,31 +397,38 @@ def _logits(cfg, params, x: Tensor) -> Tensor:
 
 
 @torch.no_grad()
-def lm_forward(cfg: ModelConfig, model: LM, tokens: Tensor):
+def lm_forward(cfg: ModelConfig, model: LM, tokens: Tensor, *, memory: Tensor | None = None):
     """Plain forward (no cache): ``(logits (B, S, V), aux)``; ``aux`` is the
-    MoE load-balancing loss summed over layers (zero without experts)."""
+    MoE load-balancing loss summed over layers (zero without experts).
+    ``tokens`` are frames ``(B, S, D)`` for the audio frontend; ``memory``
+    the media tokens the ``cross_attn`` layers read."""
     x = _embed(cfg, model, tokens)
-    x, _, aux = _run_blocks(cfg, model, x)
+    x, _, aux = _run_blocks(cfg, model, x, memory=memory)
     x = L.apply_norm(cfg, model["final_norm"], x)
     return _logits(cfg, model, x), aux
 
 
 @torch.no_grad()
-def lm_prefill(cfg: ModelConfig, model: LM, tokens: Tensor, cache: list):
-    """Runs the full prompt ``tokens (B, S)`` and fills the cache. Returns
-    ``(last logits (B, V), cache)``."""
+def lm_prefill(cfg: ModelConfig, model: LM, tokens: Tensor, cache: list, *,
+               memory: Tensor | None = None):
+    """Runs the full prompt ``tokens (B, S)`` and fills the cache (the
+    ``cross_attn`` layers' from ``memory``). Returns ``(last logits (B, V),
+    cache)``."""
     x = _embed(cfg, model, tokens)
-    x, cache, _ = _run_blocks(cfg, model, x, cache=cache, prefill=True)
+    x, cache, _ = _run_blocks(cfg, model, x, memory=memory, cache=cache, prefill=True)
     x = L.apply_norm(cfg, model["final_norm"], x)
     return _logits(cfg, model, x[:, -1:, :])[:, 0], cache
 
 
 @torch.no_grad()
-def lm_decode(cfg: ModelConfig, model: LM, token: Tensor, cache: list, pos: int):
-    """One decode step. ``token`` (B,), ``pos`` the scalar absolute
-    position. Returns ``(logits (B, V), new cache)``."""
-    x = _embed(cfg, model, token[:, None])
-    x, cache, _ = _run_blocks(cfg, model, x, cache=cache, pos=int(pos))
+def lm_decode(cfg: ModelConfig, model: LM, token: Tensor, cache: list, pos: int, *,
+              memory: Tensor | None = None):
+    """One decode step. ``token`` (B,) (or (B, D) frames), ``pos`` the
+    scalar absolute position. Returns ``(logits (B, V), new cache)``. The
+    ``cross_attn`` layers read the cache's media keys and values, so
+    ``memory`` changes nothing here (taken for the JAX signature)."""
+    x = _embed(cfg, model, token[:, None] if token.ndim == 1 else token[:, None, :])
+    x, cache, _ = _run_blocks(cfg, model, x, memory=memory, cache=cache, pos=int(pos))
     x = L.apply_norm(cfg, model["final_norm"], x)
     return _logits(cfg, model, x)[:, 0], cache
 
@@ -379,38 +438,62 @@ def lm_decode(cfg: ModelConfig, model: LM, token: Tensor, cache: list, pos: int)
 # ---------------------------------------------------------------------------
 
 
-def lm_forward_train(cfg: ModelConfig, params, tokens: Tensor, *, whole=None):
+# The matmuls whose outputs ``remat_policy="dots"`` keeps (every dense
+# product an einsum, ``@`` or a linear map dispatches to).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(cfg: ModelConfig):
+    """``checkpoint``'s ``context_fn`` for ``cfg.remat_policy``: ``"full"``
+    keeps nothing of a block, ``"dots"`` keeps its matmuls' outputs (the
+    JAX ``dots_saveable``)."""
+    if cfg.remat_policy == "full":
+        return noop_context_fn
+    if cfg.remat_policy == "dots":
+        return lambda: create_selective_checkpoint_contexts(_save_dots)
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+
+def lm_forward_train(cfg: ModelConfig, params, tokens: Tensor, *, memory: Tensor | None = None,
+                     whole=None):
     """The forward under autograd: ``(logits (B, S, V), aux)``, gradients
     flowing to every tensor of ``params`` (a tree, :func:`lm_params`) that
-    requires them. With ``cfg.remat`` each block runs under
+    requires them (the audio frontend never reads ``embed``: no gradient
+    reaches it). With ``cfg.remat`` each block runs under
     ``torch.utils.checkpoint`` (its activations recomputed in the backward,
     the expert-parallel MoE's collectives with them, on every rank in one
-    order; only ``remat_policy="full"`` is ported).
+    order); ``remat_policy="dots"`` keeps the outputs of its matmuls and
+    recomputes the rest (:func:`_remat_context`).
 
     ``whole(key, tree)`` (the sharded trainer's) turns the pieces of
     ``params[key]`` (``key``: ``"embed"``, ``"head"``, ``"final_norm"`` or a
     block's index) into the parameters the computation reads. It is called
     inside each block's checkpointed function, so the remat recompute
     gathers again and no whole block outlives its use, and at either end
-    for the embedding, the final norm and the head."""
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported; the port rematerialises "
-            "whole blocks (remat_policy='full')")
+    for the embedding (never for the audio frontend, on every rank alike),
+    the final norm and the head."""
     get = whole if whole is not None else (lambda key, tree: tree)
-    x = _embed(cfg, {"embed": get("embed", params["embed"])}, tokens)
+    context = _remat_context(cfg)
+    embed = None if cfg.frontend == "audio" else get("embed", params["embed"])
+    x = _embed(cfg, {"embed": embed}, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     # The backward's recompute runs after the caller's ``use_mesh`` block
     # has exited: each block re-installs the mesh it ran under.
     mesh = _ambient_mesh()
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["blocks"])):
-        def block(x, i=i, kind=kind, p=p):
+        def block(x, memory, i=i, kind=kind, p=p):
             with use_mesh(mesh):
                 x, _, aux = _apply_block(cfg, kind, get(i, p), x, cache=None, pos=None,
-                                         prefill=False)
+                                         prefill=False, memory=memory)
             return x, aux
 
-        x, aux = checkpoint(block, x, use_reentrant=False) if cfg.remat else block(x)
+        x, aux = (checkpoint(block, x, memory, use_reentrant=False, context_fn=context)
+                  if cfg.remat else block(x, memory))
         if aux is not None:
             aux_total = aux_total + aux
     x = L.apply_norm(cfg, get("final_norm", params["final_norm"]), x)
@@ -435,10 +518,11 @@ def token_nll(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
 
 def lm_loss(cfg: ModelConfig, params, batch) -> tuple[Tensor, dict]:
     """Cross-entropy train loss, the JAX package's: ``batch`` holds
-    ``"tokens"`` and ``"labels"`` (B, S) tensors, labels ``-100`` where
-    padded (:func:`token_nll`). Returns ``(loss + 0.01 * aux, {"loss",
-    "aux_loss", "ntokens"})``."""
-    logits, aux = lm_forward_train(cfg, params, batch["tokens"])
+    ``"tokens"`` (B, S) (frames (B, S, D) for the audio frontend),
+    ``"labels"`` (B, S), labels ``-100`` where padded (:func:`token_nll`),
+    and optionally ``"memory"`` (vision). Returns ``(loss + 0.01 * aux,
+    {"loss", "aux_loss", "ntokens"})``."""
+    logits, aux = lm_forward_train(cfg, params, batch["tokens"], memory=batch.get("memory"))
     nll, count = token_nll(logits, batch["labels"])
     denom = count.clamp_min(1)
     loss = nll / denom

@@ -108,6 +108,9 @@ def apply_rglru(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None):
     return y, {"h": h[:, -1].to(cdt), "conv": bx_pad[:, -(cw - 1):].to(cdt)}
 
 
+RGLRU_CACHE_AXES = {"h": ("batch", "mlp"), "conv": ("batch", None, "mlp")}
+
+
 def rglru_cache_init(cfg: ModelConfig, batch: int, *, device) -> dict:
     cdt = dt(cfg, "compute")
     return {
@@ -234,6 +237,12 @@ def apply_rwkv_cmix(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None
     kk = torch.square(F.relu(xk @ p["wk"].to(F32)))
     y = torch.sigmoid(xr @ p["wr"].to(F32)) * (kk @ p["wv"].to(F32))
     return y.to(x.dtype), {"x_prev": x32[:, -1]}
+
+
+RWKV_CACHE_AXES = {
+    "tmix": {"state": ("batch", None, None, None), "x_prev": ("batch", None)},
+    "cmix": {"x_prev": ("batch", None)},
+}
 
 
 def rwkv_cache_init(cfg: ModelConfig, batch: int, *, device) -> dict:

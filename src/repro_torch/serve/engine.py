@@ -6,7 +6,9 @@ prefill and decode steps (PyTorch runs eagerly: nothing to jit).
 decode lanes, each holding one request in a batch-1 cache of its own;
 finished lanes are refilled from the queue with a prefill. Greedy
 sampling (argmax). Telemetry goes to the port's ``obs`` (metrics and the
-flight recorder), under the JAX package's names.
+flight recorder), under the JAX package's names. Like the JAX server it
+passes no ``memory``: a vision LM's prefill takes its cross-attention keys
+and values from the prompt itself.
 """
 
 from __future__ import annotations
@@ -26,15 +28,18 @@ from repro_torch.obs import events, metrics
 def make_serve_fns(cfg: ModelConfig, *, batch: int, max_len: int, device=None):
     """Returns ``(prefill_fn, decode_fn, cache_init_fn)``:
 
-    prefill_fn(model, tokens, cache)       -> (last_logits, cache)
-    decode_fn(model, token, cache, pos)    -> (logits, cache)
-    cache_init_fn()                        -> an empty cache on ``device``
-    """
-    def prefill(model, tokens, cache):
-        return lm_prefill(cfg, model, tokens, cache)
+    prefill_fn(model, tokens, cache, memory=None)    -> (last_logits, cache)
+    decode_fn(model, token, cache, pos, memory=None) -> (logits, cache)
+    cache_init_fn()                                  -> an empty cache on ``device``
 
-    def decode(model, token, cache, pos):
-        return lm_decode(cfg, model, token, cache, pos)
+    ``memory``: the media tokens (B, M, D) a vision LM's cross-attention
+    reads; the prefill writes their keys and values into the cache.
+    """
+    def prefill(model, tokens, cache, memory=None):
+        return lm_prefill(cfg, model, tokens, cache, memory=memory)
+
+    def decode(model, token, cache, pos, memory=None):
+        return lm_decode(cfg, model, token, cache, pos, memory=memory)
 
     def cache_init():
         return build_cache(cfg, batch, max_len, device=device)

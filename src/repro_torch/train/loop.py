@@ -194,8 +194,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     """Builds ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``. ``params`` is an LM parameter tree
     (:func:`~repro_torch.models.lm.lm_params`), updated in place; ``batch``
-    ``{"tokens", "labels"}`` (B, S), or (mb, B/mb, S) with ``microbatches``
-    > 1 (:func:`shape_for_microbatches`), numpy or tensors. On a ``mesh``
+    ``{"tokens", "labels"}`` (B, S) (``"tokens"`` frames (B, S, D) for the
+    audio frontend; ``"memory"`` (B, M, D) optionally, for vision), or
+    (mb, B/mb, ...) with ``microbatches`` > 1
+    (:func:`shape_for_microbatches`), numpy or tensors. On a ``mesh``
     the trees hold this rank's pieces (:func:`init_train_state`) and
     ``batch`` is the GLOBAL batch: each rank takes its rows (dim 1 of a
     microbatched one), and the metrics are the global batch's."""
@@ -234,7 +236,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         else:
             with use_mesh(mesh):
                 logits, moe_aux = lm_forward_train(cfg, tree_unflatten(treedef, work),
-                                                   mb["tokens"], whole=whole)
+                                                   mb["tokens"], memory=mb.get("memory"),
+                                                   whole=whole)
             nll, count = token_nll(logits, mb["labels"])
             denom = _data_sum(count, mesh).clamp_min(1)
             mine = nll / denom
@@ -244,11 +247,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
             glob = _data_sum(mine.detach(), mesh)
             loss = glob + 0.01 * moe_aux.detach()
             aux = {"loss": glob, "aux_loss": moe_aux, "ntokens": denom}
-        grads = torch.autograd.grad(objective, [p for p in work if p.requires_grad])
+        # A leaf the loss never reads (the audio frontend's ``embed``) gets a
+        # zero gradient, as JAX gives it.
+        grads = torch.autograd.grad(objective, [p for p in work if p.requires_grad],
+                                    allow_unused=True)
         it = iter(grads)
-        # Contiguous: the clip and the update write into them in place.
-        return loss.detach(), aux, [next(it).contiguous() if p.requires_grad
-                                    else torch.zeros_like(p) for p in work]
+
+        def grad_of(p):
+            g = next(it) if p.requires_grad else None
+            # Contiguous: the clip and the update write into them in place.
+            return torch.zeros_like(p) if g is None else g.contiguous()
+
+        return loss.detach(), aux, [grad_of(p) for p in work]
 
     def local(batch):
         if mesh is None:

@@ -2,8 +2,9 @@
 against the JAX package, on the CPU.
 
 * ``lm_axes`` (per layer), stacked by ``lm_stacked`` with ``stack_axes``,
-  equals the JAX ``build_lm(cfg, key=None)[1]`` leaf for leaf for the 8
-  ported architectures at their smoke and published shapes, and
+  equals the JAX ``build_lm(cfg, key=None)[1]`` leaf for leaf for the 10
+  architectures at their smoke and published shapes (llama-vision's
+  scalar cross-attention ``gate`` included), and
   ``lm_meta`` gives the JAX abstract parameters' shapes.
 * ``opt_state_axes`` equals the JAX one for AdamW and Adafactor (whose
   factored test reads the global stacked shapes).
@@ -39,7 +40,8 @@ from repro_torch.optim import make_optimizer, opt_state_axes, optimizer_config_f
 from repro_torch.tree import tree_flatten
 
 ARCHS = ["qwen1.5-0.5b", "starcoder2-3b", "nemotron-4-15b", "glm4-9b", "recurrentgemma-2b",
-         "rwkv6-3b", "qwen3-moe-235b-a22b", "arctic-480b"]
+         "rwkv6-3b", "qwen3-moe-235b-a22b", "arctic-480b", "llama-3.2-vision-90b",
+         "hubert-xlarge"]
 SCALES = ["smoke", "published"]
 MESHES = {
     "dm2x4": ((2, 4), ("data", "model")),

@@ -59,15 +59,17 @@ def _np(x):
 
 
 def test_registry_has_the_two_recurrent_archs_and_names_the_rest():
-    """The two recurrent archs, the four dense ones and the two MoE ones are
-    registered; an arch of the JAX registry that is not ported yet names
-    its ROADMAP item."""
+    """The two recurrent archs are registered beside the four dense, the
+    two MoE, the vision and the audio ones (every arch of the JAX
+    registry); an unknown arch raises."""
     assert set(ARCH_IDS) == set(ARCHS) | {"qwen1.5-0.5b", "starcoder2-3b", "nemotron-4-15b",
-                                          "glm4-9b", "qwen3-moe-235b-a22b", "arctic-480b"}
+                                          "glm4-9b", "qwen3-moe-235b-a22b", "arctic-480b",
+                                          "llama-3.2-vision-90b", "hubert-xlarge"}
     assert get_config("rwkv6-3b").rwkv_chunk == 64
     assert get_config("recurrentgemma-2b").block_pattern == ("rglru", "rglru", "local_attn")
-    with pytest.raises(KeyError, match=r"not ported.*M13b\.4"):
-        get_config("llama-3.2-vision-90b")
+    assert "cross_attn" in get_config("llama-3.2-vision-90b").block_pattern
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama-3.2-vision")
     with pytest.raises(KeyError, match="unknown arch"):
         get_smoke_config("nope")
 

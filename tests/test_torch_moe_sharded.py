@@ -1,9 +1,10 @@
 """The port's expert-parallel MoE on gloo ranks against its local MoE and
 the JAX package's.
 
-Two spawns through ``tests/torch_dist_harness.py`` (``moe_suite``; the
-children import no JAX): four ranks for the ``(1, 4)`` and ``(2, 2)``
-``("data", "model")`` meshes, three for the ``(1, 3)`` one. Each rank
+Three spawns through ``tests/torch_dist_harness.py`` (the children import
+no JAX): ``moe_suite`` on four ranks for the ``(1, 4)`` and ``(2, 2)``
+``("data", "model")`` meshes and on three for the ``(1, 3)`` one, and
+``moe_decode_suite`` on two for ``(1, 2)``. Each rank
 holds its ``shard_moe_params`` pieces of one smoke MoE layer (both archs;
 arctic with its dense residual branch) and its block of the batch, and
 calls ``apply_moe`` under the ambient mesh:
@@ -18,9 +19,15 @@ calls ``apply_moe`` under the ambient mesh:
   bfloat16 and the sum over ``model`` runs in bfloat16, as the JAX
   ``psum`` in the compute dtype does, where the local path rounds one
   float32 sum;
-* the one-token step under a mesh (the pieces gathered whole, then the
-  local path) and the ``(1, 3)`` fallback (8 experts do not split three
-  ways) equal to the local path within 2e-4;
+* the one-token step under a mesh (the expert-parallel path, as every
+  step under a ``model`` axis) and the ``(1, 3)`` fallback (8 experts do
+  not split three ways: the pieces gathered whole, then the local path)
+  equal to the local path within 2e-4;
+* on ``(1, 2)``, a one-token step moves tokens, not weights: its values
+  equal the local path's within 2e-4, every rank's experts run on its own
+  ``E / 2`` of them, the only gather is the float32 router's (``D x E/2 x
+  4`` bytes a rank, less than one expert's weights) and the only sum over
+  ``model`` is the combined outputs' (``B x D`` in the compute dtype);
 * one qwen3-moe smoke LM's loss, aux loss and every gradient through the
   sharded path on ``(1, 4)``, with and without remat, within 2e-4 of the
   local path's (the default capacity factor, so tokens are dropped in
@@ -45,7 +52,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.lm import lm_loss
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
-from torch_dist_harness import moe_suite, run_ranks
+from torch_dist_harness import moe_decode_suite, moe_suite, run_ranks
 
 ARCHS = ["qwen3-moe-235b-a22b", "arctic-480b"]
 TOL = 2e-4
@@ -96,6 +103,17 @@ def _lm_cases():
     tree, batch = _lm()
     return {remat: (LM_ARCH, {"compute_dtype": "float32", "remat": remat}, (1, 4), tree, batch)
             for remat in (False, True)}
+
+
+def _decode_cases():
+    return {arch: (arch, F32_DROPLESS, _moe_params(arch, i)[1], _x(arch, (4, 1), 40 + i))
+            for i, arch in enumerate(ARCHS)}
+
+
+@pytest.fixture(scope="module")
+def decode_ranks(tmp_path_factory):
+    return run_ranks(moe_decode_suite, 2, tmp_path_factory.mktemp("moe2"), _decode_cases(),
+                     timeout=120)
 
 
 @pytest.fixture(scope="module")
@@ -177,3 +195,21 @@ def test_sharded_loss_and_gradients_equal_the_local_paths(ranks, remat):
         for g, w in zip(got_leaves, want):
             assert g.shape == w.shape
             np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL, err_msg=f"rank {rank}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_one_token_step_moves_tokens_not_expert_weights(decode_ranks, arch):
+    case = _decode_cases()[arch]
+    _, over, p, x = case
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    _, y_loc, aux_loc = _local(arch, (arch, over, (1, 2), p, x))
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    router_piece = d * (e // 2) * 4  # float32, the other rank's half
+    for rank, res in enumerate(decode_ranks):
+        y, aux, wire, stacks = res[arch]
+        np.testing.assert_allclose(y, y_loc, rtol=TOL, atol=TOL, err_msg=f"rank {rank}")
+        assert abs(aux - aux_loc) <= AUX_REL * abs(aux_loc)
+        assert stacks and all(n == e // 2 for n in stacks), (rank, stacks)
+        assert wire["dist.gather.bytes"] == router_piece < d * f * 4, (rank, wire)
+        assert wire["dist.sum_over.bytes"] == x.shape[0] * d * 4, (rank, wire)
+        assert set(wire) == {"dist.gather.bytes", "dist.sum_over.bytes"}, wire

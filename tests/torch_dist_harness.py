@@ -592,6 +592,50 @@ def moe_suite(rank, world, layer_cases, lm_cases):
     return {"layers": layers, "lms": lms}
 
 
+def moe_decode_suite(rank, world, cases):
+    """One-token MoE steps under a ``(1, world)`` ``("data", "model")`` mesh
+    (no JAX here). ``cases``: ``{key: (arch, config overrides, whole MoE
+    params (numpy tree), x (B, 1, D))}``: every rank holds its
+    ``shard_moe_params`` pieces and calls ``apply_moe`` with the metrics
+    registry on; returns ``(y, aux, {counter: bytes}, [the expert count of
+    every weight stack the experts ran with])``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.obs import MetricsRegistry, metrics
+    from repro_torch.tree import tree_map
+
+    mesh = make_mesh((1, world), ("data", "model"), backend="gloo", device="cpu")
+    stacks = []
+    experts = L._experts
+
+    def watched(xe, w, cdt):
+        stacks.extend(int(w[n].shape[0]) for n in ("w1", "w3", "w2"))
+        return experts(xe, w, cdt)
+
+    L._experts = watched
+    found = {}
+    try:
+        for key, (arch, over, params, x) in cases.items():
+            cfg = _moe_cfg(arch, over)
+            whole = tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)).to(
+                getattr(torch, cfg.param_dtype)), params)
+            mine = L.shard_moe_params(cfg, whole, mesh)
+            reg = MetricsRegistry()
+            del stacks[:]
+            with use_mesh(mesh), metrics.using(reg):
+                y, aux = L.apply_moe(cfg, mine, torch.from_numpy(x.copy()))
+            found[key] = (y.float().numpy(), float(aux),
+                          {k: v for k, v in reg.counters.items() if k.endswith(".bytes")},
+                          list(stacks))
+    finally:
+        L._experts = experts
+    return found
+
+
 def failing_rank(rank, world, store):
     """Rank 1 raises before joining any group; rank 0 waits to be killed."""
     if rank == 1:
@@ -618,8 +662,9 @@ def train_suite(rank, world, cases, ckpt_root, ckpt_case):
     ``make_train_step`` on the global batches, and returns each step's
     loss, grad norm and aux loss, its pieces' bytes (and each leaf's
     replica count), and (rank 0) the parameters and moments gathered
-    whole. ``ckpt_case``: ``(arch, overrides, [global batch of each
-    step])`` for the checkpoint drills under ``ckpt_root``: two steps of
+    whole. ``ckpt_case`` (or None: no drills): ``(arch, overrides,
+    [global batch of each step])`` for the checkpoint drills under
+    ``ckpt_root``: two steps of
     ``train()`` on ``(2, 2)``, that checkpoint restored onto ``(4, 1)``,
     the run resumed there to step 4, and a SIGTERM sent to rank 1 at step
     2 of a run on ``(2, 2)``."""
@@ -685,6 +730,8 @@ def train_suite(rank, world, cases, ckpt_root, ckpt_case):
         def batch_at(self, step):
             return self.batches[step]
 
+    if ckpt_case is None:
+        return found
     arch, over, batches = ckpt_case
     cfg = dataclasses.replace(get_smoke_config(arch), **over)
     data = Data(batches)
