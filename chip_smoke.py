@@ -367,6 +367,18 @@ script's seconds so far when it was printed):
               time, its device copy time and its host time inside gloo's
               collectives. Host times are ranks sharing one H100 through
               host memory: not a multi-GPU figure
+dryrun        the port's dry run (``repro_torch.launch.dryrun``: one rank
+              traced on meta tensors, nothing computed) of every
+              full-width step the script ran, same config, depth, batch
+              and length, on a (1, 1) mesh, in spawned children (their fake
+              process groups never meet this process): the six trainers
+              of the train phase at 4 x 256 tokens and llama-vision's
+              512-token media prefill at 5 layers (``serve_media``). One
+              line: each step's predicted peak, its measured
+              ``max_memory_allocated`` less the bytes held before the
+              step was built, and their ratio, which must lie within
+              0.85-1.15; and what the garbage collector finds of the
+              bytes held before the trainers (``live_cuda_tensors``)
 
 Then the card's ``nvidia-smi`` line, the ``{"kernels": [...]}`` line (each
 kernel's launches from the path that runs it), and last
@@ -377,10 +389,12 @@ anything else, without a CUDA device or without the repository's ``src/``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
 import json
+import multiprocessing
 import os
 import re
 import statistics
@@ -492,6 +506,10 @@ SHARDED_NORM2_REL = 5e-5  # the second grad norm, ranks against one process (sam
 SHARDED_FULL_LOSS = 1e-2  # bf16 compute: 4 ranks' rows against one device's whole batch
 SHARDED_TIMEOUT = 900  # seconds for each spawn, start-up included
 L2_BYTES = 50 * 2**20  # the H100's L2 (data sheet)
+DRYRUN_BAND = (0.85, 1.15)  # predicted over measured peak, each full-width step
+DRYRUN_TIMEOUT = 300  # seconds for the dry run's children, start-up included
+DRYRUN_WORKERS = 4  # spawned children tracing the steps side by side (the card idles)
+
 T_START = time.perf_counter()
 
 
@@ -1093,71 +1111,42 @@ def sharded_batches(cfg, seq, n, seed):
     return out
 
 
-def shard_wire_reckoning(cfg, shape, tokens: int) -> dict:
-    """The bytes one rank of a ``("data", "model")`` mesh of ``shape``
-    receives by the trainer's parameter gathers and hands to its gradient
-    sums in one step of ``tokens`` (the global batch's), one microbatch,
-    from the shapes alone: each leaf's ``spec_for``, the compute dtype, one
-    gather a use (a block's leaves twice with remat, the forward's and the
-    recompute's; a tied embedding at each end), one sum a use in the
-    backward (the whole gradient all-reduced: gloo has no reduce-scatter),
-    and a leaf that no data axis splits summed whole by its ``copy_to``.
-    An MoE layer's ``ffn`` takes the expert-parallel path: its router
-    gathered whole in float32, its expert and dense leaves over the data
-    axes only (their ``model`` piece kept), and the tokens (compute dtype)
-    and gates (float32) entering the expert region summed over ``model``
-    in the backward."""
-    import math
+def _dryrun_job(job):
+    """One job of the dryrun phase, in a spawned child: ``trace_step`` of
+    ``(arch, layers, kind, seq, batch)`` (``layers`` None: the published
+    depth) on a (1, 1) mesh of meta tensors; returns its peak, argument
+    bytes, peak categories and trace seconds. Touches no card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import trace_step
 
-    from repro_torch.dist.sharding import _is_axes_leaf, spec_for
-    from repro_torch.models.lm import lm_axes, lm_meta
-    from repro_torch.tree import tree_flatten
+    arch, layers, kind, seq, batch = job
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    r = trace_step(cfg, ShapeConfig(kind, seq, batch, kind), (1, 1))
+    mem = r["memory_analysis"]
+    return {"peak_bytes": mem["peak_bytes"], "argument_bytes": mem["argument_bytes"],
+            "peak_bytes_by_category": mem["peak_bytes_by_category"],
+            "microbatches": r["meta"].get("microbatches"), "trace_s": r["timings_s"]["trace"]}
 
-    sizes = dict(zip(("data", "model"), shape))
-    mesh = type("Shape", (), {"axis_names": tuple(sizes), "shape": tuple(shape)})()
-    itemsize = 4 if cfg.compute_dtype == "float32" else 2
-    got = {"gather": 0, "grad_sum": 0}
 
-    def add(ax_tree, m_tree, n_fwd, n_bwd, expert=False):
-        for ax, t in zip(tree_flatten(ax_tree, is_leaf=_is_axes_leaf)[0],
-                         tree_flatten(m_tree)[0]):
-            spec = spec_for(ax, mesh, t.shape)
-            entries = [(e,) if isinstance(e, str) else tuple(e or ()) for e in spec]
-            width = 4 if expert and ax == ("fsdp", "experts") else itemsize  # router: f32
-            size = t.numel() * width // math.prod(sizes[a] for e in entries for a in e)
-            if sizes["data"] > 1 and not any("data" in e for e in entries):
-                got["grad_sum"] += n_bwd * size  # copy_to over the data axis
-            # One gather a sharded dim, in dim order (``model`` kept on the
-            # expert path); the backward of each sums over its data axes the
-            # gradient of its output, the later gathers' narrowing undone.
-            for e in entries:
-                gathered = [a for a in e if not (expert and a == "model" and ax != (
-                    "fsdp", "experts"))]
-                count = math.prod(sizes[a] for a in gathered)
-                if count == 1:
-                    continue
-                got["gather"] += n_fwd * size * (count - 1)
-                size *= count
-                if "data" in gathered and sizes["data"] > 1:
-                    got["grad_sum"] += n_bwd * size
+def live_cuda_tensors(top: int = 6) -> dict:
+    """The CUDA tensors the garbage collector reaches (each storage once):
+    their bytes beside ``memory_allocated``, and the largest by shape and
+    dtype. What it does not reach is held outside Python objects."""
+    import torch
 
-    axes, meta = lm_axes(cfg), lm_meta(cfg)
-    ends = 2 if cfg.tied_embeddings else 1
-    add(axes["embed"], meta["embed"], ends, ends)
-    add(axes["final_norm"], meta["final_norm"], 1, 1)
-    if "head" in axes:
-        add(axes["head"], meta["head"], 1, 1)
-    n_fwd = 2 if cfg.remat else 1
-    for kind, ax, m in zip(cfg.layer_kinds, axes["blocks"], meta["blocks"]):
-        moe = bool(cfg.n_experts) and kind != "rwkv6"
-        add({k: v for k, v in ax.items() if not (moe and k == "ffn")},
-            {k: v for k, v in m.items() if not (moe and k == "ffn")}, n_fwd, 1)
-        if moe:
-            add(ax["ffn"], m["ffn"], n_fwd, 1, expert=True)
-            if sizes["model"] > 1:
-                t_loc = tokens // sizes["data"]
-                got["grad_sum"] += t_loc * cfg.d_model * itemsize + t_loc * cfg.top_k * 4
-    return got
+    found = {}
+    for obj in gc.get_objects():
+        if issubclass(type(obj), torch.Tensor) and obj.is_cuda:  # type(): no proxy's __class__
+            st = obj.untyped_storage()
+            found[st.data_ptr()] = (st.nbytes(), list(obj.shape), str(obj.dtype))
+    largest = sorted(found.values(), key=lambda v: -v[0])[:top]
+    return {"allocated_bytes": torch.cuda.memory_allocated(),
+            "reached_bytes": sum(v[0] for v in found.values()), "storages": len(found),
+            "largest": [{"bytes": n, "shape": shp, "dtype": d} for n, shp, d in largest]}
 
 
 def _train_sharded_rank_body(rank, world, store, job):
@@ -1468,14 +1457,17 @@ def set_gates(blocks, value):
     return n
 
 
-def serve_media(cfg, model, dev) -> dict:
+def serve_media(cfg, model, dev, held: int) -> dict:
     """llama-vision's media path on the served model (its gates set to
     MEDIA_GATE): at float32, a MEDIA_PROMPT-token prefill against ``memory``
     (1, num_media_tokens, D) and MEDIA_NEW decode tokens, the last logits
     and every cache leaf held to one prefill of the whole within SLICE_TOL,
     and other memory moving the prefill's logits; then at the published
     compute dtype, counted (no port kernel), timed and profiled, with the
-    decode token's bytes floor and the analytic bounds."""
+    decode token's bytes floor and the analytic bounds. Last, the step the
+    dryrun phase predicts: one such prefill into a cache of MEDIA_PROMPT
+    positions, its peak less ``held``, the bytes held before the model was
+    built."""
     import numpy as np
     import torch
 
@@ -1530,7 +1522,7 @@ def serve_media(cfg, model, dev) -> dict:
     decode_bytes = moved_bytes(lambda: lm_decode(cfg, model, tok, cache, pos))
     windows = {"prefill_512": profiled_window(prefill, 1),
                "decode": profiled_window(lambda: lm_decode(cfg, model, tok, cache, pos), 5)}
-    return {"gates": gates, "gate": MEDIA_GATE, "memory_shape": list(shape),
+    out = {"gates": gates, "gate": MEDIA_GATE, "memory_shape": list(shape),
             "prompt": MEDIA_PROMPT, "new_tokens": MEDIA_NEW,
             "decode_vs_prefill_rel_err_f32": decode_err, "other_memory_rel_change": memory_rel,
             "prefill_512_s": prefill_s, "decode_token_s": {
@@ -1540,7 +1532,17 @@ def serve_media(cfg, model, dev) -> dict:
             "decode_bound_ms": decode_bytes / H100_SXM.hbm_bw * 1e3,
             "analytic_bound": {"prefill_512": analytic_bound(cfg, "prefill", MEDIA_PROMPT, 1),
                                "decode": analytic_bound(cfg, "decode", pos, 1)},
-            "profiled": windows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "profiled": windows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "dryrun_step": None}
+    del logits, cache
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm_prefill(cfg, model, toks[:, :MEDIA_PROMPT], build_cache(cfg, 1, MEDIA_PROMPT, device=dev),
+               memory=memory)
+    torch.cuda.synchronize()
+    out["dryrun_step"] = {"peak_bytes": torch.cuda.max_memory_allocated(), "held_bytes": held}
+    return out
 
 
 def encode_phase(dev) -> dict:
@@ -1627,6 +1629,7 @@ def main() -> int:
         run_simulation,
     )
     from repro_torch.kernels import _build
+    from repro_torch.launch.dryrun import shard_wire_reckoning
     from repro_torch.launch.spawn import run_ranks
     from repro_torch.kernels.hdiff import hdiff_fixed, hdiff_fused, hdiff_fused_ad, hdiff_twostep
     from repro_torch.kernels.hdiff import hdiff_fixed_point_ref
@@ -2378,6 +2381,7 @@ def main() -> int:
 
     # -- serve: the recurrent LMs at their published shapes, counted ------------
     serve_launches: dict[str, int] = {}
+    dryrun_measured: dict[str, dict] = {}  # the dryrun phase's measured steps
     want_launches = {"rwkv6-3b": {"wkv6_cuda": 7 * 32},
                      "recurrentgemma-2b": {"rglru_scan_cuda": 8 * 18},
                      # dense attention, cross-attention and the MoE are plain tensor code
@@ -2391,6 +2395,7 @@ def main() -> int:
             cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         model = build_lm(cfg, SEED, device=dev)
         torch.cuda.synchronize()
@@ -2475,6 +2480,10 @@ def main() -> int:
         windows = {"prefill_512": profiled_window(one_prefill, 1),
                    "decode": profiled_window(lambda: lm_decode(cfg, model, logits.argmax(-1),
                                                                cache, 600), 5)}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        media = serve_media(cfg, model, dev, held) if cfg.frontend == "vision" else None
+        if media is not None:
+            dryrun_measured[arch] = media["dryrun_step"]
         emit({"phase": "serve", "arch": arch, "reduced": reduced, "device": smi,
               "params_gb": params_gb, "build_s": build_s,
               "launches": launches_here, "long_prefill_path_calls": len(long_calls),
@@ -2496,8 +2505,7 @@ def main() -> int:
                                  "decode": analytic_bound(cfg, "decode", 600, 1),
                                  "prefill_long": analytic_bound(cfg, "prefill", LONG_PROMPT, 1)
                                  if long else None},
-              "profiled": windows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "media": serve_media(cfg, model, dev) if cfg.frontend == "vision" else None})
+              "profiled": windows, "peak_gb": peak_gb, "media": media})
         del model, srv, cache, last, want, finite
         gc.collect()
         torch.cuda.empty_cache()
@@ -2692,19 +2700,18 @@ def main() -> int:
         b, t, h, n = shape
         r, k, v, w, u, s0 = wkv_inputs(shape)
         c = min(K7_CHUNK, t)
+        ops, nbytes = k7.call_work(b, t, h, n, c)
         time_row("wkv6_cuda", "wkv6", shape, lambda: k7.wkv6_cuda(r, k, v, w, u, s0, chunk=c),
-                 lambda: wkv6_plain(r, k, v, w, u, s0, chunk=c),
-                 4 * (5 * r.numel() + 2 * s0.numel() + u.numel()),
-                 2 * (2 * t * n * n + t * (c - 1) * n) * b * h)
+                 lambda: wkv6_plain(r, k, v, w, u, s0, chunk=c), nbytes, ops)
         del r, k, v, w, u, s0
         torch.cuda.empty_cache()
     for shape in (K6_SERVE, K6_BIG):
         a = 0.5 + 0.499 * torch.rand(shape, generator=gen, device=dev)
         b = randn(shape)
         h0 = randn((shape[0], shape[2]))
+        ops, nbytes = k6.launch_work(*shape, 4)
         time_row("rglru_scan_cuda", "rglru f32", shape, lambda: k6.rglru_scan_cuda(a, b, h0),
-                 lambda: rglru_seq_ref(a, b, h0), 4 * (3 * a.numel() + 2 * h0.numel()),
-                 2 * a.numel())
+                 lambda: rglru_seq_ref(a, b, h0), nbytes, ops)
         del a, b, h0
         torch.cuda.empty_cache()
 
@@ -3374,21 +3381,20 @@ def main() -> int:
     # would stay in L2 between graph replays).
     a = 0.5 + 0.499 * torch.rand(K6_TRAIN, generator=gen, device=dev)
     b, h0 = randn(K6_TRAIN), randn((K6_TRAIN[0], K6_TRAIN[2]))
-    k6_train_nbytes = 4 * (3 * a.numel() + 2 * h0.numel())
-    k6_train_bound = bound(k6_train_nbytes, 2 * a.numel(), H100_SXM.peak_flops_vpu_f32)
+    k6_train_ops, k6_train_nbytes = k6.launch_work(*K6_TRAIN, 4)
+    k6_train_bound = bound(k6_train_nbytes, k6_train_ops, H100_SXM.peak_flops_vpu_f32)
     k6_train_timing = {"ms": kernel_ms(lambda: k6.rglru_scan_cuda(a, b, h0), k6_train_nbytes),
                        "plain_ms": event_ms(lambda: rglru_seq_ref(a, b, h0), reps=5),
                        "bound_ms": k6_train_bound[0], "bound_by": k6_train_bound[1],
                        "library_ms": None}
     del a, b, h0
-    # K7 and its backward at the trainer's shape, timed cold. K7's operations
-    # and bytes as in the timing phase. The backward's operations, 2 flops a
-    # multiply-add, per (chunk, head, batch): the products k^T v, r~^T dy,
-    # k^ G, dy S^T and v G^T (C N^2 each), and the triangular products A,
-    # A^T dy, tril(P) k~, tril(P)^T r~ (C (C - 1) / 2 * N each) and P with
-    # its diagonal (C (C + 1) / 2 * N); besides them sum_j G S (N^2).
-    # Bytes: r, k, v, w, dy read and dr, dk, dv, dw written once, state0,
-    # dS_T and dstate0, u and du. The products at FP32 accuracy take least
+    # K7 and its backward at the trainer's shape, timed cold: their
+    # operations and bytes by ``k7.call_work`` and ``k7.bwd_call_work``. Of
+    # the backward's operations (2 flops a multiply-add, per chunk, head and
+    # batch row), all but sum_j G S (N^2) are the products k^T v, r~^T dy,
+    # k^ G, dy S^T and v G^T (C N^2 each), the triangular products A, A^T
+    # dy, tril(P) k~, tril(P)^T r~ (C (C - 1) / 2 * N each) and P with its
+    # diagonal (C (C + 1) / 2 * N). The products at FP32 accuracy take least
     # on the tensor cores in 3xTF32, three TF32 multiply-adds a product
     # term: about 15 us at the data sheet's 495 TFLOP/s (the kernel keeps P
     # and the two products with tril(P) in FP32 on the CUDA cores, about
@@ -3398,12 +3404,10 @@ def main() -> int:
     c = K7_CHUNK
     fwd_in = wkv_inputs(K7_TRAIN)
     bwd_in = (*fwd_in, randn(K7_TRAIN), randn((b, h, n, n)))
-    blocks = b * h * (t // c)
-    bwd_mma = 2 * blocks * (5 * c * n * n + n * (4 * c * (c - 1) // 2 + c * (c + 1) // 2))
-    bwd_simt = 2 * blocks * n * n
-    bwd_bytes = 4 * (9 * fwd_in[0].numel() + 3 * fwd_in[5].numel() + 2 * fwd_in[4].numel())
-    fwd_bytes = 4 * (5 * fwd_in[0].numel() + 2 * fwd_in[5].numel() + fwd_in[4].numel())
-    fwd_ops = 2 * (2 * t * n * n + t * (c - 1) * n) * b * h
+    bwd_simt = 2 * b * h * (t // c) * n * n
+    bwd_ops, bwd_bytes = k7.bwd_call_work(b, t, h, n, c)
+    bwd_mma = bwd_ops - bwd_simt
+    fwd_ops, fwd_bytes = k7.call_work(b, t, h, n, c)
     t_bytes = bwd_bytes / H100_SXM.hbm_bw
     t_ops = 3 * bwd_mma / H100_TF32_TENSOR + bwd_simt / H100_SXM.peak_flops_vpu_f32
     bwd_bound = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
@@ -3416,7 +3420,7 @@ def main() -> int:
              lambda: wkv6_backward_plain(*bwd_in, chunk=c), bwd_bytes, bwd_bound)):
         k7_train_timing[name] = {"ms": kernel_ms(fn, nbytes), "plain_ms": event_ms(plain, reps=5),
                                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    k7_train_timing["wkv6_bwd_cuda"].update(bytes=bwd_bytes, flops=bwd_mma + bwd_simt)
+    k7_train_timing["wkv6_bwd_cuda"].update(bytes=bwd_bytes, flops=bwd_ops)
     del fwd_in, bwd_in
     # (b) One smoke-config step, card against CPU, at float32 compute: the
     # second step (a first on the CPU gives both a non-zero state), with a
@@ -3520,7 +3524,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
-        held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors still alive
+        held = live_cuda_tensors()  # earlier phases' tensors still alive, and what they are
+        held_gb = held["allocated_bytes"] / 1e9
         _build.reset_launches()
         t0 = time.perf_counter()
         params, opt_state, hist = train(full, TrainConfig(steps=steps, log_every=1), ds,
@@ -3528,7 +3533,8 @@ def main() -> int:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        peak_bytes = torch.cuda.max_memory_allocated()
+        peak_gb = peak_bytes / 1e9
         check(launches == want, f"{arch} trainer launches {launches} != {want}")
         gnorms = [float(m) for m in re.findall(r"gnorm ([-+0-9.eEnaif]+)", " ".join(logs))]
         losses = [h["loss"] for h in hist]
@@ -3568,6 +3574,7 @@ def main() -> int:
                 "launches": launches,
                 "launches_per_step": {k: v / steps for k, v in launches.items()},
                 "peak_memory_gb": peak_gb, "held_before_gb": held_gb,
+                "peak_bytes": peak_bytes, "held_before": held,
                 "profiled_step": {"window_us": prof_us, "device_busy_us": busy_us,
                                   "busy_share": busy_us / prof_us, "port_kernels": port_us,
                                   "top": {k: v for k, v in top}}}
@@ -3821,6 +3828,46 @@ def main() -> int:
                     "launches_summed_over_ranks": sharded_train_launches,
                     "spawn_s": smoke_s},
           "dense": dense, "moe": moe_run, "seconds": time.perf_counter() - t_phase})
+
+    # -- dryrun: each full-width step's peak, predicted on meta tensors ------------
+    # The port's dry run of every full-width step measured above (the
+    # trainers at TRAIN_BATCH x TRAIN_SEQ, llama-vision's media prefill at
+    # its served depth) in spawned children, against the card's peak less
+    # the bytes held before the step was built.
+    t_phase = time.perf_counter()
+    jobs = {arch: (arch, layers, "train", TRAIN_SEQ, TRAIN_BATCH) for arch, layers in (
+        (TRAIN_ARCH, None), (RWKV_TRAIN_ARCH, None), (DENSE_TRAIN_ARCH, None),
+        (MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS), (ARCTIC_TRAIN_ARCH, ARCTIC_TRAIN_LAYERS),
+        (AUDIO_TRAIN_ARCH, None))}
+    jobs[VISION_ARCH] = (VISION_ARCH, SERVE_LAYERS[VISION_ARCH], "prefill", MEDIA_PROMPT, 1)
+    for arch in jobs:
+        if arch != VISION_ARCH:
+            run = trainers[arch]
+            dryrun_measured[arch] = {"peak_bytes": run["peak_bytes"],
+                                     "held_bytes": run["held_before"]["allocated_bytes"]}
+    with concurrent.futures.ProcessPoolExecutor(
+            DRYRUN_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        predicted = list(pool.map(_dryrun_job, jobs.values(), timeout=DRYRUN_TIMEOUT))
+    steps = []
+    for (arch, job), pred in zip(jobs.items(), predicted):
+        got = dryrun_measured[arch]
+        measured = got["peak_bytes"] - got["held_bytes"]
+        ratio = pred["peak_bytes"] / measured
+        steps.append({"arch": arch, "kind": job[2], "layers": job[1], "seq": job[3],
+                      "batch": job[4], "predicted_gb": pred["peak_bytes"] / 1e9,
+                      "measured_gb": measured / 1e9, "ratio": ratio,
+                      "held_before_gb": got["held_bytes"] / 1e9,
+                      "predicted_argument_gb": pred["argument_bytes"] / 1e9,
+                      "predicted_by_category_gb": {k: v / 1e9 for k, v in
+                                                   pred["peak_bytes_by_category"].items()},
+                      "microbatches": pred["microbatches"], "trace_s": pred["trace_s"]})
+    emit({"phase": "dryrun", "device": smi, "band": list(DRYRUN_BAND), "steps": steps,
+          "held_before_trainers": trainers[TRAIN_ARCH]["held_before"],
+          "seconds": time.perf_counter() - t_phase})
+    for step in steps:
+        check(DRYRUN_BAND[0] <= step["ratio"] <= DRYRUN_BAND[1],
+              f"dryrun {step['arch']}: predicted {step['predicted_gb']} GB against "
+              f"{step['measured_gb']} GB measured (ratio {step['ratio']}, band {DRYRUN_BAND})")
 
     # -- result lines ----------------------------------------------------------
     # Launches: K1-K3 from the hdiff path (K2 runs on the hdiff, elementary

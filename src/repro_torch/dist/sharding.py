@@ -152,17 +152,46 @@ class Mesh:
         if key not in self._axis_groups:
             mine = None
             # new_group is collective over the whole mesh: every rank creates
-            # every group of the partition, in one order.
+            # every group of the partition, in one order, on the backend of
+            # the group the mesh spans (the mesh's own, or the dry run's
+            # fake one under an "nccl" mesh).
+            backend = dist.get_backend(self.group)
             fixed_shape = [self.shape[i] for i in others]
             for flat in range(math.prod(fixed_shape)):
                 fixed = dict(zip(others, rank_coords(flat, fixed_shape)))
                 members = [r for r in range(self.size)
                            if all(self.coords_of(r)[i] == c for i, c in fixed.items())]
-                g = dist.new_group(members, backend=self.backend)
+                g = dist.new_group(members, backend=backend)
                 if all(self.coords[i] == c for i, c in fixed.items()):
                     mine = g
             self._axis_groups[key] = mine
         return self._axis_groups[key]
+
+
+# The dry run's tally of collectives (``launch/dryrun.py``): while
+# :func:`tally_collectives` is open, :func:`all_reduce` and the gathers of
+# :func:`gather_dim` add ``(kind, payload bytes, ranks in the group)`` here.
+_TALLY: list | None = None
+
+
+@contextmanager
+def tally_collectives():
+    """Yields a list that every all-reduce (``"all_reduce"``: the bytes of
+    the tensor reduced) and every gather of :func:`gather_dim`
+    (``"all_gather"``: the bytes of the gathered result) appends ``(kind,
+    payload bytes, group size)`` to until the block ends."""
+    global _TALLY
+    prev, rows = _TALLY, []
+    _TALLY = rows
+    try:
+        yield rows
+    finally:
+        _TALLY = prev
+
+
+def _tally(kind: str, nbytes: int, group) -> None:
+    if _TALLY is not None:
+        _TALLY.append((kind, nbytes, dist.get_world_size(group)))
 
 
 def _mesh_sizes(mesh: Mesh) -> dict[str, int]:
@@ -188,6 +217,7 @@ def all_reduce(t: Tensor, op, mesh: Mesh, group=None) -> Tensor:
     staged through the host under gloo; returns the reduced tensor on
     ``t``'s device."""
     group = mesh.group if group is None else group
+    _tally("all_reduce", t.numel() * t.element_size(), group)
     if stage_collective(mesh, t):
         host = t.detach().to("cpu")
         dist.all_reduce(host, op=op, group=group)
@@ -242,9 +272,13 @@ def shard_param(x: Tensor, mesh: Mesh, spec: Sequence) -> Tensor:
     """This rank's piece of the global tensor ``x`` under ``spec``: one entry
     per trailing dim, ``None`` (whole), a mesh axis, or a tuple of axes that
     split the dim together, the first outermost (a ``PartitionSpec``
-    entry, as :func:`spec_for` gives). Returns a contiguous copy."""
+    entry, as :func:`spec_for` gives). Returns a contiguous copy: always a
+    copy, so a piece never holds the whole tensor's storage alive (a slice
+    along the first dim is contiguous already, and ``contiguous()`` would
+    hand back a view of the whole)."""
     _check_spec(x.shape, mesh, spec)
-    return x[_block_index(x.shape, mesh, spec, mesh.coords)].contiguous()
+    return x[_block_index(x.shape, mesh, spec, mesh.coords)].clone(
+        memory_format=torch.contiguous_format)
 
 
 def gather_blocks(block: Tensor, mesh: Mesh,
@@ -472,7 +506,9 @@ def _all_gather_dim(t: Tensor, mesh: Mesh, axes: tuple[str, ...], dim: int) -> T
     members = _group_members(mesh, axes)
     src = _wire(t, mesh)
     parts = [torch.empty_like(src) for _ in members]
-    dist.all_gather(parts, src, group=mesh.axis_group(axes))
+    group = mesh.axis_group(axes)
+    _tally("all_gather", len(members) * src.numel() * src.element_size(), group)
+    dist.all_gather(parts, src, group=group)
     metrics.inc("dist.gather.bytes", (len(members) - 1) * src.numel() * src.element_size())
     order = sorted(range(len(members)),
                    key=lambda i: _piece(mesh, axes, mesh.coords_of(members[i]))[0])

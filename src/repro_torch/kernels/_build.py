@@ -21,6 +21,13 @@ a caller can reset the counts, run a path, and read which kernels it went
 through. :data:`NVCC_RUNS` lists every library :func:`build` compiled in
 this process, so a caller can tell whether a run built anything.
 
+The recurrence kernels (K6, K7 and K7's backward) also take tensors on the
+``"meta"`` device, which carry shapes and no values: their wrappers then
+make exactly the allocations, slices and copies of the CUDA route and skip
+the launch itself, which they note in :data:`META_LAUNCHES` with the
+FLOPs and bytes the launch would take (:func:`record_meta`), never in the
+launch counts. The dry run (``launch/dryrun.py``) traces whole steps so.
+
 The stencil kernels map depth planes to a grid dimension, which holds at
 most :data:`MAX_PLANES` blocks. Their wrappers cut a deeper field into
 consecutive launches of at most that many planes (:func:`plane_chunks`),
@@ -47,7 +54,12 @@ NVCC_FLAGS = (
 # The most blocks a grid's y or z dimension holds.
 MAX_PLANES = 65535
 
+# An H100 SXM's multiprocessors: what a launch plan is made for on meta
+# tensors, where there is no card to ask.
+META_SMS = 132
+
 LAUNCHES: dict[str, int] = {}
+META_LAUNCHES: dict[str, dict[str, float]] = {}
 NVCC_RUNS: list[str] = []
 _LOADED: dict[Path, ctypes.CDLL] = {}
 
@@ -58,6 +70,16 @@ def count_launch(kernel: str) -> None:
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def record_meta(kernel: str, flops: float, nbytes: float) -> None:
+    """Notes a launch a wrapper skipped on meta tensors, with the FLOPs and
+    the bytes it would take (each input read once, each output written
+    once)."""
+    row = META_LAUNCHES.setdefault(kernel, {"launches": 0, "flops": 0.0, "bytes": 0.0})
+    row["launches"] += 1
+    row["flops"] += flops
+    row["bytes"] += nbytes
 
 
 def plane_chunks(depth: int) -> list[tuple[int, int]]:
@@ -135,15 +157,16 @@ def load(name: str, source: str) -> ctypes.CDLL:
 
 
 def check_input(kernel: str, x, dtypes, *, field: str = "input", ndim: int = 3,
-                shape=None, device=None) -> None:
-    """Raises unless ``x`` is a contiguous CUDA tensor of one of ``dtypes``
-    laid out as ``kernel`` takes it. With ``shape`` (the recurrences' several
-    inputs), it must have exactly that shape and lie on ``device``, the
-    device the kernel launches on. Without, it is a stencil field:
-    ``(depth, rows, cols)`` of any depth (the wrappers launch
-    :func:`plane_chunks`) or, for ``ndim=2``, ``(batch, n)`` with ``n``
-    below 2**31."""
-    if x.device.type != "cuda" or (device is not None and x.device != device):
+                shape=None, device=None, meta: bool = False) -> None:
+    """Raises unless ``x`` is a contiguous CUDA tensor (or, with ``meta``,
+    a meta one) of one of ``dtypes`` laid out as ``kernel`` takes it. With
+    ``shape`` (the recurrences' several inputs), it must have exactly that
+    shape and lie on ``device``, the device the kernel launches on.
+    Without, it is a stencil field: ``(depth, rows, cols)`` of any depth
+    (the wrappers launch :func:`plane_chunks`) or, for ``ndim=2``,
+    ``(batch, n)`` with ``n`` below 2**31."""
+    kinds = ("cuda", "meta") if meta else ("cuda",)
+    if x.device.type not in kinds or (device is not None and x.device != device):
         on = f"the CUDA device {device}" if device is not None else "a CUDA device"
         raise ValueError(f"{kernel}: {field} is on {x.device}; it must be on {on} "
                          "(or every input on the CPU)")

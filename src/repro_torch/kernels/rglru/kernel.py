@@ -7,15 +7,17 @@ float32 ``(B, W)`` h0, returning every h and the last one in float32.
 
 A CPU tensor gets the plain version
 (:func:`~repro_torch.kernels.rglru.ref.rglru_seq_ref`); a CUDA tensor
-launches the kernel on the current stream or raises — it never falls
-back. One block runs the recurrence for a tile of channels of one batch
-row, with a and b streamed through a ring of shared-memory stages;
-:func:`plan_scan` picks the tile and the stage length. The batch is the
-grid's y dimension, which holds at most 65535 blocks, so a larger batch
-takes consecutive launches of at most that many rows
-(:func:`plan_launches`), each with its pointers offset by the rows before
-it and each counted. The kernel source's
-header says what bounds it on the card and what its design does about that.
+launches the kernel on the current stream or raises — it never falls back.
+A meta tensor takes the CUDA route's checks, plan and allocations and
+launches nothing: each launch it would make is noted with its work
+(:func:`launch_work`) for the dry run (``_build.record_meta``). One block
+runs the recurrence for a tile of channels of one batch row, with a and b
+streamed through a ring of shared-memory stages; :func:`plan_scan` picks
+the tile and the stage length. The batch is the grid's y dimension, which
+holds at most 65535 blocks, so a larger batch takes consecutive launches
+of at most that many rows (:func:`plan_launches`), each with its pointers
+offset by the rows before it and each counted. The kernel source's header
+says what bounds it on the card and what its design does about that.
 """
 
 from __future__ import annotations
@@ -95,6 +97,15 @@ def plan_launches(batch: int, steps: int, width: int, itemsize: int, sms: int, *
             for b0, nb in _build.plane_chunks(batch)]
 
 
+def launch_work(rows: int, steps: int, width: int, itemsize: int) -> tuple[int, int]:
+    """``(operations, bytes)`` of one K6 launch over ``rows`` batch rows:
+    a multiply and an add a step and channel; a and b read at ``itemsize``,
+    h written and h0 read and h_last written in float32 (the bound
+    ``chip_smoke.py`` times it against)."""
+    n = rows * steps * width
+    return 2 * n, 2 * n * itemsize + 4 * n + 8 * rows * width
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -126,12 +137,18 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
     for field, x, dtypes, shape in (("a", a, _DTYPES, a.shape), ("b", b, (a.dtype,), a.shape),
                                     ("h0", h0, (torch.float32,), (batch, width))):
         _build.check_input("rglru_scan_cuda", x, dtypes, field=field, shape=shape,
-                           device=a.device)
+                           device=a.device, meta=True)
     h = torch.empty((batch, steps, width), dtype=torch.float32, device=a.device)
     h_last = torch.empty((batch, width), dtype=torch.float32, device=a.device)
     if batch == 0 or width == 0:
         return h, h_last
     size = a.element_size()
+    if a.device.type == "meta":
+        # Fresh allocations are aligned: the vector plan, on an H100's SMs.
+        for _, nb, _ in plan_launches(batch, steps, width, size, _build.META_SMS,
+                                      vec=width % GROUP == 0):
+            _build.record_meta("rglru_scan_cuda", *launch_work(nb, steps, width, size))
+        return h, h_last
     vec = width % GROUP == 0 and a.data_ptr() % (GROUP * size) == 0 \
         and b.data_ptr() % (GROUP * size) == 0
     plans = plan_launches(batch, steps, width, size, _sm_count(a.device.index), vec=vec)

@@ -2,7 +2,9 @@
 ``repro/kernels/rglru/ops.py``). A CUDA tensor launches K6, a CPU tensor
 computes its plain version. The Pallas ``block_w`` and ``interpret`` knobs
 have no counterpart: the wrapper plans the kernel's channel tile and ring
-stages itself (:func:`~repro_torch.kernels.rglru.kernel.plan_scan`).
+stages itself (:func:`~repro_torch.kernels.rglru.kernel.plan_scan`). A
+meta tensor takes the CUDA route's allocations and launches nothing (the
+dry run).
 
 Gradients. When an input requires grad, :func:`rglru_scan` runs through
 :class:`RGLRUScan`, whose backward is the same linear recurrence run
@@ -27,7 +29,8 @@ Tensor = torch.Tensor
 
 def rglru_reverse(a_next: Tensor, d: Tensor) -> Tensor:
     """``g_t = a_next_t * g_{t+1} + d_t`` from ``g_T = 0`` (f32): K6 over the
-    reversed time axis on a CUDA tensor, the plain loop on a CPU one."""
+    reversed time axis on a CUDA (or meta) tensor, the plain loop on a CPU
+    one."""
     if a_next.device.type == "cpu":
         return rglru_reverse_ref(a_next, d)
     zeros = torch.zeros((d.shape[0], d.shape[2]), dtype=torch.float32, device=d.device)

@@ -5,12 +5,18 @@ K7 :func:`wkv6_cuda` replaces the JAX package's
 over ``(B, T, H, N)`` float32 r/k/v/w with an ``(H, N)`` bonus and a
 ``(B, H, N, N)`` initial state, returning ``(y, final state)`` in float32.
 
-A CPU tensor gets the plain version (:func:`~repro_torch.kernels.wkv6.ref.wkv6_plain`);
-a CUDA tensor launches the kernel on the current stream or raises — it
-never falls back. One call is three launches (chunk-local state products,
-the scan over chunks, the chunk outputs) into scratch the wrapper
-allocates, and counts as one launch of K7. The kernel source's header says
-what bounds it on the card and what its design does about that.
+A CPU tensor gets the plain version
+(:func:`~repro_torch.kernels.wkv6.ref.wkv6_plain`); a CUDA tensor launches
+the kernel on the current stream or raises — it never falls back. A meta
+tensor takes the CUDA route's checks, launch plan, scratch and copies and
+launches nothing: each call it would make is noted with its work
+(:func:`call_work`, :func:`bwd_call_work`) for the dry run
+(``_build.record_meta``); the shared-memory check, a query of the built
+library, is the card's alone. One call is three launches (chunk-local
+state products, the scan over chunks, the chunk outputs) into scratch the
+wrapper allocates, and counts as one launch of K7. The kernel source's
+header says what bounds it on the card and what its design does about
+that.
 
 The grid is ``(chunks, heads, batch)``, and its y and z dimensions hold at
 most 65535 blocks each, so a larger batch or head count takes several
@@ -99,6 +105,30 @@ def bwd_smem_bytes(n: int, chunk: int) -> int:
     return 4 * max(chunk_floats, grad_floats)
 
 
+def call_work(b: int, t: int, h: int, n: int, c: int) -> tuple[int, int]:
+    """``(operations, bytes)`` of one K7 call on ``(b, t, h, n)`` inputs in
+    chunks of ``c`` (the bound ``chip_smoke.py`` times it against): per
+    (batch, head), the state products and readout, ``2 t n^2`` multiply-adds,
+    and the chunk's triangular term, ``t (c - 1) n``; r, k, v, w read and y
+    written, state0 read and the state written, u read, all float32."""
+    return (2 * (2 * t * n * n + t * (c - 1) * n) * b * h,
+            4 * (5 * b * t * h * n + 2 * b * h * n * n + h * n))
+
+
+def bwd_call_work(b: int, t: int, h: int, n: int, c: int) -> tuple[int, int]:
+    """``(operations, bytes)`` of one call of K7's backward (the bound
+    ``chip_smoke.py`` times it against). Per (chunk, head, batch), 2
+    operations a multiply-add: the products k^T v, r~^T dy, k^ G, dy S^T
+    and v G^T (``c n^2`` each), the triangular products (``c (c - 1) / 2 *
+    n`` each, four) and P with its diagonal (``c (c + 1) / 2 * n``), and
+    ``sum_j G S`` (``n^2``). Bytes: r, k, v, w, dy read and dr, dk, dv, dw
+    written, state0 and dS_T read and dstate0 written, u read and du
+    written, all float32."""
+    blocks = b * h * (t // c)
+    ops = 2 * blocks * (5 * c * n * n + n * (4 * c * (c - 1) // 2 + c * (c + 1) // 2) + n * n)
+    return ops, 4 * (9 * b * t * h * n + 3 * b * h * n * n + 2 * h * n)
+
+
 def plan_launches(batch: int, heads: int) -> list[tuple[int, int, int, int]]:
     """``(first row, rows, first head, heads)`` of each K7 call: the batch
     and the heads each cut into consecutive runs of at most
@@ -120,16 +150,18 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     for field, x, shape in (("r", r, r.shape), ("k", k, r.shape), ("v", v, r.shape),
                             ("w", w, r.shape), ("u", u, (h, n)), ("state0", state0, (b, h, n, n))):
         _build.check_input("wkv6_cuda", x, (torch.float32,), field=field, shape=shape,
-                           device=r.device)
+                           device=r.device, meta=True)
     c = min(chunk, t)
     if c < 1 or t % c:
         raise ValueError(f"wkv6_cuda: sequence length {t} is not a positive multiple of "
                          f"chunk {c}")
-    lib = _library()
-    smem = lib.wkv6_smem_bytes(n, c)
-    if smem > MAX_SMEM:
-        raise ValueError(f"wkv6_cuda: head size {n} with chunk {c} needs {smem} bytes of "
-                         f"shared memory per block, more than {MAX_SMEM}")
+    lib = None
+    if r.device.type != "meta":
+        lib = _library()
+        smem = lib.wkv6_smem_bytes(n, c)
+        if smem > MAX_SMEM:
+            raise ValueError(f"wkv6_cuda: head size {n} with chunk {c} needs {smem} bytes of "
+                             f"shared memory per block, more than {MAX_SMEM}")
     y = torch.empty((b, t, h, n), dtype=torch.float32, device=r.device)
     s_out = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     if y.numel() == 0:
@@ -151,12 +183,16 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
 
 
 def _launch(lib, r, k, v, w, u, state0, y, s_out, c: int) -> None:
-    """One K7 call (three launches, one count) on contiguous tensors."""
+    """One K7 call (three launches, one count) on contiguous tensors; on
+    meta tensors (``lib`` None) its scratch and a note of its work."""
     b, t, h, n = r.shape
     # Scratch: each chunk's k_tail^T v, replaced by the scan with the state
     # entering the next chunk, and each chunk's exp(total).
     kv = torch.empty((b, h, t // c, n, n), dtype=torch.float32, device=r.device)
     decay = torch.empty((b, h, t // c, n), dtype=torch.float32, device=r.device)
+    if lib is None:
+        _build.record_meta("wkv6_cuda", *call_work(b, t, h, n, c))
+        return
     with torch.cuda.device(r.device):
         code = lib.wkv6_f32(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                             u.data_ptr(), state0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
@@ -184,7 +220,7 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
                             ("w", w, r.shape), ("u", u, (h, n)), ("state0", state0, (b, h, n, n)),
                             ("dy", dy, r.shape), ("ds_t", ds_t, (b, h, n, n))):
         _build.check_input("wkv6_bwd_cuda", x, (torch.float32,), field=field, shape=shape,
-                           device=r.device)
+                           device=r.device, meta=True)
     c = min(chunk, t)
     if c < 1 or t % c:
         raise ValueError(f"wkv6_bwd_cuda: sequence length {t} is not a positive multiple of "
@@ -192,11 +228,13 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
     if n > MAX_BWD_DIM or c > MAX_BWD_DIM:
         raise ValueError(f"wkv6_bwd_cuda: head size {n} and chunk {c} must be at most "
                          f"{MAX_BWD_DIM}")
-    lib = _bwd_library()
-    smem = lib.wkv6_bwd_smem_bytes(n, c)
-    if smem > MAX_SMEM:
-        raise ValueError(f"wkv6_bwd_cuda: head size {n} with chunk {c} needs {smem} bytes of "
-                         f"shared memory per block, more than {MAX_SMEM}")
+    lib = None
+    if r.device.type != "meta":
+        lib = _bwd_library()
+        smem = lib.wkv6_bwd_smem_bytes(n, c)
+        if smem > MAX_SMEM:
+            raise ValueError(f"wkv6_bwd_cuda: head size {n} with chunk {c} needs {smem} bytes "
+                             f"of shared memory per block, more than {MAX_SMEM}")
     grads = [torch.empty((b, t, h, n), dtype=torch.float32, device=r.device) for _ in range(4)]
     du = torch.zeros((h, n), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
@@ -225,7 +263,8 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
 def _launch_bwd(lib, r, k, v, w, u, state0, dy, ds_t, dr, dk, dv, dw, ds0, c: int
                 ) -> torch.Tensor:
     """One call of K7's backward (three launches, one count) on contiguous
-    tensors; returns its du, summed over its batch rows and chunks."""
+    tensors; returns its du, summed over its batch rows and chunks. On meta
+    tensors (``lib`` None): its scratch and a note of its work."""
     b, t, h, n = r.shape
     nch = t // c
     # Scratch: each chunk's k^T v (then the state entering it), r~^T dy
@@ -234,6 +273,9 @@ def _launch_bwd(lib, r, k, v, w, u, state0, dy, ds_t, dr, dk, dv, dw, ds0, c: in
     rdy = torch.empty_like(kv)
     decay = torch.empty((b, h, nch, n), dtype=torch.float32, device=r.device)
     dupart = torch.empty((b, nch, h, n), dtype=torch.float32, device=r.device)
+    if lib is None:
+        _build.record_meta("wkv6_bwd_cuda", *bwd_call_work(b, t, h, n, c))
+        return dupart.sum(dim=(0, 1))
     with torch.cuda.device(r.device):
         code = lib.wkv6_bwd_f32(*(x.data_ptr() for x in (r, k, v, w, u, state0, dy, ds_t, dr, dk,
                                                           dv, dw, dupart, ds0, kv, rdy, decay)),

@@ -1,0 +1,532 @@
+"""Dry run: every (arch x shape x mesh) cell traced for one rank on meta tensors.
+
+The port of ``repro/launch/dryrun.py``. Where the JAX module lowers and
+compiles each cell with XLA for a TPU pod and reads the compiler's memory
+and cost analyses, the port runs the cell's step once, eagerly, on tensors
+of the ``"meta"`` device (shapes and dtypes, no values, nothing allocated)
+for ONE rank of the mesh, inside a ``"fake"`` process group of the mesh's
+size whose collectives move nothing. It never computes a value and never
+touches a card, so it runs the same on any host, as the JAX one runs on
+host CPU devices. Per cell this writes ``<out>/<arch>__<shape>__<mesh>.json``:
+
+  * ``memory_analysis`` — the bytes the rank is handed (its pieces of the
+    parameters and the optimizer state, and the batch the step is given;
+    serving: the weights, the cache and the batch), the step's outputs, and
+    the peak of the bytes alive during the step by category: the
+    arguments, ``activations`` (what an op on differentiable inputs
+    allocates with autograd recording: the forward and the remat
+    recompute), ``gradients`` (the tensors ``torch.autograd.grad``
+    returns, from its return on; until then they count as temporaries) and
+    ``temporaries`` (everything else: the backward's intermediates, the
+    clip's and the optimizer's scratch, a serving step's work). ``fits``:
+    the peak within the card's 80 GB. (``torch.distributed._tools``'s
+    ``MemTracker`` sorts bytes by ``nn.Module`` and ``torch.optim`` hooks,
+    which the port's functional steps do not have: it would call every
+    byte an activation.)
+  * ``cost_analysis`` — FLOPs (``torch.utils.flop_counter``: matmuls,
+    convolutions, attention) and bytes (each op's tensor operands and
+    results, views, allocations and collectives excepted: the eager port's
+    unfused traffic, the counterpart of XLA's "bytes accessed"). The
+    hand-written kernels launch from ctypes, past both counters: their
+    wrappers' meta routes note each launch they skip with the FLOPs and
+    bytes of its bound (``kernels/_build.py::record_meta``), listed under
+    ``kernels`` and added in.
+  * ``collectives`` — every all-reduce and all-gather the port's
+    ``dist/sharding.py`` runs, by kind: calls, payload bytes, and the bytes
+    a rank puts on the wire by the ring model of the JAX module's
+    ``parse_collective_bytes`` (all-reduce ``2B(g-1)/g``, all-gather
+    ``B(g-1)/g`` of a g-rank group's payload B); the port's ``dist.*``
+    byte counters beside them.
+  * ``analytic`` — the port's ``cell_flops`` and ``cell_hbm_bytes``
+    (``launch/analytic.py``) and the counted FLOPs of all ranks over them.
+  * ``roofline`` — compute, memory and collective seconds at the rates of
+    an NVIDIA H100 SXM (``core/analytical.py::H100_SXM``: data-sheet dense
+    rates at the 700 W board power), the dominant term, the 6ND / 2ND
+    model FLOPs and their share of the counted ones.
+
+**One link rate.** Every collective is costed at NVLink's 900 GB/s a GPU.
+A mesh past 8 GPUs spans nodes, and an axis that leaves a node crosses the
+network at a fraction of that, so ``collective_s`` is optimistic there.
+
+**No unrolled variants.** The JAX module compiles 1- and 2-superblock
+variants and extrapolates because XLA's cost analysis counts a ``while``
+loop's body once. An eager trace runs every layer and every microbatch,
+so the counts are whole as they stand.
+
+**Serving as the port runs it.** Outside the MoE, the port serves with
+whole weights on every rank: there is no tensor-parallel serving. A
+prefill or decode cell runs on the rank's rows of the batch (the batch
+split over the data axes) with whole weights and their rows of the cache;
+an MoE's experts take their expert-parallel path over ``model``. The JSON
+says so in ``note``, and such a cell may not fit where the JAX one, split
+by GSPMD, did.
+
+Usage::
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm4-9b --shape train_4k --mesh single
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --skip-existing
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import sys
+import time
+import traceback
+import weakref
+from contextlib import contextmanager, nullcontext
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.configs import all_cells, get_config, get_shape
+from repro_torch.core.analytical import H100_SXM
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import Mesh, NamedSharding, rank_coords, use_mesh
+from repro_torch.kernels import _build
+from repro_torch.launch.analytic import cell_flops, cell_hbm_bytes
+from repro_torch.launch.inputs import make_lowering_spec
+from repro_torch.models import layers as L
+from repro_torch.obs import metrics
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+META = torch.device("meta")
+MESHES = {"single": ((16, 16), ("data", "model")),
+          "multi": ((2, 16, 16), ("pod", "data", "model"))}
+HBM_BYTES = H100_SXM.hbm_gib * 2**30  # 80 GB (decimal)
+POWER_LIMIT_W = 700  # the board power the data-sheet rates are given at
+DEFAULT_OUT = "artifacts/dryrun_torch"
+
+
+def ring_wire_bytes(kind: str, payload: float, ranks: int) -> float:
+    """The bytes one rank of a ``ranks``-rank ring puts on the wire for a
+    collective of ``payload`` bytes (the JAX module's cost model):
+    all-reduce ``2B(g-1)/g``, all-gather ``B(g-1)/g`` of its result."""
+    if ranks <= 1:
+        return 0.0
+    if kind == "all_reduce":
+        return 2.0 * payload * (ranks - 1) / ranks
+    if kind == "all_gather":
+        return payload * (ranks - 1) / ranks
+    raise ValueError(f"no wire model for {kind!r}")
+
+
+def shard_wire_reckoning(cfg, shape, tokens: int) -> dict:
+    """The bytes one rank of a ``("data", "model")`` mesh of ``shape``
+    receives by the trainer's parameter gathers and hands to its gradient
+    sums in one step of ``tokens`` (the global batch's), one microbatch,
+    from the shapes alone: each leaf's ``spec_for``, the compute dtype, one
+    gather a use (a block's leaves twice with remat, the forward's and the
+    recompute's; a tied embedding at each end), one sum a use in the
+    backward (the whole gradient all-reduced: gloo has no reduce-scatter),
+    and a leaf that no data axis splits summed whole by its ``copy_to``.
+    An MoE layer's ``ffn`` takes the expert-parallel path: its router
+    gathered whole in float32, its expert and dense leaves over the data
+    axes only (their ``model`` piece kept), and the tokens (compute dtype)
+    and gates (float32) entering the expert region summed over ``model``
+    in the backward. ``gather`` is what the ``dist.gather.bytes`` counter
+    reads, ``grad_sum`` what ``dist.grad_sum.bytes`` reads."""
+    from repro_torch.dist.sharding import _is_axes_leaf, spec_for
+    from repro_torch.models.lm import lm_axes, lm_meta
+
+    sizes = dict(zip(("data", "model"), shape))
+    mesh = type("Shape", (), {"axis_names": tuple(sizes), "shape": tuple(shape)})()
+    itemsize = 4 if cfg.compute_dtype == "float32" else 2
+    got = {"gather": 0, "grad_sum": 0}
+
+    def add(ax_tree, m_tree, n_fwd, n_bwd, expert=False):
+        for ax, t in zip(tree_flatten(ax_tree, is_leaf=_is_axes_leaf)[0],
+                         tree_flatten(m_tree)[0]):
+            spec = spec_for(ax, mesh, t.shape)
+            entries = [(e,) if isinstance(e, str) else tuple(e or ()) for e in spec]
+            width = 4 if expert and ax == ("fsdp", "experts") else itemsize  # router: f32
+            size = t.numel() * width // math.prod(sizes[a] for e in entries for a in e)
+            if sizes["data"] > 1 and not any("data" in e for e in entries):
+                got["grad_sum"] += n_bwd * size  # copy_to over the data axis
+            # One gather a sharded dim, in dim order (``model`` kept on the
+            # expert path); the backward of each sums over its data axes the
+            # gradient of its output, the later gathers' narrowing undone.
+            for e in entries:
+                gathered = [a for a in e if not (expert and a == "model" and ax != (
+                    "fsdp", "experts"))]
+                count = math.prod(sizes[a] for a in gathered)
+                if count == 1:
+                    continue
+                got["gather"] += n_fwd * size * (count - 1)
+                size *= count
+                if "data" in gathered and sizes["data"] > 1:
+                    got["grad_sum"] += n_bwd * size
+
+    axes, meta = lm_axes(cfg), lm_meta(cfg)
+    ends = 2 if cfg.tied_embeddings else 1
+    add(axes["embed"], meta["embed"], ends, ends)
+    add(axes["final_norm"], meta["final_norm"], 1, 1)
+    if "head" in axes:
+        add(axes["head"], meta["head"], 1, 1)
+    n_fwd = 2 if cfg.remat else 1
+    for kind, ax, m in zip(cfg.layer_kinds, axes["blocks"], meta["blocks"]):
+        moe = bool(cfg.n_experts) and kind != "rwkv6"
+        add({k: v for k, v in ax.items() if not (moe and k == "ffn")},
+            {k: v for k, v in m.items() if not (moe and k == "ffn")}, n_fwd, 1)
+        if moe:
+            add(ax["ffn"], m["ffn"], n_fwd, 1, expert=True)
+            if sizes["model"] > 1:
+                t_loc = tokens // sizes["data"]
+                got["grad_sum"] += t_loc * cfg.d_model * itemsize + t_loc * cfg.top_k * 4
+    return got
+
+
+# -- counters ------------------------------------------------------------------------
+
+# Ops that move no bytes: allocations without a write (views are told apart
+# by their schema, ``OpOverload.is_view``).
+_NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+               "detach", "alias", "lift_fresh", "_local_scalar_dense"}
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _op_tensors(xs, found: list) -> list:
+    """The tensors among an op's arguments or results (tensors, and lists
+    and tuples of them): a flat scan, cheaper than a tree walk on every op."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            found.append(x)
+        elif isinstance(x, (list, tuple)):
+            _op_tensors(x, found)
+    return found
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class _StepCounter(TorchDispatchMode):
+    """Live bytes by category with their peak, and each op's traffic.
+
+    A storage is counted from the op that creates it until it is freed (a
+    weak reference's callback). Arguments are registered up front under
+    their own categories; a new storage is an ``activations`` one when its
+    op reads a tensor that requires grad with grad mode on, else a
+    ``temporaries`` one; :meth:`relabel` moves a storage to another
+    category (the gradients, when ``torch.autograd.grad`` returns them)."""
+
+    def __init__(self):
+        super().__init__()
+        self.live: dict[str, int] = {}
+        self.peak: dict[str, int] = {}
+        self.peak_total = 0
+        self.traffic = 0
+        self._refs: dict[int, tuple] = {}
+
+    def track(self, t: torch.Tensor, category: str) -> None:
+        st = t.untyped_storage()
+        if id(st) in self._refs:
+            return
+        n = st.nbytes()
+        key = id(st)
+
+        def freed(_ref, key=key):
+            _, cat, nb = self._refs.pop(key)
+            self.live[cat] -= nb
+
+        self._refs[key] = (weakref.ref(st, freed), category, n)
+        self.live[category] = self.live.get(category, 0) + n
+        self._update_peak()
+
+    def relabel(self, t: torch.Tensor, category: str) -> None:
+        key = id(t.untyped_storage())
+        if key not in self._refs:
+            return
+        ref, old, n = self._refs[key]
+        self.live[old] -= n
+        self.live[category] = self.live.get(category, 0) + n
+        self._refs[key] = (ref, category, n)
+
+    def _update_peak(self) -> None:
+        total = sum(self.live.values())
+        if total > self.peak_total:
+            self.peak_total = total
+            self.peak = dict(self.live)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.namespace == "c10d":
+            return out
+        ins = _op_tensors(args, _op_tensors((kwargs or {}).values(), []))
+        outs = _op_tensors(out if isinstance(out, (list, tuple)) else (out,), [])
+        if not func.is_view and func._opname not in _NO_TRAFFIC:
+            self.traffic += sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+        cat = ("activations" if torch.is_grad_enabled() and any(t.requires_grad for t in ins)
+               else "temporaries")
+        for t in outs:
+            self.track(t, cat)
+        return out
+
+
+@contextmanager
+def _labelled_gradients(counter: _StepCounter):
+    """``torch.autograd.grad`` relabels what it returns as ``gradients``."""
+    grad = torch.autograd.grad
+
+    def labelled(*args, **kwargs):
+        out = grad(*args, **kwargs)
+        for g in out:
+            if isinstance(g, torch.Tensor):
+                counter.relabel(g, "gradients")
+        return out
+
+    torch.autograd.grad = labelled
+    try:
+        yield
+    finally:
+        torch.autograd.grad = grad
+
+
+@contextmanager
+def fake_group(world: int, rank: int):
+    """A ``"fake"`` process group of ``world`` ranks as rank ``rank``, torn
+    down on exit. Raises if a group is already initialised: the caller's is
+    never replaced."""
+    if dist.is_initialized():
+        raise RuntimeError("the dry run emulates its rank in a process group of its own; "
+                           "one is already initialised in this process")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_of(mesh_kind: str | None, mesh_shape) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """``(shape, axes)``: the production mesh of ``mesh_kind``, or
+    ``mesh_shape`` over the axes of its length."""
+    if mesh_shape is None:
+        return MESHES[mesh_kind]
+    mesh_shape = tuple(int(n) for n in mesh_shape)
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(len(mesh_shape))
+    if axes is None:
+        raise ValueError(f"mesh shape {mesh_shape}: want (data, model) or (pod, data, model)")
+    return mesh_shape, axes
+
+
+def _pieces(tree, shardings):
+    """The rank's pieces of a tree of whole meta tensors."""
+    leaves, treedef = tree_flatten(tree)
+    shs = tree_flatten(shardings, is_leaf=lambda x: isinstance(x, NamedSharding))[0]
+    return tree_unflatten(treedef, [s.piece(t) for t, s in zip(leaves, shs)])
+
+
+def _rank_step(cfg, shape, mesh: Mesh):
+    """``(spec, args, labels, ambient mesh or None, note)``: the cell's step,
+    the arguments this rank hands it with a category for each, the mesh to
+    install around it and what the serving path leaves out."""
+    if shape.kind == "train":
+        spec = make_lowering_spec(cfg, shape, mesh)
+        params, state = (_pieces(a, s) for a, s in zip(spec.args[:2], spec.in_shardings[:2]))
+        args = (params, state, spec.args[2])
+        return spec, args, ("parameters", "optimizer_state", "batch"), None, None
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    dp = math.prod(sizes[a] for a in sharding.data_axes(mesh))
+    rows = shape.global_batch // dp if shape.global_batch % dp == 0 else shape.global_batch
+    spec = make_lowering_spec(cfg, dataclasses.replace(shape, global_batch=rows), mesh)
+    spec.meta["global_batch"] = shape.global_batch
+    spec.meta["rank_rows"] = rows
+    params = spec.args[0]
+    ambient = None
+    if cfg.n_experts and sizes.get("model", 1) > 1:
+        ambient = mesh
+        for kind, blk in zip(cfg.layer_kinds, params["blocks"]):
+            if kind != "rwkv6":
+                blk["ffn"] = L.shard_moe_params(cfg, blk["ffn"], mesh)
+    labels = ("parameters", "batch", "cache") + ("batch",) * (len(spec.args) - 3)
+    if shape.kind == "decode":
+        labels = ("parameters", "batch", "cache", None)
+    note = ("serving with whole weights on every rank (the port has no tensor-parallel "
+            "serving): the rank's rows of the batch and of the cache"
+            + ("; the experts split over model (expert-parallel)" if ambient else ""))
+    return spec, (params, *spec.args[1:]), labels, ambient, note
+
+
+def _storages_bytes(tensors) -> int:
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[id(st)] = st.nbytes()
+    return sum(seen.values())
+
+
+def _roofline(cfg, flops: float, nbytes: float, wire: float) -> dict:
+    peak = H100_SXM.peak_flops_bf16 if cfg.compute_dtype == "bfloat16" else H100_SXM.peak_flops_f32
+    terms = {"compute": flops / peak, "memory": nbytes / H100_SXM.hbm_bw,
+             "collective": wire / H100_SXM.ici_bw}
+    return {"compute_s": terms["compute"], "memory_s": terms["memory"],
+            "collective_s": terms["collective"], "dominant": max(terms, key=terms.get)}
+
+
+def trace_step(cfg, shape, mesh_shape, *, rank: int = 0) -> dict:
+    """The dry run of ``cfg``'s step on ``shape`` for rank ``rank`` of a mesh
+    of ``mesh_shape`` (``(data, model)`` or ``(pod, data, model)``): the
+    JSON blocks of :func:`run_cell`, without ``cell``, and nothing written."""
+    mesh_shape, axes = _mesh_of(None, mesh_shape)
+    n_dev = math.prod(mesh_shape)
+    with fake_group(n_dev, rank):
+        mesh = Mesh(axes, mesh_shape, rank_coords(rank, mesh_shape), META, "nccl",
+                    dist.group.WORLD)
+        spec, args, labels, ambient, note = _rank_step(cfg, shape, mesh)
+        counter = _StepCounter()
+        arg_bytes = {}
+        for arg, label in zip(args, labels):
+            if label is None:
+                continue
+            ts = _tensors(arg)
+            arg_bytes[label] = arg_bytes.get(label, 0) + _storages_bytes(ts)
+            for t in ts:
+                counter.track(t, label)
+        _build.META_LAUNCHES.clear()
+        flops = FlopCounterMode(display=False)
+        t0 = time.perf_counter()
+        with metrics.using() as reg, sharding.tally_collectives() as tally, flops, counter, \
+                _labelled_gradients(counter), (use_mesh(ambient) if ambient else nullcontext()):
+            out = spec.fn(*args)
+        t_trace = time.perf_counter() - t0
+        kernels = {k: dict(v) for k, v in _build.META_LAUNCHES.items()}
+        outs = _tensors(out)
+        arg_ids = {id(t.untyped_storage()) for a in args for t in _tensors(a)}
+        out_bytes = _storages_bytes(outs)
+        aliased = _storages_bytes([t for t in outs if id(t.untyped_storage()) in arg_ids])
+        peak, peak_by = counter.peak_total, counter.peak
+        counters = {k: v for k, v in reg.snapshot()["counters"].items() if k.startswith("dist.")}
+        del out, outs, args
+
+    coll: dict[str, dict] = {}
+    for kind, payload, ranks in tally:
+        row = coll.setdefault(kind, {"calls": 0, "payload_bytes": 0, "wire_bytes": 0.0})
+        row["calls"] += 1
+        row["payload_bytes"] += payload
+        row["wire_bytes"] += ring_wire_bytes(kind, payload, ranks)
+    wire = sum(r["wire_bytes"] for r in coll.values())
+    k_flops = sum(k["flops"] for k in kernels.values())
+    k_bytes = sum(k["bytes"] for k in kernels.values())
+    flops_dev = flops.get_total_flops() + k_flops
+    bytes_dev = counter.traffic + k_bytes
+    ana = cell_flops(cfg, shape)
+    counted_total = flops_dev * n_dev
+    roof = _roofline(cfg, flops_dev, bytes_dev, wire)
+    roof.update(model_flops=ana["reference_nd"], counted_flops_total=counted_total,
+                useful_flops_ratio=ana["reference_nd"] / counted_total if counted_total else None)
+    meta = dict(spec.meta, rank=rank, coords=list(rank_coords(rank, mesh_shape)),
+                mesh_axes=list(axes), n_devices=n_dev, depth=cfg.n_layers)
+    return {
+        "meta": meta,
+        "status": "ok",
+        "note": note,
+        "device": {"name": "NVIDIA H100 SXM (data sheet)", "power_limit_w": POWER_LIMIT_W,
+                   "peak_flops_bf16": H100_SXM.peak_flops_bf16,
+                   "peak_flops_f32": H100_SXM.peak_flops_f32,
+                   "hbm_bytes_per_s": H100_SXM.hbm_bw, "link_bytes_per_s": H100_SXM.ici_bw,
+                   "hbm_bytes": HBM_BYTES},
+        "timings_s": {"trace": t_trace},
+        "memory_analysis": {
+            "argument_bytes": sum(arg_bytes.values()),
+            "argument_bytes_by_kind": arg_bytes,
+            "output_bytes": out_bytes,
+            "aliased_output_bytes": aliased,
+            "peak_bytes": peak,
+            "peak_bytes_by_category": peak_by,
+            "fits": peak <= HBM_BYTES,
+        },
+        "cost_analysis": {"flops_per_device": flops_dev, "bytes_per_device": bytes_dev,
+                          "counted_flops": flops.get_total_flops(),
+                          "counted_bytes": counter.traffic},
+        "kernels": kernels,
+        "collectives": {"by_kind": coll, "wire_bytes_per_device": wire, "counters": counters},
+        "analytic": {"flops_global": ana["analytic"],
+                     "hbm_bytes_global": cell_hbm_bytes(cfg, shape),
+                     "flops_per_device": ana["analytic"] / n_dev,
+                     "counted_over_analytic": (counted_total / ana["analytic"]
+                                               if ana["analytic"] else None)},
+        "roofline": roof,
+    }
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path, *, overrides=None,
+             tag_suffix: str = "", mesh_shape=None, rank: int = 0) -> dict:
+    """Traces one cell for rank ``rank`` of the ``mesh_kind`` production mesh
+    (``mesh_shape``, e.g. ``(2, 4)`` over ``("data", "model")``, in its
+    place), writes its JSON under ``out_dir`` and returns it. ``overrides``
+    replace config fields (``n_layers`` to cut depth)."""
+    cfg = get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    shape = get_shape(shape_name)
+    tag = f"{arch}__{shape_name}__{mesh_kind}{tag_suffix}"
+    result = {"cell": tag, **trace_step(cfg, shape, _mesh_of(mesh_kind, mesh_shape)[0],
+                                        rank=rank)}
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"{tag}.json").write_text(json.dumps(result, indent=1))
+    return result
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--skip-existing", action="store_true")
+    args = ap.parse_args()
+    if not args.all and not (args.arch and args.shape):
+        ap.error("give --arch and --shape, or --all")
+
+    out_dir = Path(args.out)
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    cells = all_cells() if args.all else [(args.arch, args.shape)]
+
+    failures = 0
+    for arch, shape in cells:
+        for mk in meshes:
+            tag = f"{arch}__{shape}__{mk}"
+            path = out_dir / f"{tag}.json"
+            if args.skip_existing and path.exists():
+                try:
+                    if json.loads(path.read_text()).get("status") == "ok":
+                        print(f"[dryrun] {tag}: exists, skipping", flush=True)
+                        continue
+                except (OSError, ValueError):
+                    pass
+            try:
+                r = run_cell(arch, shape, mk, out_dir)
+                rf, mem = r["roofline"], r["memory_analysis"]
+                print(
+                    f"[dryrun] {tag}: OK trace={r['timings_s']['trace']:.1f}s "
+                    f"compute={rf['compute_s']:.3e}s memory={rf['memory_s']:.3e}s "
+                    f"coll={rf['collective_s']:.3e}s dom={rf['dominant']} "
+                    f"useful={rf['useful_flops_ratio']:.2f} "
+                    f"peak={mem['peak_bytes'] / 1e9:.2f}GB fits={mem['fits']}",
+                    flush=True,
+                )
+            except Exception as e:
+                failures += 1
+                err = {"cell": tag, "status": "error", "error": repr(e),
+                       "traceback": traceback.format_exc()}
+                out_dir.mkdir(parents=True, exist_ok=True)
+                path.write_text(json.dumps(err, indent=1))
+                print(f"[dryrun] {tag}: FAIL {e!r}", flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,7 +8,8 @@ allocated. For each cell:
   * :func:`input_specs` — the model inputs of the cell (tokens, or frames
     ``(B, S, D)`` for the audio frontend; labels; ``memory`` ``(B, M, D)``
     for the vision one; the serving cache in the port's per-layer layout;
-    the decode token and position), the JAX package's shapes and dtypes;
+    the decode token), the JAX package's shapes and dtypes, and the decode
+    position as the Python int ``lm_decode`` takes (the cell's last);
   * :func:`microbatches_for` — the gradient-accumulation factor that keeps
     the saved activations under a per-device budget (the JAX rule);
   * :func:`make_lowering_spec` — the step to run (the port's
@@ -32,7 +33,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.dist.sharding import Mesh, NamedSharding, sharding_for, tree_shardings
+from repro_torch.dist.sharding import Mesh, sharding_for, tree_shardings
 from repro_torch.models.lm import (
     build_cache,
     cache_axes,
@@ -183,12 +184,13 @@ def make_lowering_spec(cfg: ModelConfig, shape: ShapeConfig, mesh,
         def serve_step(params, token, cache, pos):
             return lm_decode(cfg, params, token, cache, pos)
 
+        # ``pos`` is the Python int ``lm_decode`` takes: the cell's last
+        # position (the JAX spec's is a traced int32 scalar).
         return LoweringSpec(
             name=f"{cfg.name}:{shape.name}:serve_step",
             fn=serve_step,
-            args=(params, _meta((b,), torch.int32), cache, _meta((), torch.int32)),
-            in_shardings=(p_sh, sharding_for(("batch",), mesh, (b,)), c_sh,
-                          NamedSharding(mesh, ())),
+            args=(params, _meta((b,), torch.int32), cache, shape.seq_len - 1),
+            in_shardings=(p_sh, sharding_for(("batch",), mesh, (b,)), c_sh, None),
             out_shardings=(logits_sh, c_sh),
             meta=meta,
         )
@@ -219,6 +221,6 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
         return {
             "token": _meta((b,), torch.int32),
             "cache": build_cache(cfg, b, s, device=META),
-            "pos": _meta((), torch.int32),
+            "pos": s - 1,  # the Python int lm_decode takes
         }
     raise ValueError(shape.kind)

@@ -638,7 +638,12 @@ def _aux_loss(probs: Tensor, idx: Tensor, e: int, mesh=None) -> Tensor:
     from repro_torch.dist.sharding import data_axes_of, mean_over
 
     me = probs.mean(0)
-    ce = torch.bincount(idx.reshape(-1), minlength=e).to(torch.float32) / idx.numel()
+    # A scatter of ones, not ``bincount``: the same counts, and it runs on
+    # meta tensors (the dry run), which ``bincount`` does not.
+    flat = idx.reshape(-1)
+    counts = torch.zeros(e, dtype=flat.dtype, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    ce = counts.to(torch.float32) / idx.numel()
     dp = data_axes_of(mesh) if mesh is not None else ()
     if dp:
         me, ce = mean_over(me, mesh, dp), mean_over(ce, mesh, dp)
@@ -839,17 +844,23 @@ def apply_moe_sharded(cfg: ModelConfig, p, x: Tensor) -> tuple[Tensor, Tensor]:
     w = {n: _gather(p[n], specs[n], mesh, cdt) for n in ("w1", "w3", "w2")}
     y = _combine(_experts(xe, w, cdt), buf_tok, buf_gate, t_loc)
 
+    dense = None
     if cfg.moe_dense_residual:
-        # TP dense branch: the mlp dim stays split over ``model``; the sum
-        # that combines the experts combines the dense partials. (An mlp
-        # dim ``model`` does not split would be summed mp times.)
-        if "model" not in specs["dense"]["w2"]:
-            raise NotImplementedError(
-                f"d_ff {cfg.d_ff} does not split over a model axis of {mp}")
+        # TP dense branch: where ``model`` splits the mlp dim, the sum that
+        # combines the experts combines the dense partials. Where it does
+        # not, every model rank holds the whole branch: it is computed
+        # whole, outside that sum (the JAX shard_map sums the replicated
+        # outputs there, mp times the branch).
+        split = "model" in specs["dense"]["w2"]
         dw = {n: _gather(p["dense"][n], specs["dense"][n], mesh, cdt)
               for n in ("w1", "w3", "w2")}
-        xc = xt_in.to(cdt)
+        xc = (xt_in if split else xt).to(cdt)
         hd = F.silu(xc @ dw["w1"]) * (xc @ dw["w3"])
-        y = y + (hd @ dw["w2"]).to(torch.float32)
+        if split:
+            y = y + (hd @ dw["w2"]).to(torch.float32)
+        else:
+            dense = hd @ dw["w2"]
     y = sum_over(y.to(cdt), mesh, ("model",))
+    if dense is not None:
+        y = y + dense
     return y.reshape(b_, s, d), aux

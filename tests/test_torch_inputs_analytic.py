@@ -125,6 +125,10 @@ def test_input_specs_equal_jax(arch, shape_name):
     for key in got:
         if key == "cache":
             assert _jax_cache_layout(cfg, got[key]) == _jax_sd(want[key])
+        elif key == "pos":
+            # The port's decode takes the position as a Python int (the
+            # cell's last); JAX traces an int32 scalar.
+            assert got[key] == shape.seq_len - 1 and _sd(want[key]) == ((), "int32")
         else:
             assert _sd(got[key]) == _sd(want[key]), key
     if cfg.frontend == "audio" and shape.kind == "train":
@@ -152,6 +156,9 @@ def test_lowering_spec_places_every_meta_argument(arch, shape_name):
     assert spec.meta["params"] == cfg.param_count()
     assert spec.meta["mesh"] == {"data": 16, "model": 16}
     for arg, sh in zip(spec.args, spec.in_shardings):
+        if isinstance(arg, int):  # decode's position, a Python int
+            assert shape.kind == "decode" and arg == shape.seq_len - 1 and sh is None
+            continue
         leaves, treedef = tree_flatten(arg)
         shs, sh_def = tree_flatten(sh, is_leaf=lambda x: isinstance(x, NamedSharding))
         assert treedef == sh_def and len(leaves) == len(shs)
