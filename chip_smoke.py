@@ -22,8 +22,10 @@ starcoder2-3b's 4096-token blocked local prefill), and the MoE LMs
 at 1, at published widths; the expert-parallel MoE on gloo ranks), the
 media LMs (llama-3.2-vision served at one superblock of published widths,
 with and without media; hubert-xlarge encoded and trained at published
-widths and depth), and the LM trainer sharded over gloo ranks (FSDP
-storage, data-parallel compute) — and holds
+widths and depth), glm4-9b and nemotron-4-15b served whole at published
+widths and depth, tensor-parallel serving over 4 gloo ranks (heads, MLP,
+vocabulary and the decode cache split over ``model``) and the LM trainer
+sharded over gloo ranks (FSDP storage, data-parallel compute) — and holds
 every hand-written kernel against its plain PyTorch version on the card. Each phase prints one JSON line (``t_s``: the
 script's seconds so far when it was printed):
 
@@ -271,6 +273,42 @@ script's seconds so far when it was printed):
               a step), and the round alone (posting, then waiting; median
               of 20 a rank) on the same 4x2 plan in 8 ranks of its own: not
               a multi-GPU figure
+  release     the stencil, forecast and driver phases' tensors still named
+              in ``main`` dropped (their names bound to None): what the
+              garbage collector reaches on the card before and after
+              (``live_cuda_tensors``)
+  serve_full  ``glm4-9b`` and ``nemotron-4-15b`` served whole on the card at
+              published widths and depth (9.4 G and 15.6 G float32
+              parameters): at the published config a 512-token prefill and 8
+              decode tokens, twice (the first warms up), the prefill's and
+              the decode steps' peaks less the bytes held before the model
+              was built against the dry run's one-card predictions within
+              0.85-1.15, seconds per prefill and per decode token beside the
+              analytic bound; then the same at float32 compute, the
+              serve_tp phase's reference logits
+  serve_tp    tensor-parallel serving (``lm_prefill`` / ``lm_decode`` under
+              ``use_mesh``) on 4 gloo ranks time-sharing the card (TF32
+              off), a (1, 4) ``("data", "model")`` mesh, at float32 compute:
+              ``recurrentgemma-2b`` (K6 on 640 channels a rank, the ring
+              cache split, 10 heads replicated), ``qwen1.5-0.5b``,
+              ``glm4-9b`` (2 kv heads replicated), ``nemotron-4-15b``,
+              ``llama-3.2-vision-90b`` at 5 of 100 layers with its media
+              path (the cross cache's 1024 media tokens split) and
+              ``rwkv6-3b`` (K7, the time mix whole on every rank), each at
+              its published widths and (but llama-vision) depth: each rank
+              draws its pieces from the seed (one rank at a time), a
+              512-token prefill and 8 decode tokens into a cache of 520
+              positions; the logits within 1e-3 of max|.| of the one-process
+              logits at the same depth (computed first, kept on the host),
+              each rank's prefill peak against the dry run's prediction for
+              that rank on (1, 4) within 0.85-1.15, a decode step's
+              collectives equal to ``serve_wire_reckoning`` row for row, K6
+              bit-equal and K7 within 1e-5 * max|y| + 1e-6 of their plain
+              versions at every launch, exactly one K6 an RG-LRU layer and
+              one K7 an RWKV-6 layer a rank (summed into the kernels line),
+              seconds a prefill and a decode token a rank. Host times are
+              ranks sharing one H100 through host memory: not a multi-GPU
+              figure; NCCL is written and unmeasured (one card)
   train       LM training with K6 and K7 differentiable: (a) K6 under
               autograd at (4, 256, 2560) and (8, 4096, 2560): the forward
               bit-equal to the plain version, the backward (K6 on reversed,
@@ -506,6 +544,16 @@ SHARDED_NORM2_REL = 5e-5  # the second grad norm, ranks against one process (sam
 SHARDED_FULL_LOSS = 1e-2  # bf16 compute: 4 ranks' rows against one device's whole batch
 SHARDED_TIMEOUT = 900  # seconds for each spawn, start-up included
 L2_BYTES = 50 * 2**20  # the H100's L2 (data sheet)
+SERVE_TP_RANKS = 4  # the serve_tp phase's gloo ranks, time-sharing the one card
+SERVE_TP_MESH = (1, SERVE_TP_RANKS)  # ("data", "model"): tensor-parallel over 4
+SERVE_FULL_ARCHS = ("glm4-9b", "nemotron-4-15b")  # served whole at published depth too
+SERVE_TP_ARCHS = ("recurrentgemma-2b", "qwen1.5-0.5b") + SERVE_FULL_ARCHS + (VISION_ARCH,
+                                                                               "rwkv6-3b")
+SERVE_TP_LAYERS = {VISION_ARCH: 5}  # one superblock with its media path; the rest whole
+SERVE_TP_PROMPT = 512
+SERVE_TP_STEPS = 8
+SERVE_TP_LEN = SERVE_TP_PROMPT + SERVE_TP_STEPS  # cache positions: 130 slots a rank
+SERVE_TP_TIMEOUT = 900  # seconds for the serve_tp spawn, start-up included
 DRYRUN_BAND = (0.85, 1.15)  # predicted over measured peak, each full-width step
 DRYRUN_TIMEOUT = 300  # seconds for the dry run's children, start-up included
 DRYRUN_WORKERS = 4  # spawned children tracing the steps side by side (the card idles)
@@ -1114,18 +1162,20 @@ def sharded_batches(cfg, seq, n, seed):
 def _dryrun_job(job):
     """One job of the dryrun phase, in a spawned child: ``trace_step`` of
     ``(arch, layers, kind, seq, batch)`` (``layers`` None: the published
-    depth) on a (1, 1) mesh of meta tensors; returns its peak, argument
-    bytes, peak categories and trace seconds. Touches no card."""
+    depth) on a (1, 1) mesh of meta tensors, or of ``(arch, layers, kind,
+    seq, batch, overrides, mesh, rank)`` (config fields replaced, rank
+    ``rank`` of ``mesh``); returns its peak, argument bytes, peak
+    categories and trace seconds. Touches no card."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.dryrun import trace_step
 
-    arch, layers, kind, seq, batch = job
-    cfg = get_config(arch)
+    arch, layers, kind, seq, batch, over, mesh, rank = tuple(job) + ({}, (1, 1), 0)[len(job) - 5:]
+    cfg = dataclasses.replace(get_config(arch), **over)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    r = trace_step(cfg, ShapeConfig(kind, seq, batch, kind), (1, 1))
+    r = trace_step(cfg, ShapeConfig(kind, seq, batch, kind), mesh, rank=rank)
     mem = r["memory_analysis"]
     return {"peak_bytes": mem["peak_bytes"], "argument_bytes": mem["argument_bytes"],
             "peak_bytes_by_category": mem["peak_bytes_by_category"],
@@ -1260,6 +1310,373 @@ def _train_sharded_rank_body(rank, world, store, job):
         return out
     finally:
         dist.destroy_process_group()
+
+
+def serve_tp_cfg(arch):
+    """The config ``arch`` is served with in the serve_tp phase: published
+    widths, float32 compute (both paths then differ only in summation
+    order), depth cut by SERVE_TP_LAYERS."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    if arch in SERVE_TP_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_TP_LAYERS[arch])
+    return cfg
+
+
+def serve_tp_inputs(cfg, dev):
+    """``(tokens (1, SERVE_TP_LEN), memory (1, M, D) or None)`` on ``dev``,
+    from a numpy seed: the prompt, then the decode tokens, teacher-forced."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, SERVE_TP_LEN))).to(dev)
+    mem = None
+    if cfg.frontend == "vision":
+        mem = torch.from_numpy(rng.standard_normal((1, cfg.num_media_tokens, cfg.d_model)).astype(
+            np.float32)).to(dev)
+    return toks, mem
+
+
+def serve_tp_run(cfg, params, cache, toks, mem, sync, tally=None, after_prefill=None):
+    """One prefill of SERVE_TP_PROMPT tokens and SERVE_TP_STEPS decode
+    tokens (under the caller's mesh, if any): ``(logits (steps + 1, V) on
+    the card, prefill seconds, [seconds a decode token])``; the first
+    decode step's collectives into ``tally`` (a list) when given;
+    ``after_prefill()`` called between the prefill and the first step."""
+    import torch
+
+    from repro_torch.dist.sharding import tally_collectives
+    from repro_torch.models import lm_decode, lm_prefill
+
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = lm_prefill(cfg, params, toks[:, :SERVE_TP_PROMPT], cache, memory=mem)
+    sync()
+    prefill_s, decode_s, out = time.perf_counter() - t0, [], [logits]
+    if after_prefill is not None:
+        after_prefill()
+    for t in range(SERVE_TP_PROMPT, SERVE_TP_LEN):
+        t0 = time.perf_counter()
+        with tally_collectives() as rows:
+            logits, cache = lm_decode(cfg, params, toks[:, t], cache, t, memory=mem)
+        sync()
+        decode_s.append(time.perf_counter() - t0)
+        if tally is not None and t == SERVE_TP_PROMPT:
+            tally.extend(rows)
+        out.append(logits)
+    return torch.cat(out), prefill_s, decode_s
+
+
+def _serve_tp_rank_body(rank, world, store, job):
+    """Tensor-parallel serving on ``world`` gloo ranks time-sharing the one
+    card (TF32 off), a ``(1, world)`` ``("data", "model")`` mesh, or on the
+    CPU when ``job["device"]`` is ``"cpu"`` (a rehearsal). For each arch of
+    ``job["archs"]`` (:func:`serve_tp_cfg`; ``job["cfgs"]`` may replace
+    them): the rank's pieces of the weights ``build_lm`` draws from SEED
+    (``build_lm_pieces``, one rank at a time, so one whole leaf at most is
+    transient on the card), llama-vision's gates at MEDIA_GATE, its pieces
+    of a fresh cache of SERVE_TP_LEN positions; then the counted path
+    (:func:`serve_tp_run` under ``use_mesh``), every K6 and K7 launch held
+    against its plain version on the same inputs, the first decode step's
+    collectives tallied, the decode steps timed; then the prefill again,
+    timed, unchecked, its peak taken. Returns per arch: the logits (rank 0), launches,
+    the kernels' errors, the pieces' bytes, the held bytes and the
+    prefill's peak, the tally and the seconds."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    cuda = job["device"] is None
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru import rglru_seq_ref
+    from repro_torch.kernels.wkv6 import wkv6_plain
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import recurrent
+    from repro_torch.models.lm import (build_cache, build_lm_pieces, cache_shardings, lm_prefill,
+                                       shard_tree)
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda" if cuda else "cpu")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def allocated():
+        return torch.cuda.memory_allocated() if cuda else 0
+
+    mesh = make_mesh((1, world), ("data", "model"), backend="gloo", device=job["device"])
+    scan, wkv = recurrent.rglru_scan, recurrent.wkv6
+    errs = {}
+
+    def checked_scan(a, b, h0=None):  # K6 against its plain version, bit for bit
+        out = scan(a, b, h0)
+        want = rglru_seq_ref(a, b, torch.zeros((a.shape[0], a.shape[2]), device=a.device)
+                             if h0 is None else h0)
+        err = max((o - w).abs().max().item() for o, w in zip(out, want))
+        errs["rglru_scan_cuda"] = max(errs.get("rglru_scan_cuda", 0.0), err)
+        return out
+
+    def checked_wkv(r, k, v, w, u, state0=None, *, chunk=64):  # K7, to K7_TOL of max|y|
+        out = wkv(r, k, v, w, u, state0, chunk=chunk)
+        want = wkv6_plain(r, k, v, w, u, state0, chunk=chunk)
+        err = max((o - p).abs().max().item() for o, p in zip(out, want))
+        rel = err / (K7_TOL * want[0].abs().max().item() + 1e-6)
+        worst = errs.get("wkv6_cuda", (0.0, 0.0))
+        errs["wkv6_cuda"] = (max(worst[0], err), max(worst[1], rel))
+        return out
+
+    try:
+        found = {}
+        for arch in job["archs"]:
+            cfg = job.get("cfgs", {}).get(arch) or serve_tp_cfg(arch)
+            sync()
+            held = allocated()
+            toks, mem = serve_tp_inputs(cfg, dev)
+            for turn in range(world):
+                if turn == rank:
+                    params = build_lm_pieces(cfg, mesh, SEED, device=dev)
+                    if cfg.frontend == "vision":
+                        set_gates(params["blocks"], MEDIA_GATE)
+                    sync()
+                    if cuda:
+                        torch.cuda.empty_cache()
+                dist.barrier()
+            whole = build_cache(cfg, 1, SERVE_TP_LEN, device=dev)
+            c_sh = cache_shardings(cfg, mesh, whole)
+            cache = shard_tree(whole, c_sh)
+            del whole
+            out = {"piece_gb": sum(t.numel() * t.element_size()
+                                   for t in tree_leaves(params)) / 1e9,
+                   "cache_gb": sum(t.numel() * t.element_size()
+                                   for t in tree_leaves(cache)) / 1e9}
+            errs.clear()
+            tally = []
+            _build.reset_launches()
+            recurrent.rglru_scan, recurrent.wkv6 = checked_scan, checked_wkv
+            try:
+                with use_mesh(mesh), torch.no_grad():
+                    logits, _, out["decode_s"] = serve_tp_run(cfg, params, cache, toks, mem,
+                                                              sync, tally)
+            finally:
+                recurrent.rglru_scan, recurrent.wkv6 = scan, wkv
+            sync()
+            out.update(launches=dict(_build.LAUNCHES), kernel_errs=dict(errs), tally=tally,
+                       finite=bool(torch.isfinite(logits).all()))
+            out["logits"] = logits.float().cpu().numpy() if rank == 0 else None
+            del logits
+            # The prefill again on a fresh cache, timed and unchecked: its
+            # peak less the bytes held before the pieces were drawn (the dry
+            # run's arguments and step). The decode steps above call no
+            # checked kernel: their seconds stand.
+            cache = shard_tree(build_cache(cfg, 1, SERVE_TP_LEN, device=dev), c_sh)
+            dist.barrier()
+            sync()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with use_mesh(mesh), torch.no_grad():
+                lm_prefill(cfg, params, toks[:, :SERVE_TP_PROMPT], cache, memory=mem)
+            sync()
+            out["prefill_s"] = time.perf_counter() - t0
+            out["peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9 if cuda else None
+            out["held_gb"] = held / 1e9
+            found[arch] = out
+            del params, cache, toks, mem
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return found
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_full_phase(dev, smi, predicted) -> tuple[list, dict]:
+    """glm4-9b and nemotron-4-15b served whole on the card at published
+    widths and depth: at the published config (bf16 compute) a prefill of
+    SERVE_TP_PROMPT tokens and SERVE_TP_STEPS decode tokens twice (the
+    first warms up), the prefill's and the decode steps' peaks less the
+    bytes held before the model was built against the dry run's (1, 1)
+    predictions (``predicted``: futures by ``(arch, kind)``), seconds per
+    prefill and per decode token beside the analytic bound; then the same
+    at float32 compute, whose logits (on the host) are the serve_tp
+    phase's reference. Returns ``(lines, {arch: logits})``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_cache, build_lm
+
+    lines, refs = [], {}
+    for arch in SERVE_FULL_ARCHS:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = build_lm(cfg, SEED, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        toks, _ = serve_tp_inputs(cfg, dev)
+        peaks = {}
+
+        def peak(kind):
+            peaks[kind] = torch.cuda.max_memory_allocated() - held
+            torch.cuda.reset_peak_memory_stats()
+
+        runs = []
+        for i in range(2):
+            cache = build_cache(cfg, 1, SERVE_TP_LEN, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            logits, prefill_s, decode_s = serve_tp_run(
+                cfg, model, cache, toks, None, torch.cuda.synchronize,
+                after_prefill=(lambda: peak("prefill")) if i == 0 else None)
+            if i == 0:
+                peak("decode")
+            check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+            runs.append({"prefill_s": prefill_s, "decode_s": decode_s})
+            del cache, logits
+        cfg32 = serve_tp_cfg(arch)
+        ref, ref_prefill_s, ref_decode_s = serve_tp_run(
+            cfg32, model, build_cache(cfg32, 1, SERVE_TP_LEN, device=dev), toks, None,
+            torch.cuda.synchronize)
+        check(bool(torch.isfinite(ref).all()), f"{arch}: non-finite float32 logits")
+        refs[arch] = ref.cpu().numpy()
+        line = {"phase": "serve_full", "arch": arch, "device": smi, "reduced": None,
+                "params_gb": sum(p.numel() * p.element_size()
+                                 for p in model.parameters()) / 1e9,
+                "build_s": build_s, "held_before_gb": held / 1e9,
+                "prompt": SERVE_TP_PROMPT, "decode_tokens": SERVE_TP_STEPS,
+                "cache_positions": SERVE_TP_LEN, "runs": runs,
+                "prefill_s": runs[1]["prefill_s"],
+                "decode_s_per_token": statistics.median(runs[1]["decode_s"]),
+                "float32": {"prefill_s": ref_prefill_s,
+                            "decode_s_per_token": statistics.median(ref_decode_s)},
+                "analytic_bound": {
+                    "prefill": analytic_bound(cfg, "prefill", SERVE_TP_PROMPT, 1),
+                    "decode": analytic_bound(cfg, "decode", SERVE_TP_LEN, 1)}}
+        for kind in ("prefill", "decode"):
+            pred = predicted[(arch, kind)].result(timeout=DRYRUN_TIMEOUT)
+            ratio = pred["peak_bytes"] / peaks[kind]
+            line[f"{kind}_peak"] = {"measured_gb": peaks[kind] / 1e9,
+                                    "predicted_gb": pred["peak_bytes"] / 1e9, "ratio": ratio}
+            check(DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1],
+                  f"serve_full {arch} {kind}: predicted {pred['peak_bytes']} B against "
+                  f"{peaks[kind]} B measured (band {DRYRUN_BAND})")
+        lines.append(line)
+        del model, ref, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    return lines, refs
+
+
+def serve_tp_phase(dev, smi, refs, predicted, run_ranks) -> tuple[list, dict]:
+    """Tensor-parallel serving on SERVE_TP_RANKS gloo ranks time-sharing the
+    card on SERVE_TP_MESH (:func:`_serve_tp_rank_body`) for every arch of
+    SERVE_TP_ARCHS, against the one-process logits at the same config and
+    depth (``refs``, from serve_full for its archs; the others computed
+    here first, on the card, and kept on the host before the ranks start):
+    the logits within SLICE_TOL of their largest, each rank's prefill peak
+    against the dry run's prediction for that rank on the mesh
+    (``predicted``: futures by ``(arch, rank)``) within DRYRUN_BAND, a
+    decode step's collectives equal to ``serve_wire_reckoning`` row for
+    row, K6 bit-equal and K7 within K7_TOL of their plain versions at every
+    launch, and the launches: exactly one K6 an RG-LRU layer and one K7 an
+    RWKV-6 layer a rank (the prefill; a decode step is plain tensor code).
+    Returns ``(lines, launches summed over the ranks and archs)`` with the
+    kernels' worst errors under ``"errors"``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import ring_wire_bytes, serve_wire_reckoning
+    from repro_torch.models import build_cache, build_lm
+
+    for arch in SERVE_TP_ARCHS:
+        if arch in refs:
+            continue
+        cfg = serve_tp_cfg(arch)
+        model = build_lm(cfg, SEED, device=dev)
+        if cfg.frontend == "vision":
+            set_gates(model.blocks, MEDIA_GATE)
+        toks, mem = serve_tp_inputs(cfg, dev)
+        ref, _, _ = serve_tp_run(cfg, model, build_cache(cfg, 1, SERVE_TP_LEN, device=dev),
+                                 toks, mem, torch.cuda.synchronize)
+        refs[arch] = ref.cpu().numpy()
+        del model, ref, toks, mem
+        gc.collect()
+        torch.cuda.empty_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(_serve_tp_rank_body, SERVE_TP_RANKS, ROOT / "build" / "repro_torch",
+                      {"device": None, "archs": SERVE_TP_ARCHS}, timeout=SERVE_TP_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    want = {"recurrentgemma-2b": {"rglru_scan_cuda": 18}, "rwkv6-3b": {"wkv6_cuda": 32}}
+    lines, total, errors = [], {}, {"rglru_scan_cuda": 0.0, "wkv6_cuda": 0.0}
+    for arch in SERVE_TP_ARCHS:
+        cfg = serve_tp_cfg(arch)
+        got = [r[arch] for r in ranks]
+        ref = refs[arch]
+        err = float(np.abs(got[0]["logits"] - ref).max())
+        rel = err / float(np.abs(ref).max())
+        check(got[0]["logits"].shape == ref.shape and all(g["finite"] for g in got)
+              and rel <= SLICE_TOL, f"serve_tp {arch}: logits {rel} of max off one process")
+        reckoning = sorted(serve_wire_reckoning(cfg, "decode", SERVE_TP_MESH, 1, 1,
+                                                SERVE_TP_LEN))
+        for r, g in enumerate(got):
+            check(g["launches"] == want.get(arch, {}),
+                  f"serve_tp {arch} rank {r}: launches {g['launches']}")
+            check(sorted(g["tally"]) == reckoning,
+                  f"serve_tp {arch} rank {r}: a decode step's collectives differ from "
+                  f"serve_wire_reckoning")
+            for name, n in g["launches"].items():
+                total[name] = total.get(name, 0) + n
+        k6 = max(g["kernel_errs"].get("rglru_scan_cuda", 0.0) for g in got)
+        k7 = [g["kernel_errs"]["wkv6_cuda"] for g in got if "wkv6_cuda" in g["kernel_errs"]]
+        check(k6 == 0.0, f"serve_tp {arch}: K6 {k6} off its plain version")
+        check(all(rel7 <= 1.0 for _, rel7 in k7), f"serve_tp {arch}: K7 past K7_TOL: {k7}")
+        errors["rglru_scan_cuda"] = max(errors["rglru_scan_cuda"], k6)
+        errors["wkv6_cuda"] = max([errors["wkv6_cuda"]] + [e for e, _ in k7])
+        per_rank = []
+        for r, g in enumerate(got):
+            pred = predicted[(arch, r)].result(timeout=DRYRUN_TIMEOUT)
+            ratio = pred["peak_bytes"] / (g["peak_gb"] * 1e9)
+            per_rank.append({"piece_gb": g["piece_gb"], "cache_gb": g["cache_gb"],
+                             "peak_gb": g["peak_gb"], "predicted_gb": pred["peak_bytes"] / 1e9,
+                             "ratio": ratio, "prefill_s": g["prefill_s"],
+                             "decode_s_per_token": statistics.median(g["decode_s"])})
+            check(DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1],
+                  f"serve_tp {arch} rank {r}: predicted {pred['peak_bytes']} B against "
+                  f"{g['peak_gb']} GB measured (band {DRYRUN_BAND})")
+        lines.append({
+            "phase": "serve_tp", "arch": arch, "device": smi, "mesh": list(SERVE_TP_MESH),
+            "reduced": ({"n_layers": [get_config(arch).n_layers, cfg.n_layers]}
+                        if arch in SERVE_TP_LAYERS else None),
+            "compute_dtype": cfg.compute_dtype, "prompt": SERVE_TP_PROMPT,
+            "decode_tokens": SERVE_TP_STEPS, "cache_positions": SERVE_TP_LEN,
+            "logits_max_abs_err": err, "logits_rel_err": rel,
+            "launches_per_rank": got[0]["launches"],
+            "kernel_errs": {"rglru_scan_cuda": k6, "wkv6_cuda": k7},
+            "decode_step_collectives": {
+                "calls": len(reckoning), "payload_bytes": sum(b for _, b, _ in reckoning),
+                "wire_bytes": sum(ring_wire_bytes(k, b, n) for k, b, n in reckoning),
+                "equal_to_serve_wire_reckoning": True},
+            "ranks": per_rank, "peak_gb_summed": sum(p["peak_gb"] for p in per_rank),
+            "note": "gloo ranks time-sharing one H100 through host memory: not a multi-GPU "
+                    "figure (NCCL refuses two ranks on one card)"})
+    lines[0]["spawn_s"] = spawn_s
+    return lines, {"launches": total, "errors": errors}
 
 
 def _split_step(run, sync) -> dict:
@@ -3292,6 +3709,45 @@ def main() -> int:
                                 "timed alone (median of 20 a rank) in ranks of its own"},
           "seconds": time.perf_counter() - t_phase})
 
+    # -- release: the stencil phases' tensors, before the LM serving phases -----------
+    # main's names still bind the stencil, forecast and driver phases' fields,
+    # ensembles and servers (PR 27 found 2.07 GB held by them before the
+    # trainers); none is read from here on.
+    held_before = live_cuda_tensors()
+    mag = sign = on_card = diag_card = on_host = diag_host = xf = one_q = oracle = psi = \
+        stencil = by_policy = final = diags = two = psi_q = final_q = ref_q = x3 = x1 = \
+        lowered = legs = ref1 = library_w = library_c = serve_members = servers = shared = \
+        coupled_members = coupled_srv = serving = singles = done = sched = clean = \
+        poisoned = drv_step = lc = single = xi = deep = small = pool = got = plain = ref = \
+        want = first = g = slices = long_paths = out = fit_out = tiles = windows = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "release", "before": held_before, "after": live_cuda_tensors()})
+
+    # -- serve_full and serve_tp: glm4 and nemotron whole on the card, then every
+    # serving LM tensor-parallel over 4 gloo ranks, each peak against the dry run
+    t_phase = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            DRYRUN_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        predicted = {}
+        for arch in SERVE_FULL_ARCHS:
+            for kind, seq in (("prefill", SERVE_TP_PROMPT), ("decode", SERVE_TP_LEN)):
+                predicted[(arch, kind)] = pool.submit(_dryrun_job, (arch, None, kind, seq, 1))
+        for arch in SERVE_TP_ARCHS:
+            for r in range(SERVE_TP_RANKS):
+                predicted[(arch, r)] = pool.submit(_dryrun_job, (
+                    arch, SERVE_TP_LAYERS.get(arch), "prefill", SERVE_TP_PROMPT, 1,
+                    {"compute_dtype": "float32"}, SERVE_TP_MESH, r))
+        full_lines, refs = serve_full_phase(dev, smi, predicted)
+        for line in full_lines:
+            emit(line)
+        tp_lines, serve_tp = serve_tp_phase(dev, smi, refs, predicted, run_ranks)
+    for line in tp_lines:
+        emit(line)
+    del refs, predicted
+    emit({"phase": "serve_tp", "seconds": time.perf_counter() - t_phase,
+          "launches_summed": serve_tp["launches"], "kernel_errs": serve_tp["errors"]})
+
     # -- train: LM training, K6 and K7 forward and backward ---------------------------
     # (a) K6 under autograd at the trainer's shape and the large one: the
     # forward bit-equal to the plain version, the backward (K6 on reversed,
@@ -3875,6 +4331,11 @@ def main() -> int:
     # K4/K5/K5' from the elementary path, K6/K7 from the serve path, then the
     # trainers' K6, K7 and K7's backward.
     paper, paper_rows = "x".join(map(str, PAPER_GRID)), "x".join(map(str, PAPER_ROWS))
+    # K6 and K7 serve two paths: BatchedServer's and serve_tp's ranks (summed).
+    served = {name: serve_launches[name] + serve_tp["launches"].get(name, 0)
+              for name in ("rglru_scan_cuda", "wkv6_cuda")}
+    for name, err in serve_tp["errors"].items():
+        worst[name] = max(worst[name], err)
     rows = [
         ("hdiff_cuda", "hdiff f32", paper, "src/repro_torch/csrc/hdiff.cu",
          "src/repro/kernels/hdiff/kernel.py:131", launches),
@@ -3890,9 +4351,9 @@ def main() -> int:
          "src/repro_torch/ir/codegen_cuda.py", "src/repro/ir/lower_pallas.py:336",
          elem_launches),
         ("rglru_scan_cuda", "rglru f32", "x".join(map(str, K6_SERVE)),
-         "src/repro_torch/csrc/rglru.cu", "src/repro/kernels/rglru/kernel.py:49", serve_launches),
+         "src/repro_torch/csrc/rglru.cu", "src/repro/kernels/rglru/kernel.py:49", served),
         ("wkv6_cuda", "wkv6", "x".join(map(str, K7_SERVE)), "src/repro_torch/csrc/wkv6.cu",
-         "src/repro/kernels/wkv6/kernel.py:82", serve_launches),
+         "src/repro/kernels/wkv6/kernel.py:82", served),
     ]
     kernels = []
     for name, label, grid, source, replaces, counts in rows:

@@ -51,9 +51,14 @@ rank's host for a checkpoint.
 
 Not ported: ``constrain``. The JAX package annotates intermediates with
 sharding constraints for the GSPMD partitioner, which then splits the
-computation itself. In the port each rank computes its rows of the batch
-with whole (gathered) weights, so there is no partitioner to steer; a
-constraint never changes values.
+computation itself; a constraint never changes values. The port has no
+partitioner to steer: its model code carries out the ``model`` placements
+itself. The trainer computes each rank's rows of the batch with whole
+(gathered) weights; tensor-parallel serving (``lm_prefill`` /
+``lm_decode`` under :func:`use_mesh`) gathers only the data-axis pieces
+and computes each rank's share of the heads, ``mlp``, vocabulary and
+decode cache, combining partial results with :func:`sum_over` and
+:func:`gather_dim`.
 """
 
 from __future__ import annotations

@@ -53,13 +53,14 @@ variants and extrapolates because XLA's cost analysis counts a ``while``
 loop's body once. An eager trace runs every layer and every microbatch,
 so the counts are whole as they stand.
 
-**Serving as the port runs it.** Outside the MoE, the port serves with
-whole weights on every rank: there is no tensor-parallel serving. A
-prefill or decode cell runs on the rank's rows of the batch (the batch
-split over the data axes) with whole weights and their rows of the cache;
-an MoE's experts take their expert-parallel path over ``model``. The JSON
-says so in ``note``, and such a cell may not fit where the JAX one, split
-by GSPMD, did.
+**Serving as the port runs it.** A prefill or decode cell runs
+tensor-parallel (``models/lm.py``): the rank is handed its pieces of the
+weights and of the cache under the JAX decode-mode placements and its
+rows of the batch, each block gathers its data-axis pieces and computes
+its ``model`` share (heads, kv heads, ``mlp``, vocabulary, RG-LRU's
+width; the cache split by ``kv_seq``), and an MoE's experts take their
+expert-parallel path. The JSON says so in ``note``; the collectives of a
+serving step equal :func:`serve_wire_reckoning`.
 
 Usage::
 
@@ -77,7 +78,7 @@ import sys
 import time
 import traceback
 import weakref
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -88,13 +89,14 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import all_cells, get_config, get_shape
 from repro_torch.core.analytical import H100_SXM
 from repro_torch.dist import sharding
-from repro_torch.dist.sharding import Mesh, NamedSharding, rank_coords, use_mesh
+from repro_torch.dist.sharding import Mesh, rank_coords
 from repro_torch.kernels import _build
 from repro_torch.launch.analytic import cell_flops, cell_hbm_bytes
 from repro_torch.launch.inputs import make_lowering_spec
 from repro_torch.models import layers as L
+from repro_torch.models.lm import shard_tree
 from repro_torch.obs import metrics
-from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves
 
 META = torch.device("meta")
 MESHES = {"single": ((16, 16), ("data", "model")),
@@ -180,6 +182,145 @@ def shard_wire_reckoning(cfg, shape, tokens: int) -> dict:
                 t_loc = tokens // sizes["data"]
                 got["grad_sum"] += t_loc * cfg.d_model * itemsize + t_loc * cfg.top_k * 4
     return got
+
+
+def serve_wire_reckoning(cfg, kind: str, mesh_shape, batch: int, seq: int, length: int) -> list:
+    """Every collective one rank runs in a tensor-parallel serving step
+    (``lm_prefill`` of ``seq`` tokens, or one ``lm_decode`` token, ``kind``
+    "prefill" or "decode") of a ``batch``-row batch into a cache of
+    ``length`` positions, on a ``(data, model)`` or ``(pod, data, model)``
+    mesh of ``mesh_shape``, from the shapes alone: ``[(kind, payload bytes,
+    ranks in the group)]``, as :func:`repro_torch.dist.sharding.tally_collectives`
+    records them. The rows:
+
+    * each parameter a block (and the embedding, the head) reads, gathered
+      over the data axes of its spec in the parameter dtype, ``model``
+      kept, one all-gather an entry (``gather_param``); an MoE's experts
+      on their expert-parallel path (the router whole in float32, the
+      experts and the dense branch in the compute dtype, over the data
+      axes) and its two aux statistics averaged over the data axes;
+    * where ``model`` splits them: the vocabulary-parallel embedding's sum
+      and the head's gather of the logits, each attention's and FFN's
+      output sum (RWKV-6's channel mix in float32), RG-LRU's gate products
+      (float32, both in one sum) and output sum, an MoE's expert sum; the
+      blocked local path's outputs gathered where its blocks are split
+      (a long prefill whose heads ``model`` does not split);
+    * the caches: a prefill's keys and values gathered over the heads in
+      one all-gather where the cache holds every kv head and this rank
+      computed its own (a decode token's too); a decode step over slots
+      split by ``model```
+      gathers the query heads and all-reduces the row maxima and the
+      rescaled numerators and denominators (float32)."""
+    from repro_torch.dist.sharding import _entry_axes, _is_axes_leaf, spec_for
+    from repro_torch.models.lm import lm_axes, lm_meta
+
+    mesh_shape, axes = _mesh_of(None, mesh_shape)
+    sizes = dict(zip(axes, mesh_shape))
+    mesh = type("Shape", (), {"axis_names": axes, "shape": mesh_shape})()
+    mp = sizes["model"]
+    dp = tuple(a for a in ("pod", "data") if a in sizes and sizes[a] > 1)
+    dp_n = math.prod(sizes[a] for a in dp)
+    c = 4 if cfg.compute_dtype == "float32" else 2
+    pd = 4 if cfg.param_dtype == "float32" else 2
+    rows_entry = spec_for(("batch",), mesh, (batch,))[0]
+    b = batch // math.prod(sizes[a] for a in _entry_axes(rows_entry))
+    s = seq if kind == "prefill" else 1
+    d, dh = cfg.d_model, cfg.head_dim
+    h_all, k_all = max(cfg.n_heads, cfg.pad_heads_to or 0), cfg.n_kv_heads
+    out: list = []
+
+    def gather(ax, t, width=None, keep=("model",)):
+        spec = spec_for(ax, mesh, t.shape)
+        size = t.numel() * (width or pd) // math.prod(
+            sizes[a] for e in spec for a in _entry_axes(e))
+        for e in spec:
+            count = math.prod(sizes[a] for a in _entry_axes(e) if a not in keep)
+            if count > 1:
+                out.append(("all_gather", size * count, count))
+                size *= count
+
+    def gather_tree(ax_tree, m_tree, width=None, keep=("model",)):
+        for ax, t in zip(tree_flatten(ax_tree, is_leaf=_is_axes_leaf)[0],
+                         tree_flatten(m_tree)[0]):
+            gather(ax, t, width, keep)
+
+    def model_sum(nbytes):
+        out.append(("all_reduce", nbytes, mp))
+
+    split = (lambda n: mp > 1 and n % mp == 0)
+    h_split, k_split = split(h_all), split(k_all)
+
+    def cache_heads(cache_len, tokens):
+        """A cache holding every kv head fed by this rank's own."""
+        slots = split(cache_len)
+        heads_layout = not slots and k_split
+        if mp > 1 and k_split and not heads_layout:
+            out.append(("all_gather", b * tokens * k_all * 2 * dh * c, mp))
+        return slots
+
+    def decode_attend(slots):
+        if slots:
+            if h_split:
+                out.append(("all_gather", b * h_all * dh * c, mp))
+            out.append(("all_reduce", b * h_all * 4, mp))
+            out.append(("all_reduce", b * h_all * (dh + 1) * 4, mp))
+
+    ax, meta = lm_axes(cfg), lm_meta(cfg)
+    if cfg.frontend != "audio":
+        gather(ax["embed"], meta["embed"])
+        if split(cfg.vocab_size):
+            model_sum(b * s * d * c)
+    for kind_l, a, m in zip(cfg.layer_kinds, ax["blocks"], meta["blocks"]):
+        moe = bool(cfg.n_experts) and kind_l != "rwkv6"
+        for part in ("norm1", "mixer", "norm2", "ffn"):
+            if not (part == "ffn" and moe and "model" in sizes):
+                gather_tree(a[part], m[part])
+        if kind_l in ("attn", "local_attn"):
+            cache_len = min(length, cfg.window or length)
+            if kind == "prefill":
+                cache_heads(cache_len, s)
+                bs = (L._pick_block_size(s, cfg.window)
+                      if cfg.causal and cfg.window and s > L.FLASH_THRESHOLD else None)
+                if bs and not h_split and split(s // bs):  # the blocked path's blocks
+                    out.append(("all_gather", b * s * h_all * dh * c, mp))
+            else:
+                decode_attend(cache_heads(cache_len, 1))
+            if h_split:
+                model_sum(b * s * d * c)
+        elif kind_l == "cross_attn":
+            if kind == "prefill":
+                cache_heads(cfg.num_media_tokens, cfg.num_media_tokens)
+            else:
+                decode_attend(split(cfg.num_media_tokens))
+            if h_split:
+                model_sum(b * s * d * c)
+        elif kind_l == "rglru" and split(cfg.rnn_width):
+            model_sum(b * s * 2 * cfg.rnn_width * 4)
+            model_sum(b * s * d * c)
+        if kind_l == "rwkv6":
+            if split(cfg.d_ff):
+                model_sum(b * s * d * 4)
+        elif moe:
+            e = cfg.n_experts
+            if "model" in sizes and e % mp == 0:
+                gather(a["ffn"]["router"], m["ffn"]["router"], width=4, keep=())
+                for n in ("w1", "w3", "w2"):
+                    gather(a["ffn"][n], m["ffn"][n], width=c)
+                if "dense" in m["ffn"]:
+                    gather_tree(a["ffn"]["dense"], m["ffn"]["dense"], width=c)
+            elif "model" in sizes:
+                gather_tree(a["ffn"], m["ffn"], keep=())
+            if dp:
+                out.extend([("all_reduce", e * 4, dp_n)] * 2)
+            if "model" in sizes and e % mp == 0:
+                model_sum(b * s * d * c)
+        elif split(cfg.d_ff):
+            model_sum(b * s * d * c)
+    head = "embed" if cfg.tied_embeddings else "head"
+    gather(ax[head], meta[head])
+    if split(cfg.vocab_size):
+        out.append(("all_gather", b * cfg.vocab_size * c, mp))
+    return out
 
 
 # -- counters ------------------------------------------------------------------------
@@ -320,42 +461,25 @@ def _mesh_of(mesh_kind: str | None, mesh_shape) -> tuple[tuple[int, ...], tuple[
     return mesh_shape, axes
 
 
-def _pieces(tree, shardings):
-    """The rank's pieces of a tree of whole meta tensors."""
-    leaves, treedef = tree_flatten(tree)
-    shs = tree_flatten(shardings, is_leaf=lambda x: isinstance(x, NamedSharding))[0]
-    return tree_unflatten(treedef, [s.piece(t) for t, s in zip(leaves, shs)])
-
-
 def _rank_step(cfg, shape, mesh: Mesh):
-    """``(spec, args, labels, ambient mesh or None, note)``: the cell's step,
-    the arguments this rank hands it with a category for each, the mesh to
-    install around it and what the serving path leaves out."""
+    """``(spec, args, labels, note)``: the cell's step, the arguments this
+    rank hands it with a category for each, and how a serving cell runs."""
+    spec = make_lowering_spec(cfg, shape, mesh)
     if shape.kind == "train":
-        spec = make_lowering_spec(cfg, shape, mesh)
-        params, state = (_pieces(a, s) for a, s in zip(spec.args[:2], spec.in_shardings[:2]))
-        args = (params, state, spec.args[2])
-        return spec, args, ("parameters", "optimizer_state", "batch"), None, None
-    sizes = dict(zip(mesh.axis_names, mesh.shape))
-    dp = math.prod(sizes[a] for a in sharding.data_axes(mesh))
-    rows = shape.global_batch // dp if shape.global_batch % dp == 0 else shape.global_batch
-    spec = make_lowering_spec(cfg, dataclasses.replace(shape, global_batch=rows), mesh)
-    spec.meta["global_batch"] = shape.global_batch
-    spec.meta["rank_rows"] = rows
-    params = spec.args[0]
-    ambient = None
-    if cfg.n_experts and sizes.get("model", 1) > 1:
-        ambient = mesh
-        for kind, blk in zip(cfg.layer_kinds, params["blocks"]):
-            if kind != "rwkv6":
-                blk["ffn"] = L.shard_moe_params(cfg, blk["ffn"], mesh)
+        params, state = (shard_tree(a, s) for a, s in zip(spec.args[:2], spec.in_shardings[:2]))
+        return spec, (params, state, spec.args[2]), ("parameters", "optimizer_state",
+                                                     "batch"), None
+    spec.meta["rank_rows"] = spec.in_shardings[1].piece_shape((shape.global_batch,))[0]
+    args = tuple(a if sh is None else shard_tree(a, sh)
+                 for a, sh in zip(spec.args, spec.in_shardings))
     labels = ("parameters", "batch", "cache") + ("batch",) * (len(spec.args) - 3)
     if shape.kind == "decode":
         labels = ("parameters", "batch", "cache", None)
-    note = ("serving with whole weights on every rank (the port has no tensor-parallel "
-            "serving): the rank's rows of the batch and of the cache"
-            + ("; the experts split over model (expert-parallel)" if ambient else ""))
-    return spec, (params, *spec.args[1:]), labels, ambient, note
+    note = ("tensor-parallel serving: the rank's pieces of the weights and the cache under "
+            "the decode-mode placements (heads, kv heads, mlp, vocab and the cache's kv_seq "
+            "over model, fsdp over the data axes) and its rows of the batch"
+            + ("; the experts split over model (expert-parallel)" if cfg.n_experts else ""))
+    return spec, args, labels, note
 
 
 def _storages_bytes(tensors) -> int:
@@ -383,7 +507,7 @@ def trace_step(cfg, shape, mesh_shape, *, rank: int = 0) -> dict:
     with fake_group(n_dev, rank):
         mesh = Mesh(axes, mesh_shape, rank_coords(rank, mesh_shape), META, "nccl",
                     dist.group.WORLD)
-        spec, args, labels, ambient, note = _rank_step(cfg, shape, mesh)
+        spec, args, labels, note = _rank_step(cfg, shape, mesh)
         counter = _StepCounter()
         arg_bytes = {}
         for arg, label in zip(args, labels):
@@ -397,7 +521,7 @@ def trace_step(cfg, shape, mesh_shape, *, rank: int = 0) -> dict:
         flops = FlopCounterMode(display=False)
         t0 = time.perf_counter()
         with metrics.using() as reg, sharding.tally_collectives() as tally, flops, counter, \
-                _labelled_gradients(counter), (use_mesh(ambient) if ambient else nullcontext()):
+                _labelled_gradients(counter):
             out = spec.fn(*args)
         t_trace = time.perf_counter() - t0
         kernels = {k: dict(v) for k, v in _build.META_LAUNCHES.items()}

@@ -19,10 +19,12 @@ allocated. For each cell:
     (``donate``).
 
 ``mesh`` is a :class:`~repro_torch.dist.sharding.Mesh`, or anything with
-``axis_names`` and ``shape`` (enough for placements). The train step is
-built for ``mesh`` when it is a ``Mesh`` of several ranks: each rank then
-passes its pieces of the parameters and the state (``in_shardings``'
-``piece``) and the global batch. Nothing here allocates device memory.
+``axis_names`` and ``shape`` (enough for placements). Every step is built
+for ``mesh`` when it is a ``Mesh`` of several ranks: each rank then passes
+its pieces of the parameters and the state and the global batch (train),
+or its pieces of the parameters, the cache and the batch's rows (prefill
+and decode, which run tensor-parallel under the mesh), each argument's
+``in_shardings`` ``piece``. Nothing here allocates device memory.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.dist.sharding import Mesh, sharding_for, tree_shardings
+from repro_torch.dist.sharding import Mesh, sharding_for, tree_shardings, use_mesh
 from repro_torch.models.lm import (
     build_cache,
     cache_axes,
@@ -159,12 +161,15 @@ def make_lowering_spec(cfg: ModelConfig, shape: ShapeConfig, mesh,
     cache, c_sh = _cache_structs(cfg, shape, mesh)
     b = shape.global_batch
     logits_sh = sharding_for(("batch", None), mesh, (b, cfg.vocab_size))
+    # A rank of a mesh of several serves tensor-parallel on its pieces.
+    ambient = mesh if isinstance(mesh, Mesh) and mesh.size > 1 else None
 
     if shape.kind == "prefill":
         batch, b_sh = _batch_structs(cfg, shape, mesh)
 
         def prefill_step(params, tokens, cache, memory=None):
-            return lm_prefill(cfg, params, tokens, cache, memory=memory)
+            with use_mesh(ambient):
+                return lm_prefill(cfg, params, tokens, cache, memory=memory)
 
         args = [params, batch["tokens"], cache]
         in_sh = [p_sh, b_sh["tokens"], c_sh]
@@ -182,7 +187,8 @@ def make_lowering_spec(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
     if shape.kind == "decode":
         def serve_step(params, token, cache, pos):
-            return lm_decode(cfg, params, token, cache, pos)
+            with use_mesh(ambient):
+                return lm_decode(cfg, params, token, cache, pos)
 
         # ``pos`` is the Python int ``lm_decode`` takes: the cell's last
         # position (the JAX spec's is a traced int32 scalar).

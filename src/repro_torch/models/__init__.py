@@ -6,12 +6,16 @@ audio encoder)."""
 from repro_torch.models.lm import (
     LM,
     build_cache,
-    cache_axes,
     build_lm,
+    build_lm_pieces,
+    cache_axes,
+    cache_shardings,
     lm_decode,
     lm_forward,
     lm_forward_train,
     lm_loss,
     lm_params,
     lm_prefill,
+    serving_shardings,
+    shard_tree,
 )

@@ -27,8 +27,26 @@ there:
   (:func:`_local_attention_blocked`). Both are plain tensor code, as the
   jnp is: no library attention kernel, the same ``-1e30`` fill and the
   same output (zero) on a row with no visible key. The JAX package's
-  sharding constraints are dropped: the port computes with whole weights
-  (the sharded trainer gathers them), so they would constrain nothing.
+  sharding constraints are dropped: there is no partitioner to steer.
+
+* Tensor-parallel serving (``mesh=``, which ``lm_prefill`` and
+  ``lm_decode`` pass under an ambient mesh): the layers take this rank's
+  pieces of their weights under the JAX package's decode-mode placements
+  and carry out the ``model`` splits themselves. A dim split over
+  ``model`` shows as a local size below the config's (the data axes are
+  gathered before a block runs); a dim the rules replicate stays whole
+  and its branch is computed whole on every model rank, never summed over
+  ``model``. Query heads, kv heads and the FFN's hidden dim take their
+  local slice; ``wo`` and ``w2`` contract over it and
+  :func:`~repro_torch.dist.sharding.sum_over` combines the partial
+  outputs (Megatron's g). The caches split by the same rules
+  (:func:`cache_split`): ``kv_seq`` takes ``model`` before ``kv_heads``,
+  so a rank holds a contiguous block of slots for every kv head, writes a
+  slot only when it owns it, and a decode step combines the ranks'
+  partial attention over their slots by the log-sum-exp rule
+  (:func:`_lse_attention`). A long prefill's blocked local path whose
+  heads ``model`` does not split splits its blocks instead (the JAX
+  package's ``blocks`` constraint).
 
 * The MoE (:func:`apply_moe`) is the JAX package's sort-based capacity
   dispatch in plain tensor code: a float32 router, a stable sort, an
@@ -55,6 +73,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import all_reduce, gather_dim, spec_for, sum_over
 from repro_torch.tree import tree_map
 
 Tensor = torch.Tensor
@@ -242,6 +261,40 @@ def _project_qkv(cfg: ModelConfig, p, x: Tensor, memory: Tensor | None = None):
     return q, k, v
 
 
+def model_split(mesh) -> tuple[int, int]:
+    """``(mp, j)``: the size of ``mesh``'s ``model`` axis and this rank's
+    coordinate on it; ``(1, 0)`` without a mesh or a ``model`` axis."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1, 0
+    return mesh.axis_size("model"), mesh.coord("model")
+
+
+def _heads(cfg: ModelConfig, p, mesh) -> tuple[int, int, int, int]:
+    """``(h_off, h_all, k_off, k_all)``: the first global query head and kv
+    head of this rank's ``wq`` and ``wk`` and their global counts (query
+    heads padded to ``pad_heads_to``); offsets 0 where a count is whole."""
+    _, j = model_split(mesh)
+    h_all, k_all = max(cfg.n_heads, cfg.pad_heads_to or 0), cfg.n_kv_heads
+    h_n, k_n = p["wq"].shape[1], p["wk"].shape[1]
+    return (j * h_n if h_n < h_all else 0, h_all, j * k_n if k_n < k_all else 0, k_all)
+
+
+def _kv_for_heads(kv: Tensor, h_off: int, h_n: int, group: int, k_off: int) -> Tensor:
+    """The kv heads of ``kv`` (``(B, L, K', Dh)``, global heads from
+    ``k_off``) that query heads ``[h_off, h_off + h_n)`` read, laid out so
+    :func:`_gqa_scores` pairs them (``group`` query heads a kv head): a
+    slice of whole groups, the one head a run of query heads inside a group
+    shares, or else one kv head a query head."""
+    lo, hi = h_off // group, (h_off + h_n - 1) // group
+    if h_off % group == 0 and h_n % group == 0:
+        return kv[:, :, lo - k_off:hi + 1 - k_off]
+    if lo == hi:
+        return kv[:, :, lo - k_off:lo - k_off + 1]
+    idx = torch.div(h_off + torch.arange(h_n, device=kv.device), group,
+                    rounding_mode="floor") - k_off
+    return kv.index_select(2, idx)
+
+
 def _gqa_scores(q: Tensor, k: Tensor) -> Tensor:
     """q: (B,S,H,Dh), k: (B,L,K,Dh) -> scores (B, H, S, L) with GQA groups."""
     b, s, h, dh = q.shape
@@ -355,17 +408,19 @@ class _FlashCore(torch.autograd.Function):
 
 
 def _flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, window: int,
-                     scale: float, chunk: int = FLASH_CHUNK, unroll: bool = False) -> Tensor:
+                     scale: float, chunk: int = FLASH_CHUNK, unroll: bool = False,
+                     mesh=None) -> Tensor:
     """Repeats GQA KV heads to H, then runs :class:`_FlashCore`; causal
     sliding-window attention whose window and length share a block size
-    takes :func:`_local_attention_blocked` instead."""
+    takes :func:`_local_attention_blocked` instead (its blocks split over
+    ``mesh``'s ``model`` axis when given)."""
     h, kheads = q.shape[2], k.shape[2]
     if kheads != h:
         k = torch.repeat_interleave(k, h // kheads, dim=2)
         v = torch.repeat_interleave(v, h // kheads, dim=2)
     s = q.shape[1]
     if causal and window and _pick_block_size(s, window):
-        return _local_attention_blocked(q, k, v, window=window, scale=scale)
+        return _local_attention_blocked(q, k, v, window=window, scale=scale, mesh=mesh)
     if s % chunk:
         raise ValueError(f"flash attention: sequence length {s} is not a multiple of its "
                          f"chunk {chunk}")
@@ -385,43 +440,63 @@ def _pick_block_size(s: int, window: int, target_blocks: int = 16) -> int | None
     return max(good) if good else min(cands)
 
 
+def blocks_split(mesh, n_blocks: int) -> bool:
+    """Whether the blocked local path splits its ``n_blocks`` blocks over
+    ``mesh``'s ``model`` axis (the JAX rules' ``blocks``: where it divides)."""
+    mp, _ = model_split(mesh)
+    return mp > 1 and n_blocks % mp == 0
+
+
 def _local_attention_blocked(q: Tensor, k: Tensor, v: Tensor, *, window: int,
-                             scale: float) -> Tensor:
+                             scale: float, mesh=None) -> Tensor:
     """Causal sliding-window attention by sub-blocks and their halo: each
     block of ``bs`` queries attends to the ``window // bs`` blocks before it
     and its own (zeros before the sequence start, masked), O(S * window)
-    work instead of a masked S x S pass. q/k/v: (B,S,H,Dh), KV repeated."""
+    work instead of a masked S x S pass. q/k/v: (B,S,H,Dh), KV repeated.
+    With ``mesh`` (whose ``model`` axis splits no head), the blocks are a
+    free batch dim split over ``model``, as the JAX package constrains
+    them: each rank attends its contiguous run of blocks (every rank holds
+    the whole sequence's keys and values) and the outputs are gathered."""
     b, s, h, dh = q.shape
     bs = _pick_block_size(s, window)
     r = window // bs  # halo radius in blocks
     nb = s // bs
     qb, kb, vb = (x.reshape(b, nb, bs, h, dh) for x in (q, k, v))
+    lo, hi = 0, nb
+    if blocks_split(mesh, nb):
+        mp, j = model_split(mesh)
+        lo, hi = j * nb // mp, (j + 1) * nb // mp
 
     def shift(x, by):
-        return torch.cat([torch.zeros_like(x[:, :by]), x[:, :-by]], dim=1) if by else x
+        """Blocks ``[lo - by, hi - by)`` of ``x``, zeros before the start."""
+        zeros = min(max(by - lo, 0), hi - lo)
+        real = x[:, max(lo - by, 0):max(hi - by, 0)]
+        return torch.cat([torch.zeros_like(x[:, :zeros]), real], dim=1) if zeros else real
 
     # context = (prev_r ++ ... ++ prev_1 ++ cur): (B, nb, (r+1)*bs, H, Dh)
     kk = torch.cat([shift(kb, i) for i in range(r, -1, -1)], dim=2)
     vv = torch.cat([shift(vb, i) for i in range(r, -1, -1)], dim=2)
-    sc = torch.einsum("bnqhd,bnkhd->bnhqk", qb, kk).to(torch.float32) * scale
+    sc = torch.einsum("bnqhd,bnkhd->bnhqk", qb[:, lo:hi], kk).to(torch.float32) * scale
     dev = q.device
     rows = torch.arange(bs, device=dev)[:, None]            # q position within block
     cols = torch.arange((r + 1) * bs, device=dev)[None, :]  # position within halo context
     rel = cols - r * bs - rows                              # kv offset relative to q
     mask = (rel <= 0) & (rel > -window)
-    blk = torch.arange(nb, device=dev)[:, None, None]
+    blk = torch.arange(lo, hi, device=dev)[:, None, None]
     glob_col = (blk - r) * bs + cols[None]
     m = mask[None] & (glob_col >= 0)
     sc = torch.where(m[None, :, None], sc, -1e30)
     w = torch.softmax(sc, dim=-1)
     out = torch.einsum("bnhqk,bnkhd->bnqhd", w.to(vv.dtype), vv)
+    if hi - lo < nb:
+        out = gather_dim(out, mesh, ("model",), 1)
     return out.reshape(b, s, h, dh)
 
 
 def attention_apply(cfg: ModelConfig, p, x: Tensor, *, window: int = 0,
                     cross: bool = False, memory: Tensor | None = None,
                     cache: dict | None = None, pos: int | None = None,
-                    force_flash: bool | None = None):
+                    force_flash: bool | None = None, mesh=None):
     """Self- or cross-attention, plain tensor code.
 
     Prefill: ``x (B,S,D)``, ``cache=None`` -> ``(y, None)``: a masked
@@ -431,62 +506,137 @@ def attention_apply(cfg: ModelConfig, p, x: Tensor, *, window: int = 0,
     with ``cache`` and the absolute position ``pos`` -> ``(y, cache)``, the
     cache updated in place. ``cross``: keys and values from ``memory`` (from
     ``x`` when it is None), no rotation, no mask, the output scaled by
-    ``tanh(gate)`` -> ``(y, cache)``, the cache untouched.
+    ``tanh(gate)`` -> ``(y, cache)``, the cache untouched. With ``mesh``,
+    ``p`` and ``cache`` are this rank's pieces (the module docstring).
     """
     cdt = dt(cfg, "compute")
     _, s, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
     q, k, v = _project_qkv(cfg, p, x, memory if cross else None)
+    h_off, h_all, k_off, k_all = _heads(cfg, p, mesh)
+    group = h_all // k_all
+    h_n = q.shape[2]
 
-    if cross:
-        # No positional rotation, no mask: memory is a set of media tokens.
-        scores = _gqa_scores(q, k).to(torch.float32) * scale
-        w = torch.softmax(scores, dim=-1).to(cdt)
-        out = _gqa_out(w, v)
-    elif cache is None:
-        if cfg.rope:
-            positions = torch.arange(s, device=x.device)
-            q = rope_rotate(q, positions, cfg.rope_theta)
-            k = rope_rotate(k, positions, cfg.rope_theta)
-        use_flash = force_flash if force_flash is not None else s > FLASH_THRESHOLD
-        if use_flash:
-            out = _flash_attention(q, k, v, causal=cfg.causal, window=window, scale=scale,
-                                   chunk=min(FLASH_CHUNK, s), unroll=cfg.flash_unroll)
-        else:
-            scores = _gqa_scores(q, k).to(torch.float32) * scale
-            mask = _self_mask(s, causal=cfg.causal, window=window, device=x.device)
-            scores = torch.where(mask, scores, -1e30)
-            w = torch.softmax(scores, dim=-1).to(cdt)
-            out = _gqa_out(w, v)
-    else:
+    if cache is not None and not cross:
         if s != 1 or pos is None:
             raise ValueError("a decode step takes one token and its position")
         if cfg.rope:
             at = torch.full((1,), int(pos), device=x.device)
             q = rope_rotate(q, at, cfg.rope_theta)
             k = rope_rotate(k, at, cfg.rope_theta)
-        cache = cache_write(cache, k[:, 0], v[:, 0], pos)
+        cache = cache_write(cache, k[:, 0], v[:, 0], pos, mesh=mesh)
         slot_pos = cache["slot_pos"]
-        scores = _gqa_scores(q, cache["k"].to(cdt)).to(torch.float32) * scale
         valid = (slot_pos >= 0) & (slot_pos <= pos)
         if window:
             valid &= slot_pos > pos - window
-        scores = torch.where(valid[None, None, None, :], scores, -1e30)
-        w = torch.softmax(scores, dim=-1).to(cdt)
-        out = _gqa_out(w, cache["v"].to(cdt))
+        out = attend_cache(cfg, q, cache, valid, h_off=h_off, mesh=mesh)
+    else:
+        k, v = (_kv_for_heads(t, h_off, h_n, group, k_off) for t in (k, v))
+        if cross:
+            # No positional rotation, no mask: memory is a set of media tokens.
+            scores = _gqa_scores(q, k).to(torch.float32) * scale
+            w = torch.softmax(scores, dim=-1).to(cdt)
+            out = _gqa_out(w, v)
+        else:
+            if cfg.rope:
+                positions = torch.arange(s, device=x.device)
+                q = rope_rotate(q, positions, cfg.rope_theta)
+                k = rope_rotate(k, positions, cfg.rope_theta)
+            use_flash = force_flash if force_flash is not None else s > FLASH_THRESHOLD
+            if use_flash:
+                # Heads the rules replicate: the blocked local path splits
+                # its blocks over ``model`` instead.
+                out = _flash_attention(q, k, v, causal=cfg.causal, window=window, scale=scale,
+                                       chunk=min(FLASH_CHUNK, s), unroll=cfg.flash_unroll,
+                                       mesh=mesh if h_n == h_all else None)
+            else:
+                scores = _gqa_scores(q, k).to(torch.float32) * scale
+                mask = _self_mask(s, causal=cfg.causal, window=window, device=x.device)
+                scores = torch.where(mask, scores, -1e30)
+                w = torch.softmax(scores, dim=-1).to(cdt)
+                out = _gqa_out(w, v)
+    return attention_out(cfg, p, out, h_off=h_off, mesh=mesh, cross=cross), cache
+
+
+def attention_out(cfg: ModelConfig, p, out: Tensor, *, h_off: int = 0, mesh=None,
+                  cross: bool = False) -> Tensor:
+    """The output projection of ``out`` (``(B, S, H', Dh)``, global heads
+    from ``h_off``): padded heads masked, ``wo``, the cross gate, and the
+    sum over ``model`` where the heads are split."""
+    cdt = dt(cfg, "compute")
+    h_all = max(cfg.n_heads, cfg.pad_heads_to or 0)
     if cfg.pad_heads_to and cfg.pad_heads_to > cfg.n_heads:
         # Kill padded heads exactly (zero output, zero gradient to their
         # weights). Group-major: each of the n_kv groups holds g_new heads,
         # of which the last g_new - g_real are dead, so every real head
         # keeps its KV group.
-        h_pad = out.shape[2]
-        g_new, g_real = h_pad // cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-        head_mask = ((torch.arange(h_pad, device=out.device) % g_new) < g_real).to(out.dtype)
+        g_new, g_real = h_all // cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        heads = h_off + torch.arange(out.shape[2], device=out.device)
+        head_mask = ((heads % g_new) < g_real).to(out.dtype)
         out = out * head_mask[None, None, :, None]
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
     if cross and "gate" in p:
         y = torch.tanh(p["gate"].to(torch.float32)).to(cdt) * y
-    return y, cache
+    if out.shape[2] < h_all:
+        y = sum_over(y, mesh, ("model",))
+    return y
+
+
+def attend_cache(cfg: ModelConfig, q: Tensor, cache: dict, valid: Tensor | None, *,
+                 h_off: int = 0, mesh=None) -> Tensor:
+    """One decode step's attention of ``q`` (``(B, 1, H', Dh)``, global
+    heads from ``h_off``) over the keys and values of ``cache`` (this
+    rank's piece; ``valid`` masks the whole cache's slots, None: all) ->
+    ``(B, 1, H', Dh)``. Where the slots are split over ``model`` the query
+    heads are gathered, each rank attends over its slots and the partial
+    results are combined (:func:`_lse_attention`); else the rank attends
+    over the kv heads its query heads read."""
+    cdt = dt(cfg, "compute")
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    h_all = max(cfg.n_heads, cfg.pad_heads_to or 0)
+    group = h_all // cfg.n_kv_heads
+    h_n = q.shape[2]
+    length = valid.shape[0] if valid is not None else cfg.num_media_tokens
+    slots, heads = cache_split(cfg, mesh, length)
+    ck, cv = cache["k"].to(cdt), cache["v"].to(cdt)
+    if slots:
+        n = ck.shape[1]
+        lo = model_split(mesh)[1] * n
+        qa = gather_dim(q, mesh, ("model",), 2) if h_n < h_all else q
+        out = _lse_attention(qa, ck, cv, None if valid is None else valid[lo:lo + n],
+                             scale, mesh)
+        return out[:, :, h_off:h_off + h_n].to(cdt)
+    # Split by kv heads, the query heads are split too (K | H): this rank's
+    # kv heads are those its query heads read.
+    k_off = h_off // group if heads else 0
+    ck, cv = (_kv_for_heads(t, h_off, h_n, group, k_off) for t in (ck, cv))
+    scores = _gqa_scores(q, ck).to(torch.float32) * scale
+    if valid is not None:
+        scores = torch.where(valid[None, None, None, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(cdt)
+    return _gqa_out(w, cv)
+
+
+def _lse_attention(q: Tensor, k: Tensor, v: Tensor, valid: Tensor | None, scale: float,
+                   mesh) -> Tensor:
+    """Attention of every query head over this rank's block of slots,
+    combined over ``model`` by the log-sum-exp rule in float32: the row
+    maxima all-reduced (max), then the rescaled denominators and numerators
+    summed in one all-reduce. ``q (B, 1, H, Dh)``, ``k``/``v`` ``(B, L', K,
+    Dh)`` -> ``(B, 1, H, Dh)`` float32."""
+    f32 = torch.float32
+    sc = _gqa_scores(q, k).to(f32) * scale                          # (B, H, 1, L')
+    if valid is not None:
+        sc = torch.where(valid[None, None, None, :], sc, -1e30)
+    m = all_reduce(sc.amax(-1), torch.distributed.ReduceOp.MAX, mesh,
+                   mesh.axis_group(("model",)))
+    p = torch.exp(sc - m[..., None])
+    if valid is not None:
+        p = torch.where(valid[None, None, None, :], p, 0.0)
+    acc = _gqa_out(p, v.to(f32))                                    # (B, 1, H, Dh)
+    tot = sum_over(torch.cat([acc, p.sum(-1).transpose(1, 2)[..., None]], dim=-1), mesh,
+                   ("model",))
+    return tot[..., :-1] / tot[..., -1:]
 
 
 # -- cache ---------------------------------------------------------------
@@ -499,6 +649,18 @@ CACHE_AXES = {
     "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
     "slot_pos": (None,),
 }
+
+
+def cache_split(cfg: ModelConfig, mesh, length: int) -> tuple[bool, bool]:
+    """``(slots, heads)``: whether ``model`` splits an attention cache of
+    ``length`` slots by its slots (``kv_seq``) or by its kv heads, by the
+    decode-mode rules (``kv_seq`` first; neither where neither divides)."""
+    mp, _ = model_split(mesh)
+    if mp == 1:
+        return False, False
+    spec = spec_for(CACHE_AXES["k"], mesh, (1, length, cfg.n_kv_heads, cfg.head_dim),
+                    mode="decode")
+    return spec[1] == "model", spec[2] == "model"
 
 
 def make_buf(shape, dtype, device, fill=0) -> Tensor:
@@ -515,32 +677,74 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, *, device) -> dict:
     }
 
 
-def cache_write(cache: dict, k_t: Tensor, v_t: Tensor, pos: int) -> dict:
-    """Writes one timestep (B,K,Dh) at slot ``pos % L``, in place."""
-    slot = int(pos) % cache["k"].shape[1]
-    cache["k"][:, slot] = k_t.to(cache["k"].dtype)
-    cache["v"][:, slot] = v_t.to(cache["v"].dtype)
+def _cache_heads(cache: dict, k: Tensor, v: Tensor, mesh, dim: int) -> tuple[Tensor, Tensor]:
+    """``k`` and ``v`` with every kv head where the cache holds them all and
+    this rank computed its own (gathered over ``model`` along ``dim``, both
+    in one all-gather)."""
+    if k.shape[dim] < cache["k"].shape[2]:
+        kv = gather_dim(torch.cat([k, v.to(k.dtype)], dim=-1), mesh, ("model",), dim)
+        return kv[..., :k.shape[-1]], kv[..., k.shape[-1]:]
+    return k, v
+
+
+def cache_write(cache: dict, k_t: Tensor, v_t: Tensor, pos: int, *, mesh=None) -> dict:
+    """Writes one timestep (B,K,Dh) at slot ``pos % L``, in place (with
+    ``mesh``: on the rank whose block of slots holds it; every rank's
+    whole ``slot_pos`` is updated)."""
+    length = cache["slot_pos"].shape[0]
+    n = cache["k"].shape[1]
+    k_t, v_t = _cache_heads(cache, k_t, v_t, mesh, 1)
+    slot = int(pos) % length
+    lo = model_split(mesh)[1] * n if n < length else 0
+    if lo <= slot < lo + n:
+        cache["k"][:, slot - lo] = k_t.to(cache["k"].dtype)
+        cache["v"][:, slot - lo] = v_t.to(cache["v"].dtype)
     cache["slot_pos"][slot] = int(pos)
     return cache
 
 
-def cache_fill_from_prefill(cfg: ModelConfig, cache: dict, k: Tensor, v: Tensor) -> dict:
+def cache_fill_from_prefill(cfg: ModelConfig, cache: dict, k: Tensor, v: Tensor, *,
+                            mesh=None) -> dict:
     """A new cache holding a prefill's (B,S,K,Dh) keys and values: all of
-    them when S <= L, else the last L, ring-aligned so ``slot = pos % L``."""
-    length = cache["k"].shape[1]
+    them when S <= L, else the last L, ring-aligned so ``slot = pos % L``
+    (with ``mesh``: this rank's block of the slots, its kv heads gathered
+    first where the cache holds every head)."""
+    length = cache["slot_pos"].shape[0]
+    n = cache["k"].shape[1]
+    k, v = _cache_heads(cache, k, v, mesh, 2)
+    lo = model_split(mesh)[1] * n if n < length else 0
     s = k.shape[1]
     if s <= length:
         kk, vv, slot_pos = cache["k"].clone(), cache["v"].clone(), cache["slot_pos"].clone()
-        kk[:, :s] = k.to(kk.dtype)
-        vv[:, :s] = v.to(vv.dtype)
+        m = max(0, min(s - lo, n))
+        kk[:, :m] = k[:, lo:lo + m].to(kk.dtype)
+        vv[:, :m] = v[:, lo:lo + m].to(vv.dtype)
         slot_pos[:s] = torch.arange(s, dtype=torch.int32, device=k.device)
         return {"k": kk, "v": vv, "slot_pos": slot_pos}
     start = s - length
     positions = torch.arange(start, s, dtype=torch.int32, device=k.device)
     order = torch.argsort(positions % length)
-    return {"k": k[:, start:][:, order].to(cache["k"].dtype),
-            "v": v[:, start:][:, order].to(cache["v"].dtype),
+    mine = order[lo:lo + n]
+    return {"k": k[:, start:][:, mine].to(cache["k"].dtype),
+            "v": v[:, start:][:, mine].to(cache["v"].dtype),
             "slot_pos": positions[order]}
+
+
+def cross_cache_fill(cfg: ModelConfig, cache: dict, k: Tensor, v: Tensor, *,
+                     mesh=None) -> dict:
+    """A cross-attention cache of the media keys and values ``(B, M, K,
+    Dh)`` (with ``mesh``: this rank's piece by :func:`cache_split` of
+    ``M = cfg.num_media_tokens``)."""
+    if model_split(mesh)[0] > 1:
+        if k.shape[1] != cfg.num_media_tokens:
+            raise ValueError(f"a cross_attn prefill under a model-split mesh takes "
+                             f"memory of {cfg.num_media_tokens} media tokens")
+        k, v = _cache_heads(cache, k, v, mesh, 2)
+        if cache_split(cfg, mesh, k.shape[1])[0]:
+            n = cache["k"].shape[1]
+            lo = model_split(mesh)[1] * n
+            k, v = k[:, lo:lo + n], v[:, lo:lo + n]
+    return {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -560,7 +764,10 @@ def init_ffn(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
     return p
 
 
-def apply_ffn(cfg: ModelConfig, p, x: Tensor) -> Tensor:
+def apply_ffn(cfg: ModelConfig, p, x: Tensor, mesh=None) -> Tensor:
+    """The dense FFN; with ``mesh``, ``w1``/``w3`` this rank's columns and
+    ``w2`` its rows where ``model`` splits the hidden dim, the partial
+    outputs summed over ``model``."""
     cdt = dt(cfg, "compute")
     x = x.to(cdt)
     h = x @ p["w1"].to(cdt)
@@ -574,7 +781,10 @@ def apply_ffn(cfg: ModelConfig, p, x: Tensor) -> Tensor:
         h = torch.square(F.relu(h))
     else:
         raise ValueError(cfg.activation)
-    return h @ p["w2"].to(cdt)
+    y = h @ p["w2"].to(cdt)
+    if p["w2"].shape[0] < cfg.d_ff:
+        y = sum_over(y, mesh, ("model",))
+    return y
 
 
 # ---------------------------------------------------------------------------

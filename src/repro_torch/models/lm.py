@@ -13,7 +13,7 @@ JAX package; the trainer gives it a zero gradient). :func:`build_lm` returns an
 :class:`LM` module whose blocks stand in layer order, the block pattern
 cycled to ``n_layers``; the JAX package's scan over stacked superblocks
 becomes a plain loop over an ``nn.ModuleList``, and its sharding
-constraints are dropped (the port computes with whole weights).
+constraints are dropped (the port has no partitioner to steer).
 
 Logical axes and shapes: :func:`lm_axes` gives every parameter's JAX
 logical axes in the per-layer layout (from each block kind's table beside
@@ -30,6 +30,20 @@ without gradients and all taking ``memory=`` (vision):
     MoE loss summed over layers)
   * :func:`lm_prefill` — runs the prompt, fills the cache -> (last logits, cache)
   * :func:`lm_decode`  — one token with the cache at position ``pos``
+
+**Tensor-parallel serving.** Called under an ambient mesh
+(:func:`~repro_torch.dist.sharding.use_mesh`), :func:`lm_prefill` and
+:func:`lm_decode` take this rank's pieces: of the parameters by
+:func:`serving_shardings` (the JAX decode-mode placements: heads, kv
+heads, ``mlp`` and ``vocab`` on ``model``, ``fsdp`` on the data axes), of
+the cache by :func:`cache_shardings` (``kv_seq`` on ``model`` first), and
+of the batch's rows over the data axes. Each block gathers its data-axis
+pieces (``gather_param(..., keep=("model",))``; an MoE's experts gather
+their own) and computes its ``model`` share (``layers`` and
+``recurrent``); the embedding is a masked local lookup summed over
+``model``, the head gives this rank's vocabulary columns, gathered into
+the ``(B, V)`` logits both steps return. The logits equal the one-process
+path's; each rank stores and computes its share.
 
 A cache (:func:`build_cache`) is a list with one entry per layer; a
 ``cross_attn`` layer's holds the media keys and values ``{"k", "v"}``
@@ -52,7 +66,7 @@ tree alike: both are read as ``params["name"]``.
 
 from __future__ import annotations
 
-import math
+import functools
 
 import torch
 from torch import nn
@@ -65,10 +79,19 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import _ambient_mesh, use_mesh
+from repro_torch.dist.sharding import (
+    NamedSharding,
+    _ambient_mesh,
+    _is_axes_leaf,
+    gather_dim,
+    gather_param,
+    spec_for,
+    sum_over,
+    use_mesh,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
 
@@ -201,6 +224,29 @@ def lm_tree(cfg: ModelConfig, ini: L.Init) -> dict:
     return params
 
 
+class _Shapes:
+    """An :class:`~repro_torch.models.layers.Init` stand-in that gives each
+    leaf's shape (a tuple) and makes no tensor."""
+
+    def fan_in(self, shape, **_) -> tuple:
+        return tuple(shape)
+
+    def const(self, shape, value) -> tuple:
+        return tuple(shape)
+
+    def zeros(self, shape) -> tuple:
+        return tuple(shape)
+
+    ones = zeros
+
+
+def lm_shapes(cfg: ModelConfig) -> dict:
+    """``cfg``'s parameter tree with each leaf's global shape (a tuple) in
+    its place: what :func:`lm_meta` gives, without making a tensor (the
+    dry run counts every tensor a serving step makes, meta ones too)."""
+    return lm_tree(cfg, _Shapes())
+
+
 def lm_meta(cfg: ModelConfig) -> dict:
     """``cfg``'s parameter tree on the meta device: every leaf's global shape
     and dtype, nothing allocated."""
@@ -236,7 +282,7 @@ def lm_axes(cfg: ModelConfig) -> dict:
     :func:`lm_params`'s per-layer layout: the JAX ``build_lm``'s axes tree,
     read from each block kind's table. ``lm_stacked(cfg, lm_axes(cfg),
     stack_axes, is_leaf=...)`` gives it in the JAX layout."""
-    meta = lm_meta(cfg)
+    meta = lm_shapes(cfg)
     out = {"embed": ("vocab", "fsdp"),
            "blocks": [_pick(_block_axes(cfg, kind), b)
                       for kind, b in zip(cfg.layer_kinds, meta["blocks"])],
@@ -292,42 +338,103 @@ def cache_axes(cfg: ModelConfig) -> list:
     return [table[kind] for kind in cfg.layer_kinds]
 
 
+@functools.lru_cache(maxsize=32)
+def _serving_specs(cfg: ModelConfig, axis_names: tuple, shape: tuple) -> tuple:
+    """The decode-mode spec of every parameter (flattened) and the tree's
+    structure, for a mesh of ``axis_names`` and ``shape``."""
+    mesh = _MeshShape(axis_names, shape)
+    axes = tree_flatten(lm_axes(cfg), is_leaf=_is_axes_leaf)[0]
+    shapes, treedef = tree_flatten(lm_shapes(cfg), is_leaf=_is_shape)
+    return tuple(spec_for(a, mesh, shp, mode="decode") for a, shp in zip(axes, shapes)), treedef
+
+
+def _is_shape(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, int) for e in x)
+
+
+class _MeshShape:
+    """A mesh's axis names and shape: all a spec needs."""
+
+    def __init__(self, axis_names, shape):
+        self.axis_names, self.shape = tuple(axis_names), tuple(shape)
+
+
+def serving_shardings(cfg: ModelConfig, mesh) -> dict:
+    """The placement of every parameter of ``cfg``'s LM for tensor-parallel
+    serving on ``mesh`` (:func:`lm_params`' layout, :class:`NamedSharding`
+    leaves): ``tree_shardings(lm_axes(cfg), mesh, lm_meta(cfg),
+    mode="decode")``. ``.piece`` of each gives a rank's share."""
+    specs, treedef = _serving_specs(cfg, tuple(mesh.axis_names), tuple(mesh.shape))
+    return tree_unflatten(treedef, [NamedSharding(mesh, sp) for sp in specs])
+
+
+def cache_shardings(cfg: ModelConfig, mesh, cache: list) -> list:
+    """The placement of every leaf of ``cache`` (:func:`build_cache`'s,
+    whole, or its meta shapes) for tensor-parallel serving on ``mesh``."""
+    axes = tree_flatten(cache_axes(cfg), is_leaf=_is_axes_leaf)[0]
+    leaves, treedef = tree_flatten(cache)
+    return tree_unflatten(treedef, [NamedSharding(mesh, spec_for(a, mesh, t.shape, mode="decode"))
+                                    for a, t in zip(axes, leaves)])
+
+
+def build_lm_pieces(cfg: ModelConfig, mesh, seed: int = 0, *, device=None) -> dict:
+    """This rank's pieces, for tensor-parallel serving on ``mesh``
+    (:func:`serving_shardings`), of the weights :func:`build_lm` draws
+    from ``seed`` on ``device`` (``None``: the mesh's): every leaf drawn
+    whole from the same generator stream and cut to its piece at once, so
+    no rank holds two whole leaves. A tree in :func:`lm_params`' layout."""
+    dev = resolve_device(mesh.device if device is None else device)
+    shardings = tree_leaves(serving_shardings(cfg, mesh))
+    order = iter(lm_draw_order(cfg))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return lm_tree(cfg, L.Init(gen, L.dt(cfg), dev,
+                               place=lambda t: shardings[next(order)].piece(t)))
+
+
+def shard_tree(tree, shardings):
+    """This rank's piece of every leaf of ``tree`` (whole tensors) under
+    ``shardings`` (a tree of the same structure)."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [sh.piece(t) for t, sh in zip(leaves, tree_leaves(shardings))])
+
+
 # ---------------------------------------------------------------------------
 # Apply.
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill, memory=None):
+def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill, memory=None, mesh=None):
     """One block of ``kind`` with parameters ``p`` (a :class:`Block` or its
-    tree). Returns ``(x, new cache, aux)``, ``aux`` the MoE loss (None
-    without experts, so other blocks add no work)."""
+    tree; with ``mesh``, this rank's ``model`` share of them). Returns
+    ``(x, new cache, aux)``, ``aux`` the MoE loss (None without experts, so
+    other blocks add no work)."""
     aux = None
     h = L.apply_norm(cfg, p["norm1"], x)
     new_cache = cache
     if kind in ("attn", "local_attn"):
         if cache is not None and not prefill:
             y, new_cache = L.attention_apply(cfg, p["mixer"], h, window=cfg.window,
-                                             cache=cache, pos=pos)
+                                             cache=cache, pos=pos, mesh=mesh)
         else:
-            y, _ = L.attention_apply(cfg, p["mixer"], h, window=cfg.window)
+            y, _ = L.attention_apply(cfg, p["mixer"], h, window=cfg.window, mesh=mesh)
             if prefill:
                 _, k, v = L._project_qkv(cfg, p["mixer"], h)
                 if cfg.rope:
                     k = L.rope_rotate(k, torch.arange(h.shape[1], device=h.device),
                                       cfg.rope_theta)
-                new_cache = L.cache_fill_from_prefill(cfg, cache, k, v)
+                new_cache = L.cache_fill_from_prefill(cfg, cache, k, v, mesh=mesh)
     elif kind == "cross_attn":
         if cache is not None and not prefill:
-            y = _cross_attn_cached(cfg, p["mixer"], h, cache)
+            y = _cross_attn_cached(cfg, p["mixer"], h, cache, mesh)
         else:
-            y, _ = L.attention_apply(cfg, p["mixer"], h, cross=True, memory=memory)
+            y, _ = L.attention_apply(cfg, p["mixer"], h, cross=True, memory=memory, mesh=mesh)
             if prefill:
                 # Without memory the keys and values are the prompt's: the
                 # entry is replaced, shape and all, as in the JAX package.
                 _, k, v = L._project_qkv(cfg, p["mixer"], h, memory)
-                new_cache = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+                new_cache = L.cross_cache_fill(cfg, cache, k, v, mesh=mesh)
     elif kind == "rglru":
-        y, c2 = R.apply_rglru(cfg, p["mixer"], h, cache=None if prefill else cache)
+        y, c2 = R.apply_rglru(cfg, p["mixer"], h, cache=None if prefill else cache, mesh=mesh)
         if cache is not None:
             new_cache = c2
     else:  # rwkv6
@@ -340,40 +447,61 @@ def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill, memory=No
     h = L.apply_norm(cfg, p["norm2"], x)
     if kind == "rwkv6":
         y, c3 = R.apply_rwkv_cmix(cfg, p["ffn"], h,
-                                  cache=None if (prefill or cache is None) else cache["cmix"])
+                                  cache=None if (prefill or cache is None) else cache["cmix"],
+                                  mesh=mesh)
         if cache is not None:
             new_cache = {**new_cache, "cmix": c3}
     elif cfg.n_experts:
         y, aux = L.apply_moe(cfg, p["ffn"], h)
     else:
-        y = L.apply_ffn(cfg, p["ffn"], h)
+        y = L.apply_ffn(cfg, p["ffn"], h, mesh)
     return x + y, new_cache, aux
 
 
-def _cross_attn_cached(cfg, p, x: Tensor, cache: dict) -> Tensor:
+def _cross_attn_cached(cfg, p, x: Tensor, cache: dict, mesh=None) -> Tensor:
     """A decode step's cross-attention against the media keys and values
     the prefill wrote (the cache is read, never written)."""
     cdt = L.dt(cfg, "compute")
     q = torch.einsum("bsd,dhk->bshk", x.to(cdt), p["wq"].to(cdt))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    scores = L._gqa_scores(q, cache["k"].to(cdt)).to(torch.float32) * scale
-    w = torch.softmax(scores, dim=-1).to(cdt)
-    out = L._gqa_out(w, cache["v"].to(cdt))
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
-    if "gate" in p:
-        y = torch.tanh(p["gate"].to(torch.float32)).to(cdt) * y
-    return y
+    h_off = L._heads(cfg, p, mesh)[0]
+    out = L.attend_cache(cfg, q, cache, None, h_off=h_off, mesh=mesh)
+    return L.attention_out(cfg, p, out, h_off=h_off, mesh=mesh, cross=True)
 
 
-def _run_blocks(cfg, params, x: Tensor, *, memory=None, cache=None, pos=None, prefill=False):
-    """Every block in layer order -> ``(x, new cache, aux summed over layers)``."""
+def _rank_block(cfg, kind: str, p, shardings: dict, mesh) -> dict:
+    """Block ``p`` (this rank's pieces) with its data-axis pieces gathered
+    and its ``model`` pieces kept: what the block computes with. Under a
+    ``model`` axis an MoE's parameters stay pieces (``apply_moe`` gathers
+    them on its expert-parallel path)."""
+    out = {}
+    for part in Block.PARTS:
+        tree = p[part].tree() if isinstance(p[part], L.Params) else p[part]
+        if part == "ffn" and cfg.n_experts and kind != "rwkv6" and "model" in mesh.axis_names:
+            out[part] = tree
+            continue
+        leaves, treedef = tree_flatten(tree)
+        shs = tree_leaves(shardings[part])
+        out[part] = tree_unflatten(treedef, [gather_param(t, sh, keep=("model",))
+                                             for t, sh in zip(leaves, shs)])
+    return out
+
+
+def _run_blocks(cfg, params, x: Tensor, *, memory=None, cache=None, pos=None, prefill=False,
+                shardings=None):
+    """Every block in layer order -> ``(x, new cache, aux summed over
+    layers)``; with ``shardings`` (:func:`serving_shardings` on the
+    ambient mesh), tensor-parallel on this rank's pieces."""
+    mesh = shardings["embed"].mesh if shardings is not None else None
     new_cache = [] if cache is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["blocks"])):
+        if mesh is not None:
+            p = _rank_block(cfg, kind, p, shardings["blocks"][i], mesh)
         x, c, aux = _apply_block(cfg, kind, p, x, cache=None if cache is None else cache[i],
-                                 pos=pos, prefill=prefill, memory=memory)
+                                 pos=pos, prefill=prefill, memory=memory, mesh=mesh)
+        del p
         if aux is not None:
             aux_total = aux_total + aux
         if cache is not None:
@@ -381,19 +509,45 @@ def _run_blocks(cfg, params, x: Tensor, *, memory=None, cache=None, pos=None, pr
     return x, new_cache, aux_total
 
 
-def _embed(cfg, params, tokens: Tensor) -> Tensor:
+def _table(params, name: str, shardings):
+    """``params[name]``, its data-axis pieces gathered under ``shardings``."""
+    t = params[name]
+    return t if shardings is None else gather_param(t, shardings[name], keep=("model",))
+
+
+def _embed(cfg, params, tokens: Tensor, shardings=None) -> Tensor:
     if cfg.frontend == "audio":
         # Precomputed frame embeddings (the conv feature extractor is a stub).
         return tokens.to(L.dt(cfg, "compute"))
-    # Gather, then cast: the same values as casting the table first.
-    return params["embed"][tokens.to(torch.long)].to(L.dt(cfg, "compute"))
+    table = _table(params, "embed", shardings)
+    n = table.shape[0]
+    if n == cfg.vocab_size:
+        # Gather, then cast: the same values as casting the table first.
+        return table[tokens.to(torch.long)].to(L.dt(cfg, "compute"))
+    # Vocabulary-parallel: this rank's rows looked up, the others zero, and
+    # the one non-zero row of each token summed over ``model``.
+    mesh = shardings["embed"].mesh
+    ids = tokens.to(torch.long) - L.model_split(mesh)[1] * n
+    mine = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, n - 1)].to(L.dt(cfg, "compute"))
+    return sum_over(torch.where(mine[..., None], rows, 0), mesh, ("model",))
 
 
-def _logits(cfg, params, x: Tensor) -> Tensor:
+def _logits(cfg, params, x: Tensor, shardings=None) -> Tensor:
     cdt = L.dt(cfg, "compute")
     if cfg.tied_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"].to(cdt))
-    return torch.einsum("bsd,dv->bsv", x, params["head"].to(cdt))
+        out = torch.einsum("bsd,vd->bsv", x, _table(params, "embed", shardings).to(cdt))
+    else:
+        out = torch.einsum("bsd,dv->bsv", x, _table(params, "head", shardings).to(cdt))
+    if out.shape[-1] < cfg.vocab_size:  # this rank's vocabulary columns
+        out = gather_dim(out, shardings["embed"].mesh, ("model",), 2)
+    return out
+
+
+def _serving(cfg):
+    """:func:`serving_shardings` on the ambient mesh, or None without one."""
+    mesh = _ambient_mesh()
+    return None if mesh is None else serving_shardings(cfg, mesh)
 
 
 @torch.no_grad()
@@ -413,11 +567,15 @@ def lm_prefill(cfg: ModelConfig, model: LM, tokens: Tensor, cache: list, *,
                memory: Tensor | None = None):
     """Runs the full prompt ``tokens (B, S)`` and fills the cache (the
     ``cross_attn`` layers' from ``memory``). Returns ``(last logits (B, V),
-    cache)``."""
-    x = _embed(cfg, model, tokens)
-    x, cache, _ = _run_blocks(cfg, model, x, memory=memory, cache=cache, prefill=True)
+    cache)``. Under an ambient mesh: tensor-parallel on this rank's pieces
+    of ``model``, ``cache`` and the rows of ``tokens`` and ``memory`` (the
+    module docstring), returning its rows' logits and its cache pieces."""
+    sh = _serving(cfg)
+    x = _embed(cfg, model, tokens, sh)
+    x, cache, _ = _run_blocks(cfg, model, x, memory=memory, cache=cache, prefill=True,
+                              shardings=sh)
     x = L.apply_norm(cfg, model["final_norm"], x)
-    return _logits(cfg, model, x[:, -1:, :])[:, 0], cache
+    return _logits(cfg, model, x[:, -1:, :], sh)[:, 0], cache
 
 
 @torch.no_grad()
@@ -426,11 +584,14 @@ def lm_decode(cfg: ModelConfig, model: LM, token: Tensor, cache: list, pos: int,
     """One decode step. ``token`` (B,) (or (B, D) frames), ``pos`` the
     scalar absolute position. Returns ``(logits (B, V), new cache)``. The
     ``cross_attn`` layers read the cache's media keys and values, so
-    ``memory`` changes nothing here (taken for the JAX signature)."""
-    x = _embed(cfg, model, token[:, None] if token.ndim == 1 else token[:, None, :])
-    x, cache, _ = _run_blocks(cfg, model, x, memory=memory, cache=cache, pos=int(pos))
+    ``memory`` changes nothing here (taken for the JAX signature). Under an
+    ambient mesh: tensor-parallel, as :func:`lm_prefill`."""
+    sh = _serving(cfg)
+    x = _embed(cfg, model, token[:, None] if token.ndim == 1 else token[:, None, :], sh)
+    x, cache, _ = _run_blocks(cfg, model, x, memory=memory, cache=cache, pos=int(pos),
+                              shardings=sh)
     x = L.apply_norm(cfg, model["final_norm"], x)
-    return _logits(cfg, model, x)[:, 0], cache
+    return _logits(cfg, model, x, sh)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

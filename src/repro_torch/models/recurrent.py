@@ -29,9 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import sum_over
 from repro_torch.kernels.rglru import rglru_scan
 from repro_torch.kernels.wkv6 import wkv6
-from repro_torch.models.layers import Init, dt, gelu, make_buf
+from repro_torch.models.layers import Init, dt, gelu, make_buf, model_split
 
 Tensor = torch.Tensor
 F32 = torch.float32
@@ -69,42 +70,62 @@ def init_rglru(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
     }
 
 
-def _rglru_gates(p, bx: Tensor):
+def _rglru_gates(p, bx: Tensor, mesh=None):
+    """``(a, b)`` of the recurrence from the conv output ``bx`` (this rank's
+    channels: with ``model`` splitting the width, the gate products
+    contract over it, so they are summed over ``model`` (both in one
+    all-reduce) and this rank keeps its columns)."""
     bx32 = bx.to(F32)
-    r = torch.sigmoid(bx32 @ p["w_a"].to(F32) + p["b_a"].to(F32))
-    i = torch.sigmoid(bx32 @ p["w_x"].to(F32) + p["b_x"].to(F32))
-    log_a = -_RGLRU_C * r * F.softplus(p["lam"].to(F32))
+    w, width = bx.shape[-1], p["w_a"].shape[1]
+    if w < width:
+        lo = model_split(mesh)[1] * w
+        both = sum_over(torch.cat([bx32 @ p["w_a"].to(F32), bx32 @ p["w_x"].to(F32)], dim=-1),
+                        mesh, ("model",))
+        ga, gx = both[..., lo:lo + w], both[..., width + lo:width + lo + w]
+        cols = slice(lo, lo + w)
+    else:
+        ga, gx = bx32 @ p["w_a"].to(F32), bx32 @ p["w_x"].to(F32)
+        cols = slice(None)
+    r = torch.sigmoid(ga + p["b_a"][cols].to(F32))
+    i = torch.sigmoid(gx + p["b_x"][cols].to(F32))
+    log_a = -_RGLRU_C * r * F.softplus(p["lam"][cols].to(F32))
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
     return a, mult * (i * bx32)
 
 
-def apply_rglru(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None):
+def apply_rglru(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None, mesh=None):
     """x: (B, S, D). cache = {"h": (B, W), "conv": (B, conv_width-1, W)}
     for decode; prefill (``cache=None``) starts from zeros. Returns
-    ``(y, new cache)``."""
+    ``(y, new cache)``. With ``mesh`` and ``model`` splitting the width,
+    ``W`` is this rank's channels: the gates, the conv, K6 and the state
+    run on them, and ``w_out``'s partial outputs are summed over
+    ``model``."""
     cdt = dt(cfg, "compute")
     x = x.to(cdt)
     b, s, _ = x.shape
     cw = cfg.conv_width
     gate = gelu(x @ p["w_gate"].to(cdt))
     bx = x @ p["w_branch"].to(cdt)  # (B, S, W)
+    width = bx.shape[-1]
 
     # Depthwise causal conv, width conv_width.
     if cache is None:
-        prevs = torch.zeros((b, cw - 1, cfg.rnn_width), dtype=cdt, device=x.device)
+        prevs = torch.zeros((b, cw - 1, width), dtype=cdt, device=x.device)
     else:
         prevs = cache["conv"].to(cdt)
     bx_pad = torch.cat([prevs, bx], dim=1)  # (B, S+cw-1, W)
     conv_k = p["conv_k"].to(cdt)
     conv = sum(bx_pad[:, i : i + s] * conv_k[i] for i in range(cw)) + p["conv_b"].to(cdt)
 
-    a, bterm = _rglru_gates(p, conv)  # (B, S, W) f32 each
+    a, bterm = _rglru_gates(p, conv, mesh)  # (B, S, W) f32 each
     if cache is None:
         h, _ = rglru_scan(a, bterm)  # K6
     else:
         h = (a[:, 0] * cache["h"].to(F32) + bterm[:, 0])[:, None, :]
     y = (h.to(cdt) * gate) @ p["w_out"].to(cdt)
+    if width < cfg.rnn_width:
+        y = sum_over(y, mesh, ("model",))
     return y, {"h": h[:, -1].to(cdt), "conv": bx_pad[:, -(cw - 1):].to(cdt)}
 
 
@@ -223,8 +244,10 @@ def init_rwkv_cmix(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
     }
 
 
-def apply_rwkv_cmix(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None):
-    """RWKV channel mix (the FFN analogue). cache = {"x_prev": (B, D)}."""
+def apply_rwkv_cmix(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None, mesh=None):
+    """RWKV channel mix (the FFN analogue). cache = {"x_prev": (B, D)}.
+    With ``mesh``: ``wk`` this rank's columns and ``wv`` its rows where
+    ``model`` splits the hidden dim (``wr`` is whole)."""
     b, _, d = x.shape
     x32 = x.to(F32)
     if cache is None:
@@ -235,7 +258,10 @@ def apply_rwkv_cmix(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None
     xk = x32 + (xprev - x32) * p["mu_k"].to(F32)
     xr = x32 + (xprev - x32) * p["mu_r"].to(F32)
     kk = torch.square(F.relu(xk @ p["wk"].to(F32)))
-    y = torch.sigmoid(xr @ p["wr"].to(F32)) * (kk @ p["wv"].to(F32))
+    kv = kk @ p["wv"].to(F32)
+    if p["wv"].shape[0] < cfg.d_ff:  # this rank's hidden units: partial sums
+        kv = sum_over(kv, mesh, ("model",))
+    y = torch.sigmoid(xr @ p["wr"].to(F32)) * kv
     return y.to(x.dtype), {"x_prev": x32[:, -1]}
 
 

@@ -116,7 +116,10 @@ def test_reference_cases_trace_on_eight_fake_ranks(arch, kind, rank):
         assert calls > 0 and r["collectives"]["wire_bytes_per_device"] > 0
         assert mem["peak_bytes_by_category"]["activations"] > 0
     else:
-        assert r["note"] and "whole weights" in r["note"]
+        # Tensor-parallel serving: the rank's pieces, and collectives over
+        # ``model`` in every serving step.
+        assert r["note"] and "tensor-parallel" in r["note"] and "whole weights" not in r["note"]
+        assert calls > 0 and r["collectives"]["wire_bytes_per_device"] > 0
 
 
 # -- (b) collective bytes ---------------------------------------------------------------
@@ -133,6 +136,31 @@ def test_collective_bytes_equal_the_reckoning(arch):
     assert coll["by_kind"]["all_gather"]["wire_bytes"] == want["gather"]
     # Beside the gradient sums: the loss's, the norm's and aux's sums.
     assert coll["by_kind"]["all_reduce"]["payload_bytes"] > want["grad_sum"]
+
+
+SERVE_MESHES = [(2, 4), (1, 4), (2, 2), (2, 2, 2)]
+
+
+SERVE_CELLS = [(a, k, 64) for a in ARCH_IDS for k in ("prefill", "decode")
+               if k == "prefill" or "decode_32k" in applicable_cells(a)]
+# Past FLASH_THRESHOLD: the blocked local path, its blocks split over model
+# where the heads are not (recurrentgemma's 2 heads on 4).
+SERVE_CELLS += [("recurrentgemma-2b", "prefill", 4096), ("starcoder2-3b", "prefill", 4096)]
+
+
+@pytest.mark.parametrize("mesh", SERVE_MESHES)
+@pytest.mark.parametrize("arch,kind,seq", SERVE_CELLS)
+def test_serving_collectives_equal_the_serve_reckoning(arch, kind, seq, mesh):
+    cfg = _cfg(arch)
+    rank = math.prod(mesh) - 1
+    r = dryrun.trace_step(cfg, _shape(kind, seq), mesh, rank=rank)
+    want: dict = {}
+    for kind_c, payload, ranks in dryrun.serve_wire_reckoning(cfg, kind, mesh, 4, seq, seq):
+        row = want.setdefault(kind_c, {"calls": 0, "payload_bytes": 0, "wire_bytes": 0.0})
+        row["calls"] += 1
+        row["payload_bytes"] += payload
+        row["wire_bytes"] += dryrun.ring_wire_bytes(kind_c, payload, ranks)
+    assert r["collectives"]["by_kind"] == want
 
 
 def test_ring_wire_model():

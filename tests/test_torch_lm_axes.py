@@ -13,6 +13,13 @@ against the JAX package, on the CPU.
   ``("data", "model")`` and ``(2, 16, 16)`` ``("pod", "data", "model")``
   meshes (``tests/test_dist.py``'s duck-typed mesh), and each sharding's
   piece shape times its counts is the leaf's shape.
+* Tensor-parallel serving's pieces (``serving_shardings``,
+  ``cache_shardings``): every parameter's and every cache leaf's piece
+  shape, stacked into the JAX layout, equals the partition of the JAX
+  ``spec_for(..., mode="decode")`` of that leaf on the duck-typed ``(16,
+  16)`` and ``(2, 16, 16)`` production meshes, for the 10 architectures at
+  published shapes (the cache of a ``prefill_32k`` and a ``decode_32k``
+  cell).
 * Without a process group ``make_host_mesh`` is ``None`` (one device) and
   ``make_production_mesh`` raises; ``data_axes`` folds pod into data.
 """
@@ -28,16 +35,18 @@ import torch.distributed as dist
 from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.dist.sharding import spec_for as jax_spec_for
+from repro.models import build_cache as jax_build_cache
 from repro.models import build_lm as jax_build_lm
 from repro.optim import make_optimizer as jax_make_optimizer
 from repro.optim import opt_state_axes as jax_opt_state_axes
 from repro.optim import optimizer_config_from_model as jax_opt_config
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import get_config, get_shape, get_smoke_config
 from repro_torch.dist.sharding import _is_axes_leaf, tree_shardings
 from repro_torch.launch import mesh as M
-from repro_torch.models.lm import lm_axes, lm_meta, lm_stacked, stack_axes, stack_meta
+from repro_torch.models.lm import (build_cache, cache_shardings, lm_axes, lm_meta, lm_stacked,
+                                   serving_shardings, stack_axes, stack_meta)
 from repro_torch.optim import make_optimizer, opt_state_axes, optimizer_config_from_model
-from repro_torch.tree import tree_flatten
+from repro_torch.tree import tree_flatten, tree_map
 
 ARCHS = ["qwen1.5-0.5b", "starcoder2-3b", "nemotron-4-15b", "glm4-9b", "recurrentgemma-2b",
          "rwkv6-3b", "qwen3-moe-235b-a22b", "arctic-480b", "llama-3.2-vision-90b",
@@ -142,6 +151,69 @@ def test_tree_shardings_give_the_jax_specs(arch, mesh):
             assert sh.spec == tuple(jax_spec_for(ax, fake, s.shape)), (ax, s.shape)
             assert sh.global_shape(sh.piece_shape(t.shape)) == tuple(t.shape)
             assert sh.replicas * np.prod(sh.counts(), dtype=int) == np.prod(fake.shape)
+
+
+SERVE_MESHES = {"single": ((16, 16), ("data", "model")),
+                "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _is_shape(x):
+    return isinstance(x, tuple) and all(isinstance(e, int) for e in x)
+
+
+def _jax_pieces(tree, axes, fake):
+    """Each leaf's piece shape under the JAX decode-mode spec, in order."""
+    out = []
+    for ax, s in zip(_leaves(axes)[0], jax.tree.leaves(tree)):
+        spec = jax_spec_for(ax, fake, s.shape, mode="decode")
+        counts = [int(np.prod([fake.shape[fake.axis_names.index(a)] for a in
+                               ((e,) if isinstance(e, str) else (e or ()))]))
+                  for e in tuple(spec) + (None,) * (len(s.shape) - len(spec))]
+        out.append(tuple(n // c for n, c in zip(s.shape, counts)))
+    return out
+
+
+def _stacked_cache(cfg, layers):
+    """Per-layer piece shapes in the JAX cache layout (``scan`` stacked)."""
+    width, n = len(cfg.block_pattern), cfg.n_super
+    out = {"tail": layers[n * width:]}
+    if n:
+        out["scan"] = {f"b{i}": tree_map(lambda t: (n,) + t, layers[i], is_leaf=_is_shape)
+                       for i in range(width)}
+    return out
+
+
+@pytest.mark.parametrize("mesh", list(SERVE_MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_param_pieces_are_the_jax_decode_partition(arch, mesh):
+    fake = FakeMesh(*SERVE_MESHES[mesh])
+    cfg = get_config(arch)
+    shs = serving_shardings(cfg, fake)
+    meta = lm_meta(cfg)
+    pieces = tree_map(lambda sh, t: sh.piece_shape(t.shape), shs, meta,
+                      is_leaf=lambda x: hasattr(x, "piece_shape"))
+    stacked = lm_stacked(cfg, pieces, lambda ts, st: ((len(ts),) if st else ()) + ts[0],
+                         is_leaf=_is_shape)
+    params, axes = _jax_tree(arch, "published")
+    assert tree_flatten(stacked, is_leaf=_is_shape)[0] == _jax_pieces(params, axes, fake)
+
+
+@pytest.mark.parametrize("cell", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("mesh", list(SERVE_MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_cache_pieces_are_the_jax_decode_partition(arch, mesh, cell):
+    fake = FakeMesh(*SERVE_MESHES[mesh])
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    shape = get_shape(cell)
+    cache = build_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
+    shs = cache_shardings(cfg, fake, cache)
+    layers = [tree_map(lambda sh, t: sh.piece_shape(t.shape), s, c,
+                       is_leaf=lambda x: hasattr(x, "piece_shape")) for s, c in zip(shs, cache)]
+    jcache, jaxes = jax_build_cache(jcfg, shape.global_batch, shape.seq_len, abstract=True)
+    got = tree_flatten(_stacked_cache(cfg, layers), is_leaf=_is_shape)[0]
+    assert got == _jax_pieces(jcache, jaxes, fake)
+    assert got and any(p != tuple(t.shape) for p, t in zip(
+        tree_flatten(layers, is_leaf=_is_shape)[0], tree_flatten(cache)[0]))
 
 
 def test_host_mesh_is_one_device_without_a_group():

@@ -763,3 +763,96 @@ def train_suite(rank, world, cases, ckpt_root, ckpt_case):
 
 
 SEED_TRAIN = 3
+
+
+def _serve_mesh(shape, rank, world):
+    """A ``("data", "model")`` mesh of ``shape`` over the whole world, or
+    (smaller) over this rank's block of consecutive ranks: every rank makes
+    every block's group, in one order (``new_group`` is collective)."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import Mesh, rank_coords
+    from repro_torch.launch.mesh import make_mesh
+
+    n = math.prod(shape)
+    if n == world:
+        return make_mesh(shape, ("data", "model"), backend="gloo", device="cpu")
+    mine = None
+    for lo in range(0, world, n):
+        g = dist.new_group(list(range(lo, lo + n)), backend="gloo")
+        if lo <= rank < lo + n:
+            mine = Mesh(("data", "model"), tuple(shape), rank_coords(rank - lo, shape),
+                        torch.device("cpu"), "gloo", g)
+    return mine
+
+
+def serve_tp_suite(rank, world, cases):
+    """Tensor-parallel serving on gloo ranks (no JAX here).
+
+    ``cases``: ``{key: (arch, config overrides, mesh shape, JAX-layout
+    numpy LM params, tokens (B, P + T) int32, P, cache length, memory
+    (B, M, D) or None)}``: each rank of a ``("data", "model")`` mesh of
+    that shape (over the whole world, or over its block of ranks) takes
+    its pieces of the parameters (``serving_shardings``), of a fresh cache
+    (``cache_shardings``) and its rows of the tokens and memory, runs
+    ``lm_prefill`` on the first P tokens and ``lm_decode`` on the other T
+    under ``use_mesh``, and gathers the logits and the cache whole.
+    Returns ``{key: {"prefill", "decode": [...], "cache", "param_bytes",
+    "tally"}}`` (the collectives of the first decode step)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dist.sharding import gather_blocks, shard_param, spec_for, tally_collectives
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.interop import lm_tree_from_numpy
+    from repro_torch.models.lm import (build_cache, cache_shardings, lm_decode, lm_prefill,
+                                       serving_shardings, shard_tree)
+    from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+    meshes = {}
+    found = {}
+    for key, (arch, over, shape, jtree, tokens, p, length, memory) in cases.items():
+        shape = tuple(shape)
+        if shape not in meshes:
+            meshes[shape] = _serve_mesh(shape, rank, world)
+        mesh = meshes[shape]
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
+        dtype = getattr(torch, cfg.param_dtype)
+        whole = tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)).to(dtype),
+                         lm_tree_from_numpy(cfg, jtree))
+        params = shard_tree(whole, serving_shardings(cfg, mesh))
+        del whole
+        b = tokens.shape[0]
+        cache0 = build_cache(cfg, b, length, device="cpu")
+        c_sh = cache_shardings(cfg, mesh, cache0)
+        cache = shard_tree(cache0, c_sh)
+        rows = spec_for(("batch", None), mesh, tokens.shape)
+        toks = shard_param(torch.from_numpy(tokens.copy()), mesh, rows)
+        mem = None
+        if memory is not None:
+            mem = shard_param(torch.from_numpy(memory.copy()), mesh,
+                              spec_for(("batch", None, None), mesh, memory.shape))
+        out = {"decode": [], "tally": None,
+               "param_bytes": sum(t.numel() * t.element_size() for t in tree_flatten(params)[0])}
+        with use_mesh(mesh):
+            logits, cache = lm_prefill(cfg, params, toks[:, :p], cache, memory=mem)
+            out["prefill"] = gather_blocks(logits, mesh, rows).numpy()
+            for t in range(p, tokens.shape[1]):
+                with tally_collectives() as tally:
+                    logits, cache = lm_decode(cfg, params, toks[:, t], cache, t, memory=mem)
+                if out["tally"] is None:
+                    out["tally"] = list(tally)
+                out["decode"].append(gather_blocks(logits, mesh, rows).numpy())
+        leaves, treedef = tree_flatten(cache)
+        shs = tree_flatten(c_sh, is_leaf=lambda x: hasattr(x, "whole"))[0]
+        out["cache"] = tree_unflatten(treedef, [
+            sh.whole(t).to(torch.float32 if t.is_floating_point() else t.dtype).numpy()
+            for t, sh in zip(leaves, shs)])
+        found[key] = out
+    return found
