@@ -284,8 +284,7 @@ script's seconds so far when it was printed):
               the decode steps' peaks less the bytes held before the model
               was built against the dry run's one-card predictions within
               0.85-1.15, seconds per prefill and per decode token beside the
-              analytic bound; then the same at float32 compute, the
-              serve_tp phase's reference logits
+              analytic bound; then the same at float32 compute
   serve_tp    tensor-parallel serving (``lm_prefill`` / ``lm_decode`` under
               ``use_mesh``) on 4 gloo ranks time-sharing the card (TF32
               off), a (1, 4) ``("data", "model")`` mesh, at float32 compute:
@@ -295,7 +294,8 @@ script's seconds so far when it was printed):
               ``llama-3.2-vision-90b`` at 5 of 100 layers with its media
               path (the cross cache's 1024 media tokens split) and
               ``rwkv6-3b`` (K7, the time mix whole on every rank), each at
-              its published widths and (but llama-vision) depth: each rank
+              its published widths, cut to 3-5 layers (time; llama-vision:
+              one superblock with its media path): each rank
               draws its pieces from the seed (one rank at a time), a
               512-token prefill and 8 decode tokens into a cache of 520
               positions; the logits within 1e-3 of max|.| of the one-process
@@ -378,7 +378,9 @@ script's seconds so far when it was printed):
               the LM trainer sharded over gloo ranks time-sharing the one
               card (TF32 off; each rank holds its pieces of every parameter,
               gradient and moment by the JAX rules and computes its rows of
-              the global batch with gathered weights): (a) 4 ranks, the
+              the global batch, and where ``model`` has several ranks its
+              share of heads, kv heads, ``mlp``, RG-LRU width and
+              vocabulary, tensor-parallel): (a) 4 ranks, the
               smoke ``qwen1.5-0.5b``, ``recurrentgemma-2b`` (K6),
               ``rwkv6-3b`` (K7, K7's backward), ``qwen3-moe-235b-a22b``,
               ``arctic-480b``, ``llama-3.2-vision-90b`` (memory in every
@@ -392,9 +394,9 @@ script's seconds so far when it was printed):
               leaf: and 2^-8 of its value), the port kernels' launches
               exactly 3 K6, 2 K7 and 1 K7' a layer a microbatch on every
               rank, summed over the ranks into the kernels line; (b)
-              ``qwen1.5-0.5b`` at published widths, 24 layers, on (4, 1),
-              4 steps of 4 x 256 tokens: losses within 1e-2 of the train
-              phase's one-device ones (bf16 compute), host ms a step
+              ``qwen1.5-0.5b`` at published widths, cut to 4 of 24 layers
+              (time), on (4, 1), 4 steps of 4 x 256 tokens: losses within
+              1e-2 of one device's at that depth (bf16 compute), host ms a step
               (median of the ranks, slowest), peak GB a rank and summed,
               the bytes of gathers and gradient sums a rank a step equal to
               ``shard_wire_reckoning`` from the shapes; (c)
@@ -403,8 +405,20 @@ script's seconds so far when it was printed):
               same figures, aux above 0. In (b) and (c) each rank runs one
               step more under torch.profiler, split into its device kernel
               time, its device copy time and its host time inside gloo's
-              collectives. Host times are ranks sharing one H100 through
-              host memory: not a multi-GPU figure
+              collectives; (d) tensor-parallel at published widths, f32, 2
+              steps of 4 x 256 tokens on 4 ranks: ``recurrentgemma-2b``
+              on (1, 4) (K6 on 640 channels a rank), ``rwkv6-3b`` cut to
+              16 of 32 layers on (1, 4) (K7 and K7' whole a rank) and
+              ``qwen1.5-0.5b`` on (2, 2), each first in one process on
+              the card (rank 0, alone): losses, grad norms and every
+              updated parameter against it (TP_BOUNDS), each rank's peak
+              of the second step less the bytes held before against the
+              dry run's prediction within 0.85-1.15, the second step's
+              collectives equal to ``shard_wire_reckoning`` row for row,
+              every K6 launch of the first step bit-equal to its plain
+              version and every K7 and K7' launch within 1e-5·max + 1e-6,
+              host s a step, the launches. Host times are ranks sharing
+              one H100 through host memory: not a multi-GPU figure
 dryrun        the port's dry run (``repro_torch.launch.dryrun``: one rank
               traced on meta tensors, nothing computed) of every
               full-width step the script ran, same config, depth, batch
@@ -536,20 +550,44 @@ SHARDED_SMOKE = ("qwen1.5-0.5b", "recurrentgemma-2b", "rwkv6-3b", "qwen3-moe-235
                  "arctic-480b", VISION_ARCH, AUDIO_TRAIN_ARCH)
 SHARDED_SMOKE_SEQ = {"rwkv6-3b": 128}  # two 64-step chunks: K7 and its backward run
 SHARDED_BATCH, SHARDED_MB, SHARDED_STEPS = 8, 2, 2  # part (a): 1 row a rank a microbatch
-SHARDED_DENSE_MESH, SHARDED_DENSE_STEPS = (4, 1), 4  # part (b): qwen1.5-0.5b, 24 layers
+SHARDED_DENSE_MESH, SHARDED_DENSE_STEPS = (4, 1), 4  # part (b): qwen1.5-0.5b on 4 ranks
+SHARDED_DENSE_LAYERS = 4  # of 24: part (d) runs it at full depth tensor-parallel (time)
 SHARDED_MOE_MESH, SHARDED_MOE_STEPS = (1, 2), 3  # part (c): qwen3-moe, 64 experts a rank
 SHARDED_MOE_BATCH = TRAIN_BATCH  # rows of 256 tokens
 SHARDED_LOSS_REL = 1e-5  # both losses and the first grad norm (tests/test_torch_train_sharded.py)
 SHARDED_NORM2_REL = 5e-5  # the second grad norm, ranks against one process (same file)
 SHARDED_FULL_LOSS = 1e-2  # bf16 compute: 4 ranks' rows against one device's whole batch
 SHARDED_TIMEOUT = 900  # seconds for each spawn, start-up included
+# Part (d): tensor-parallel training at published widths, f32 compute
+# (arch, ("data", "model") mesh, layers: None the published depth). rwkv6
+# is cut to 16 of 32 layers: the dry run puts a rank of (1, 4) at 29.38 GB
+# at full depth (the time mix whole on every rank), 117.5 GB for the four
+# sharing the card; at 16 layers 15.95 GB, 63.8 GB for the four.
+TP_CASES = (("recurrentgemma-2b", (1, 4), None), ("rwkv6-3b", (1, 4), 16),
+            ("qwen1.5-0.5b", (2, 2), None))
+TP_STEPS = 2  # of TRAIN_BATCH x TRAIN_SEQ tokens: the first checked, the second measured
+# Part (d)'s bounds against the one-process run on the card (f32), each
+# case: (loss of step 1, loss of step 2, grad norm of step 1, of step 2,
+# share of the updated elements off by more than half an update), relative;
+# None: reported, not held. recurrentgemma and qwen1.5 read 0-1.3e-7 and
+# at most 3.5e-10 of the elements (measured on one H100). RWKV-6 at
+# published widths is chaotic in f32: its grad norm went 577 -> 193204 in
+# one process and 570 -> 589 tensor-parallel from the same first loss
+# (the second loss 2.6e-4 off, 20 % of the elements flipped by a step),
+# as its bf16 trainer's goes 10988 -> 199839 in four steps.
+TP_BOUNDS = {"rwkv6-3b": (1e-5, 1e-3, 5e-2, None, None)}
+TP_DEFAULT_BOUNDS = (1e-5, 1e-5, 1e-5, 1e-5, 1e-6)
 L2_BYTES = 50 * 2**20  # the H100's L2 (data sheet)
 SERVE_TP_RANKS = 4  # the serve_tp phase's gloo ranks, time-sharing the one card
 SERVE_TP_MESH = (1, SERVE_TP_RANKS)  # ("data", "model"): tensor-parallel over 4
 SERVE_FULL_ARCHS = ("glm4-9b", "nemotron-4-15b")  # served whole at published depth too
 SERVE_TP_ARCHS = ("recurrentgemma-2b", "qwen1.5-0.5b") + SERVE_FULL_ARCHS + (VISION_ARCH,
                                                                                "rwkv6-3b")
-SERVE_TP_LAYERS = {VISION_ARCH: 5}  # one superblock with its media path; the rest whole
+# One superblock of llama-vision with its media path; the others cut to
+# a few layers (time: the gloo phases run host-bound; serve_full serves
+# glm4 and nemotron whole, the serve phase the other three).
+SERVE_TP_LAYERS = {VISION_ARCH: 5, "glm4-9b": 4, "nemotron-4-15b": 4,
+                   "recurrentgemma-2b": 3, "qwen1.5-0.5b": 4, "rwkv6-3b": 4}
 SERVE_TP_PROMPT = 512
 SERVE_TP_STEPS = 8
 SERVE_TP_LEN = SERVE_TP_PROMPT + SERVE_TP_STEPS  # cache positions: 130 slots a rank
@@ -1242,6 +1280,8 @@ def _train_sharded_rank_body(rank, world, store, job):
 
     try:
         found = {}
+        if job["part"] == "tp":
+            return _train_tp_cases(rank, job, mesh_of, sync)
         if job["part"] == "smoke":
             meshes = {tuple(m): mesh_of(m) for m in job["meshes"]}
             for arch in job["archs"]:
@@ -1310,6 +1350,178 @@ def _train_sharded_rank_body(rank, world, store, job):
         return out
     finally:
         dist.destroy_process_group()
+
+
+def tp_train_cfg(arch, layers):
+    """Part (d)'s config: ``arch`` at published widths, float32 compute,
+    ``layers`` deep (None: the published depth)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def _train_tp_cases(rank, job, mesh_of, sync):
+    """Part (d) of the train_sharded phase, in each rank (on the card):
+    for each ``(arch, mesh, layers)`` of ``job["cases"]`` (:func:`tp_train_cfg`;
+    ``job["cfgs"]`` may replace the configs, for a rehearsal on the CPU),
+    first rank 0 alone runs TP_STEPS steps of the one-process trainer on
+    SyntheticLM batches of ``job["batch"]`` x TRAIN_SEQ tokens from SEED and
+    keeps its losses, grad norms and updated parameters on the host; then
+    every rank runs the same steps tensor-parallel on the mesh from the
+    same seed: the first with every K6, K7 and K7' launch held against its
+    plain version on the same inputs, the second timed, its collectives
+    tallied, its peak taken (``max_memory_allocated`` less the bytes held
+    before the state was built). Rank 0 gathers each updated leaf and
+    takes its largest error against the one-process run. Returns per case
+    the metrics of both runs, the errors, the launches, the tally, the
+    peaks and the host seconds a step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist.sharding import gather_to_host, tally_collectives
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru import ops as k6_ops
+    from repro_torch.kernels.rglru import rglru_seq_ref
+    from repro_torch.kernels.wkv6 import ops as k7_ops
+    from repro_torch.kernels.wkv6 import wkv6_backward_plain, wkv6_plain
+    from repro_torch.optim import optimizer_config_from_model
+    from repro_torch.optim.optimizers import schedule_lr
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.loop import train_shardings
+    from repro_torch.tree import tree_flatten
+
+    errs = {}
+    scan, fwd, bwd = k6_ops.rglru_scan_cuda, k7_ops.wkv6_cuda, k7_ops.wkv6_bwd_cuda
+
+    def worst(name, err, bound=None):
+        """The largest error of ``name``'s launches and its share of the bound."""
+        was = errs.get(name, (0.0, 0.0))
+        errs[name] = (max(was[0], err), max(was[1], err / bound if bound else 0.0))
+
+    def checked_scan(a, b, h0):  # K6 (forward, recompute, backward): bit for bit
+        out = scan(a, b, h0)
+        worst("rglru_scan_cuda", max((o - w).abs().max().item()
+                                     for o, w in zip(out, rglru_seq_ref(a, b, h0))))
+        return out
+
+    def checked_fwd(*args, chunk=64):  # K7: within K7_TOL of max|y| plus 1e-6
+        out = fwd(*args, chunk=chunk)
+        want = wkv6_plain(*args, chunk=chunk)
+        for o, w in zip(out, want):
+            worst("wkv6_cuda", (o - w).abs().max().item(),
+                  K7_TOL * w.abs().max().item() + 1e-6)
+        return out
+
+    def checked_bwd(*args, chunk=64):  # K7': the same bound, each gradient
+        out = bwd(*args, chunk=chunk)
+        for o, w in zip(out, wkv6_backward_plain(*args, chunk=chunk)):
+            worst("wkv6_bwd_cuda", (o - w).abs().max().item(),
+                  K7_TOL * w.abs().max().item() + 1e-6)
+        return out
+
+    cuda = job["device"] is None
+
+    def allocated():
+        return torch.cuda.memory_allocated() if cuda else 0
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else 0
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+
+    def release():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def host_step(fn):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    found = {}
+    for arch, shape, layers in job["cases"]:
+        cfg = job.get("cfgs", {}).get(arch) or tp_train_cfg(arch, layers)
+        opt = optimizer_config_from_model(cfg)
+        ds = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ, global_batch=job["batch"],
+                                    vocab_size=cfg.vocab_size, seed=SEED))
+        ref = {"loss": [], "grad_norm": []}
+        if rank == 0:  # the one-process run, the other ranks waiting
+            reset_peak()
+            held = allocated()
+            params, state = init_train_state(cfg, job["device"], seed=SEED)
+            step = make_train_step(cfg, opt)
+            for i in range(TP_STEPS):
+                params, state, m = step(params, state, ds.batch_at(i))
+                ref["loss"].append(float(m["loss"]))
+                ref["grad_norm"].append(float(m["grad_norm"]))
+            ref["peak_gb"] = (peak() - held) / 1e9
+            ref_leaves = [t.to("cpu", copy=True) for t in tree_flatten(params)[0]]
+            del params, state, step, m
+            release()
+        dist.barrier()
+        sync()
+        held = allocated()
+        mesh = mesh_of(shape)
+        params, state = init_train_state(cfg, seed=SEED, mesh=mesh)
+        step = make_train_step(cfg, opt, mesh=mesh)
+        out = {"loss": [], "grad_norm": [], "host_s": [], "held_gb": held / 1e9}
+        _build.reset_launches()
+        errs.clear()
+        k6_ops.rglru_scan_cuda, k7_ops.wkv6_cuda, k7_ops.wkv6_bwd_cuda = (
+            checked_scan, checked_fwd, checked_bwd)
+        try:
+            (params, state, m), dt = host_step(lambda: step(params, state, ds.batch_at(0)))
+        finally:
+            k6_ops.rglru_scan_cuda, k7_ops.wkv6_cuda, k7_ops.wkv6_bwd_cuda = scan, fwd, bwd
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["host_s"].append(dt)
+        del m
+        gc.collect()
+        reset_peak()
+        with tally_collectives() as tally:
+            (params, state, m), dt = host_step(lambda: step(params, state, ds.batch_at(1)))
+        out["peak_gb"] = (peak() - held) / 1e9
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["host_s"].append(dt)
+        out["launches"] = dict(_build.LAUNCHES)
+        out["kernel_errs"] = dict(errs)
+        out["tally"] = list(tally)
+        out["finite"] = bool(np.all(np.isfinite(out["loss"] + out["grad_norm"])))
+        # An update moves an element by at most lr_t a step (Adam's first
+        # steps are sign-like): an element whose gradient lies within the
+        # rounding of zero may move the other way in one run, a fault
+        # moves most elements of a leaf. The share off by half an update.
+        half = 0.5 * sum(float(schedule_lr(opt, torch.tensor(i + 1))) for i in range(TP_STEPS))
+        err, off, numel = 0.0, 0, 0
+        p_sh = tree_flatten(train_shardings(cfg, mesh, opt)[0])[0]
+        for i, (t, sh) in enumerate(zip(tree_flatten(params)[0], p_sh)):
+            # A leaf every rank holds whole (RWKV-6's time mix) is rank 0's own.
+            whole = (t.to("cpu") if rank == 0 else None) if sh.replicas == mesh.size \
+                else gather_to_host(t, sh)
+            if whole is not None:
+                diff = (whole.float() - ref_leaves[i].float()).abs()
+                err, off, numel = (max(err, diff.max().item()), off + int((diff > half).sum()),
+                                   numel + diff.numel())
+        if rank == 0:
+            out.update(ref=ref, param_max_abs_err=err, param_off_share=off / numel,
+                       half_update=half)
+            del ref_leaves
+        found[f"{arch} {tuple(shape)}"] = out
+        del params, state, step, m
+        release()
+        dist.barrier()
+    return found
 
 
 def serve_tp_cfg(arch):
@@ -1501,7 +1713,7 @@ def _serve_tp_rank_body(rank, world, store, job):
         dist.destroy_process_group()
 
 
-def serve_full_phase(dev, smi, predicted) -> tuple[list, dict]:
+def serve_full_phase(dev, smi, predicted) -> list:
     """glm4-9b and nemotron-4-15b served whole on the card at published
     widths and depth: at the published config (bf16 compute) a prefill of
     SERVE_TP_PROMPT tokens and SERVE_TP_STEPS decode tokens twice (the
@@ -1509,14 +1721,13 @@ def serve_full_phase(dev, smi, predicted) -> tuple[list, dict]:
     bytes held before the model was built against the dry run's (1, 1)
     predictions (``predicted``: futures by ``(arch, kind)``), seconds per
     prefill and per decode token beside the analytic bound; then the same
-    at float32 compute, whose logits (on the host) are the serve_tp
-    phase's reference. Returns ``(lines, {arch: logits})``."""
+    at float32 compute. Returns the phase's lines."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_cache, build_lm
 
-    lines, refs = [], {}
+    lines = []
     for arch in SERVE_FULL_ARCHS:
         cfg = get_config(arch)
         gc.collect()
@@ -1546,12 +1757,11 @@ def serve_full_phase(dev, smi, predicted) -> tuple[list, dict]:
             check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
             runs.append({"prefill_s": prefill_s, "decode_s": decode_s})
             del cache, logits
-        cfg32 = serve_tp_cfg(arch)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         ref, ref_prefill_s, ref_decode_s = serve_tp_run(
             cfg32, model, build_cache(cfg32, 1, SERVE_TP_LEN, device=dev), toks, None,
             torch.cuda.synchronize)
         check(bool(torch.isfinite(ref).all()), f"{arch}: non-finite float32 logits")
-        refs[arch] = ref.cpu().numpy()
         line = {"phase": "serve_full", "arch": arch, "device": smi, "reduced": None,
                 "params_gb": sum(p.numel() * p.element_size()
                                  for p in model.parameters()) / 1e9,
@@ -1577,15 +1787,15 @@ def serve_full_phase(dev, smi, predicted) -> tuple[list, dict]:
         del model, ref, toks
         gc.collect()
         torch.cuda.empty_cache()
-    return lines, refs
+    return lines
 
 
-def serve_tp_phase(dev, smi, refs, predicted, run_ranks) -> tuple[list, dict]:
+def serve_tp_phase(dev, smi, predicted, run_ranks) -> tuple[list, dict]:
     """Tensor-parallel serving on SERVE_TP_RANKS gloo ranks time-sharing the
     card on SERVE_TP_MESH (:func:`_serve_tp_rank_body`) for every arch of
     SERVE_TP_ARCHS, against the one-process logits at the same config and
-    depth (``refs``, from serve_full for its archs; the others computed
-    here first, on the card, and kept on the host before the ranks start):
+    depth (computed here first, on the card, and kept on the host before
+    the ranks start):
     the logits within SLICE_TOL of their largest, each rank's prefill peak
     against the dry run's prediction for that rank on the mesh
     (``predicted``: futures by ``(arch, rank)``) within DRYRUN_BAND, a
@@ -1602,9 +1812,8 @@ def serve_tp_phase(dev, smi, refs, predicted, run_ranks) -> tuple[list, dict]:
     from repro_torch.launch.dryrun import ring_wire_bytes, serve_wire_reckoning
     from repro_torch.models import build_cache, build_lm
 
+    refs = {}
     for arch in SERVE_TP_ARCHS:
-        if arch in refs:
-            continue
         cfg = serve_tp_cfg(arch)
         model = build_lm(cfg, SEED, device=dev)
         if cfg.frontend == "vision":
@@ -1622,10 +1831,11 @@ def serve_tp_phase(dev, smi, refs, predicted, run_ranks) -> tuple[list, dict]:
     ranks = run_ranks(_serve_tp_rank_body, SERVE_TP_RANKS, ROOT / "build" / "repro_torch",
                       {"device": None, "archs": SERVE_TP_ARCHS}, timeout=SERVE_TP_TIMEOUT)
     spawn_s = time.perf_counter() - t0
-    want = {"recurrentgemma-2b": {"rglru_scan_cuda": 18}, "rwkv6-3b": {"wkv6_cuda": 32}}
     lines, total, errors = [], {}, {"rglru_scan_cuda": 0.0, "wkv6_cuda": 0.0}
     for arch in SERVE_TP_ARCHS:
         cfg = serve_tp_cfg(arch)
+        want = {k: n for k, n in (("rglru_scan_cuda", cfg.layer_kinds.count("rglru")),
+                                  ("wkv6_cuda", cfg.layer_kinds.count("rwkv6"))) if n}
         got = [r[arch] for r in ranks]
         ref = refs[arch]
         err = float(np.abs(got[0]["logits"] - ref).max())
@@ -1635,7 +1845,7 @@ def serve_tp_phase(dev, smi, refs, predicted, run_ranks) -> tuple[list, dict]:
         reckoning = sorted(serve_wire_reckoning(cfg, "decode", SERVE_TP_MESH, 1, 1,
                                                 SERVE_TP_LEN))
         for r, g in enumerate(got):
-            check(g["launches"] == want.get(arch, {}),
+            check(g["launches"] == want,
                   f"serve_tp {arch} rank {r}: launches {g['launches']}")
             check(sorted(g["tally"]) == reckoning,
                   f"serve_tp {arch} rank {r}: a decode step's collectives differ from "
@@ -3738,13 +3948,13 @@ def main() -> int:
                 predicted[(arch, r)] = pool.submit(_dryrun_job, (
                     arch, SERVE_TP_LAYERS.get(arch), "prefill", SERVE_TP_PROMPT, 1,
                     {"compute_dtype": "float32"}, SERVE_TP_MESH, r))
-        full_lines, refs = serve_full_phase(dev, smi, predicted)
+        full_lines = serve_full_phase(dev, smi, predicted)
         for line in full_lines:
             emit(line)
-        tp_lines, serve_tp = serve_tp_phase(dev, smi, refs, predicted, run_ranks)
+        tp_lines, serve_tp = serve_tp_phase(dev, smi, predicted, run_ranks)
     for line in tp_lines:
         emit(line)
-    del refs, predicted
+    del predicted
     emit({"phase": "serve_tp", "seconds": time.perf_counter() - t_phase,
           "launches_summed": serve_tp["launches"], "kernel_errs": serve_tp["errors"]})
 
@@ -4153,6 +4363,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     work_dir = ROOT / "build" / "repro_torch"
+    # Part (d)'s peaks, predicted by the dry run in spawned children (no
+    # card) while parts (a)-(c) run: rank 0 of each case's mesh (every rank
+    # holds pieces of one shape).
+    tp_pool = concurrent.futures.ProcessPoolExecutor(
+        len(TP_CASES), mp_context=multiprocessing.get_context("spawn"))
+    tp_predicted = [tp_pool.submit(_dryrun_job, (arch, layers, "train", TRAIN_SEQ, TRAIN_BATCH,
+                                                 {"compute_dtype": "float32"}, shape, 0))
+                    for arch, shape, layers in TP_CASES]
     # (a) Smoke LMs at float32, every mesh, against one process on the card.
     smoke = run_ranks(_train_sharded_rank_body, SHARDED_RANKS, work_dir,
                       {"part": "smoke", "device": None, "archs": SHARDED_SMOKE,
@@ -4197,6 +4415,7 @@ def main() -> int:
             err = {"loss_rel": max(rel(a, b) for a, b in zip(got["loss"], ref["loss"])),
                    "grad_norm_1_rel": rel(got["grad_norm"][0], ref["grad_norm"][0]),
                    "grad_norm_2_rel": rel(got["grad_norm"][1], ref["grad_norm"][1])}
+
             leaves = tree_flatten(got["whole"])[0]
             check(len(leaves) == len(ref_leaves), f"train_sharded {key}: tree differs")
             err["leaf_max_abs"] = max(float(np.abs(a - b).max())
@@ -4220,7 +4439,7 @@ def main() -> int:
                           {"part": "full", "device": None, "cfg": cfg, "mesh": shape,
                            "steps": steps, "batch": batch}, timeout=SHARDED_TIMEOUT)
         spawn_s = time.perf_counter() - t0
-        wire = shard_wire_reckoning(cfg, shape, batch * TRAIN_SEQ)
+        wire = shard_wire_reckoning(cfg, shape, batch, TRAIN_SEQ)
         for rank, found in enumerate(ranks):
             check(found["finite"] and found["loss"] == ranks[0]["loss"],
                   f"train_sharded {cfg.name} rank {rank}: losses {found['loss']}")
@@ -4247,16 +4466,31 @@ def main() -> int:
                 "pieces_gb": [r["piece_gb"] for r in ranks],
                 "gather_bytes_per_step": ranks[0]["gather_bytes"],
                 "grad_sum_bytes_per_step": ranks[0]["grad_sum_bytes"],
-                "wire_reckoning": wire, "spawn_s": spawn_s,
+                "wire_reckoning": {k: wire[k] for k in ("gather", "grad_sum")},
+                "spawn_s": spawn_s,
                 "profiled_step_split": split,
                 "profiled_step_device_kernel_ms_sum": sum(sp["device_kernel_ms"] for sp in split)}
 
-    # (b) qwen1.5-0.5b at published widths, all 24 layers, on (4, 1).
+    # (b) qwen1.5-0.5b at published widths, 4 of 24 layers, on (4, 1),
+    # against one device's steps at that depth (bf16 compute).
     gc.collect()
     torch.cuda.empty_cache()
-    dense_cfg = get_config(DENSE_TRAIN_ARCH)
+    dense_full = get_config(DENSE_TRAIN_ARCH)
+    dense_cfg = dataclasses.replace(dense_full, n_layers=SHARDED_DENSE_LAYERS)
+    params, state = init_train_state(dense_cfg, dev, seed=SEED)
+    step = make_train_step(dense_cfg, optimizer_config_from_model(dense_cfg))
+    data = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  vocab_size=dense_cfg.vocab_size, seed=SEED))
+    one_device_loss = []
+    for i in range(SHARDED_DENSE_STEPS):
+        params, state, m = step(params, state, data.batch_at(i))
+        one_device_loss.append(float(m["loss"]))
+    del params, state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
     dense = full_sharded(dense_cfg, SHARDED_DENSE_MESH, SHARDED_DENSE_STEPS, TRAIN_BATCH)
-    dense["one_device_loss"] = trainers[DENSE_TRAIN_ARCH]["losses"][:SHARDED_DENSE_STEPS]
+    dense["reduced"] = {"n_layers": [dense_full.n_layers, SHARDED_DENSE_LAYERS]}
+    dense["one_device_loss"] = one_device_loss
     dense["loss_abs_err"] = max(abs(a - b) for a, b in zip(dense["loss"],
                                                            dense["one_device_loss"]))
     check(dense["loss_abs_err"] <= SHARDED_FULL_LOSS,
@@ -4275,6 +4509,86 @@ def main() -> int:
                                                                  moe_run["one_device_loss"]))
         check(moe_run["loss_abs_err"] <= SHARDED_FULL_LOSS,
               f"train_sharded {MOE_TRAIN_ARCH} against one device: {moe_run}")
+    # (d) Tensor-parallel training at published widths, f32 (TF32 off), 4
+    # gloo ranks: each case against one process on the card (rank 0, before
+    # the ranks start), K6 / K7 / K7' held against their plain versions at
+    # each launch of the first step, the second step's peak against the dry
+    # run and its collectives against the reckoning.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_ranks = run_ranks(_train_sharded_rank_body, SHARDED_RANKS, work_dir,
+                         {"part": "tp", "device": None, "cases": TP_CASES,
+                          "batch": TRAIN_BATCH}, timeout=SHARDED_TIMEOUT)
+    tp_s = time.perf_counter() - t0
+    tp_predicted = [f.result(timeout=DRYRUN_TIMEOUT) for f in tp_predicted]
+    tp_pool.shutdown()
+    tp_cases, tp_worst = {}, {}
+    for (arch, shape, layers), pred in zip(TP_CASES, tp_predicted):
+        cfg = tp_train_cfg(arch, layers)
+        key = f"{arch} {tuple(shape)}"
+        found = [r[key] for r in tp_ranks]
+        first = found[0]
+        ref = first["ref"]
+        rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+        case = {"layers": cfg.n_layers, "mesh": list(shape), "tokens": TRAIN_BATCH * TRAIN_SEQ,
+                "steps": TP_STEPS, "loss": first["loss"], "grad_norm": first["grad_norm"],
+                "one_process": ref,
+                "loss_rel_err": [rel(a, b) for a, b in zip(first["loss"], ref["loss"])],
+                "grad_norm_rel_err": [rel(a, b) for a, b in zip(first["grad_norm"],
+                                                                ref["grad_norm"])],
+                "param_max_abs_err": first["param_max_abs_err"],
+                "param_off_share": first["param_off_share"],
+                "half_update": first["half_update"],
+                "host_s_per_step": [r["host_s"] for r in found],
+                "launches_per_rank": first["launches"],
+                "kernel_errs": [r["kernel_errs"] for r in found]}
+        if layers:
+            case["reduced"] = {"n_layers": [get_config(arch).n_layers, layers]}
+        n_rglru, n_rwkv = cfg.layer_kinds.count("rglru"), cfg.layer_kinds.count("rwkv6")
+        want = {k: v * TP_STEPS for k, v in (("rglru_scan_cuda", 3 * n_rglru),
+                                             ("wkv6_cuda", 2 * n_rwkv),
+                                             ("wkv6_bwd_cuda", n_rwkv)) if v}
+        reckoning = shard_wire_reckoning(cfg, shape, TRAIN_BATCH, TRAIN_SEQ)["collectives"]
+        case["collectives"] = {"equal_to_reckoning": True}
+        for kind, nbytes, _ in reckoning:
+            row = case["collectives"].setdefault(kind, {"calls": 0, "payload_bytes": 0})
+            row["calls"] += 1
+            row["payload_bytes"] += nbytes
+        case["peak"] = {"predicted_gb": pred["peak_bytes"] / 1e9,
+                        "measured_gb": [r["peak_gb"] for r in found],
+                        "held_before_gb": [r["held_gb"] for r in found]}
+        case["peak"]["ratios"] = [case["peak"]["predicted_gb"] / m
+                                  for m in case["peak"]["measured_gb"]]
+        case["peak"]["summed_gb"] = sum(case["peak"]["measured_gb"])
+        for rank, r in enumerate(found):
+            check(r["finite"] and r["loss"] == first["loss"]
+                  and r["grad_norm"] == first["grad_norm"],
+                  f"train_sharded (d) {key} rank {rank}: metrics {r['loss']} {r['grad_norm']}")
+            check(r["launches"] == want, f"train_sharded (d) {key} rank {rank} launches "
+                  f"{r['launches']} != {want}")
+            check(sorted(map(tuple, r["tally"])) == sorted(reckoning),
+                  f"train_sharded (d) {key} rank {rank}: collectives differ from "
+                  f"shard_wire_reckoning")
+            for name, (err, share) in r["kernel_errs"].items():
+                check(err == 0 if name == "rglru_scan_cuda" else share <= 1,
+                      f"train_sharded (d) {key} rank {rank} {name}: {err} ({share} of its bound)")
+                tp_worst[name] = max(tp_worst.get(name, 0.0), err)
+            for k, v in r["launches"].items():
+                sharded_train_launches[k] = sharded_train_launches.get(k, 0) + v
+        check(set(first["kernel_errs"]) == set(want),
+              f"train_sharded (d) {key}: checked kernels {set(first['kernel_errs'])}")
+        check(all(DRYRUN_BAND[0] <= x <= DRYRUN_BAND[1] for x in case["peak"]["ratios"]),
+              f"train_sharded (d) {key}: peaks {case['peak']} (band {DRYRUN_BAND})")
+        # An element moves at most one learning rate a step: twice the
+        # steps' rates bound any run's difference (f32 rounding beside).
+        bounds = TP_BOUNDS.get(arch, TP_DEFAULT_BOUNDS)
+        case["bounds"] = bounds
+        got = case["loss_rel_err"] + case["grad_norm_rel_err"] + [case["param_off_share"]]
+        check(all(b is None or g <= b for g, b in zip(got, bounds))
+              and case["param_max_abs_err"] <= 4 * case["half_update"] * 1.01 + 1e-6,
+              f"train_sharded (d) {key} against one process: {case}")
+        tp_cases[key] = case
     emit({"phase": "train_sharded", "device": smi,
           "note": "gloo ranks time-sharing one card, collectives staged through host memory: "
                   "not a multi-GPU figure",
@@ -4283,7 +4597,12 @@ def main() -> int:
                     "errors_vs_one_process": smoke_err,
                     "launches_summed_over_ranks": sharded_train_launches,
                     "spawn_s": smoke_s},
-          "dense": dense, "moe": moe_run, "seconds": time.perf_counter() - t_phase})
+          "dense": dense, "moe": moe_run,
+          "tensor_parallel": {"cases": tp_cases, "spawn_s": tp_s,
+                              "bounds": "(loss 1, loss 2, grad norm 1, grad norm 2, share "
+                                        "off by half an update) relative; None: reported; "
+                                        "param_max_abs_err: twice the steps' learning rates"},
+          "seconds": time.perf_counter() - t_phase})
 
     # -- dryrun: each full-width step's peak, predicted on meta tensors ------------
     # The port's dry run of every full-width step measured above (the
@@ -4424,7 +4743,8 @@ def main() -> int:
              driver_launches[KERNEL_N_OUT], driver_err, sw_timing),
             ("rglru_scan_cuda", "src/repro/kernels/rglru/kernel.py:49",
              trainers[TRAIN_ARCH]["launches"]["rglru_scan_cuda"]
-             + sharded_train_launches.get("rglru_scan_cuda", 0), k6_err, k6_train_timing)):
+             + sharded_train_launches.get("rglru_scan_cuda", 0),
+             max(k6_err, tp_worst.get("rglru_scan_cuda", 0.0)), k6_train_timing)):
         kernels.append({
             "name": site, "route": "cuda",
             "source": ("src/repro_torch/csrc/rglru.cu" if site == "rglru_scan_cuda"
@@ -4441,7 +4761,7 @@ def main() -> int:
         t = {k: v for k, v in k7_train_timing[site].items() if k not in ("bytes", "flops")}
         kernels.append({"name": site, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": rwkv_launches[site] + sharded_train_launches.get(site, 0),
-                        "max_abs_err": worst[site], **t})
+                        "max_abs_err": max(worst[site], tp_worst.get(site, 0.0)), **t})
     for k in kernels:  # a time under its bound would make the bound no bound
         check(k["ms"] >= k["bound_ms"],
               f"{k['name']} ({k['replaces']}): {k['ms']} ms under its bound {k['bound_ms']} ms")

@@ -30,12 +30,14 @@ deep model code reads (:func:`_ambient_mesh`) without a mesh argument: the
 MoE takes its expert-parallel path under one.
 
 **Collectives with gradients.** :func:`gather_dim`, :func:`copy_to`,
-:func:`sum_over` and :func:`mean_over` are the collectives the
-expert-parallel MoE runs, written as autograd Functions (a plain
-collective carries no gradient): a gather's backward sums the gradient
-over the axes the caller names and keeps this rank's piece; *copy_to* is
-the identity forward and a sum backward, *sum_over* the reverse (the
-Megatron f and g).
+:func:`sum_over`, :func:`sum_scatter` and :func:`mean_over` are the
+collectives the tensor-parallel model code and the expert-parallel MoE
+run, written as autograd Functions (a plain collective carries no
+gradient): a gather's backward sums the gradient over the axes the caller
+names and keeps this rank's piece; *copy_to* is the identity forward and a
+sum backward, *sum_over* the reverse (the Megatron f and g); *sum_scatter*
+sums and keeps this rank's columns, and gathers the columns' gradients
+back.
 
 **Trees.** :class:`NamedSharding` is one tensor's placement (a mesh and
 a spec): :meth:`~NamedSharding.piece` cuts a rank's piece from the whole,
@@ -53,12 +55,14 @@ Not ported: ``constrain``. The JAX package annotates intermediates with
 sharding constraints for the GSPMD partitioner, which then splits the
 computation itself; a constraint never changes values. The port has no
 partitioner to steer: its model code carries out the ``model`` placements
-itself. The trainer computes each rank's rows of the batch with whole
-(gathered) weights; tensor-parallel serving (``lm_prefill`` /
-``lm_decode`` under :func:`use_mesh`) gathers only the data-axis pieces
-and computes each rank's share of the heads, ``mlp``, vocabulary and
-decode cache, combining partial results with :func:`sum_over` and
-:func:`gather_dim`.
+itself. The trainer and tensor-parallel serving (``lm_prefill`` /
+``lm_decode`` under :func:`use_mesh`) gather only the data-axis pieces
+and compute each rank's share of the heads, kv heads, ``mlp``,
+vocabulary and RG-LRU width (serving: and of the decode cache): a
+replicated activation enters a split region through :func:`copy_to`,
+partial results leave it through :func:`sum_over`, :func:`sum_scatter`
+or :func:`gather_dim`, and a branch the rules replicate is computed whole
+on every model rank, so its leaves' gradients come out equal there.
 """
 
 from __future__ import annotations
@@ -572,6 +576,22 @@ class _SumOver(torch.autograd.Function):
         return g, None, None
 
 
+class _SumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, blocks):
+        ctx.mesh, ctx.axes, ctx.blocks = mesh, axes, blocks
+        out = _SumOver.forward(ctx, t, mesh, axes)
+        index, count = _piece(mesh, axes, mesh.coords)
+        parts = out.unflatten(-1, (blocks, count, -1))[..., index, :]
+        return parts.flatten(-2).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, blocks = ctx.mesh, ctx.axes, ctx.blocks
+        whole = _all_gather_dim(g.unflatten(-1, (blocks, -1)), mesh, axes, -1)
+        return whole.flatten(-2), None, None, None
+
+
 class _MeanOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axes):
@@ -609,6 +629,16 @@ def sum_over(t: Tensor, mesh: Mesh, axes: Sequence[str]) -> Tensor:
     return _SumOver.apply(t, mesh, tuple(axes))
 
 
+def sum_scatter(t: Tensor, mesh: Mesh, axes: Sequence[str], blocks: int = 1) -> Tensor:
+    """Sum over ``axes``, then this rank's piece of the last dim of each of
+    its ``blocks`` equal blocks (the columns ``shard_param`` would cut with
+    the entry ``axes``), concatenated: a reduce-scatter, run as the sum of
+    :func:`sum_over` (gloo has no reduce-scatter) and a slice. Its backward
+    all-gathers the pieces' gradients into each block's whole columns, the
+    gradient of every rank's partial sum."""
+    return _SumScatter.apply(t, mesh, tuple(axes), blocks)
+
+
 def mean_over(t: Tensor, mesh: Mesh, axes: Sequence[str]) -> Tensor:
     """Mean over ``axes``, forward and backward (the derivative of the sum
     of every rank's loss)."""
@@ -632,13 +662,18 @@ def gather_param(piece: Tensor, sharding: NamedSharding, dtype=None, *,
     under ``sharding``: cast to ``dtype`` first (so the wire carries the
     compute dtype, as the JAX trainer's master-weight cast asks), then
     gathered whole over every mesh axis of its spec but those in ``keep``
-    (the expert-parallel MoE keeps its ``model`` piece of the experts).
+    (the tensor-parallel model code keeps its ``model`` pieces).
 
     Backward: the gradient is summed over every data axis of the mesh once
     (their ranks hold other rows of the batch) — by the gathers'
     reduce-scatter over the data axes the spec names, and by
-    :func:`copy_to` over the others — and over ``model`` it keeps this
-    rank's piece unsummed (every model rank computes the same gradient)."""
+    :func:`copy_to` over the others — and never over ``model``: a kept
+    ``model`` piece's gradient is this rank's share of the computation
+    (the model code sums a replicated activation's over ``model`` where it
+    enters a split region), and a leaf ``model`` does not split is read by
+    a branch computed whole on every model rank, whose gradient is equal
+    there; a leaf gathered over ``model`` keeps this rank's piece of the
+    gradient every model rank computes alike."""
     mesh, spec = sharding.mesh, sharding.spec
     x = piece.to(dtype) if dtype is not None and piece.is_floating_point() else piece
     dp = data_axes_of(mesh)

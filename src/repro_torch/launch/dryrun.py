@@ -53,14 +53,17 @@ variants and extrapolates because XLA's cost analysis counts a ``while``
 loop's body once. An eager trace runs every layer and every microbatch,
 so the counts are whole as they stand.
 
-**Serving as the port runs it.** A prefill or decode cell runs
-tensor-parallel (``models/lm.py``): the rank is handed its pieces of the
-weights and of the cache under the JAX decode-mode placements and its
-rows of the batch, each block gathers its data-axis pieces and computes
-its ``model`` share (heads, kv heads, ``mlp``, vocabulary, RG-LRU's
-width; the cache split by ``kv_seq``), and an MoE's experts take their
-expert-parallel path. The JSON says so in ``note``; the collectives of a
-serving step equal :func:`serve_wire_reckoning`.
+**Cells as the port runs them.** Every cell runs tensor-parallel
+(``models/lm.py``): the rank is handed its pieces of the weights (of the
+optimizer state and of the cache) under the JAX placements and its rows of
+the batch (a train cell: the global batch, whose rows the step takes),
+each block gathers its data-axis pieces and computes its ``model`` share
+(heads, kv heads, ``mlp``, vocabulary, RG-LRU's width; a train cell's
+loss on its vocabulary columns; a serving cell's cache split by
+``kv_seq``), and an MoE's experts take their expert-parallel path. The
+JSON says so in ``note``; the collectives of a train step equal
+:func:`shard_wire_reckoning`, of a serving step
+:func:`serve_wire_reckoning`.
 
 Usage::
 
@@ -94,7 +97,7 @@ from repro_torch.kernels import _build
 from repro_torch.launch.analytic import cell_flops, cell_hbm_bytes
 from repro_torch.launch.inputs import make_lowering_spec
 from repro_torch.models import layers as L
-from repro_torch.models.lm import shard_tree
+from repro_torch.models.lm import lm_meta, lm_stacked, shard_tree, stack_meta
 from repro_torch.obs import metrics
 from repro_torch.tree import tree_flatten, tree_leaves
 
@@ -119,69 +122,212 @@ def ring_wire_bytes(kind: str, payload: float, ranks: int) -> float:
     raise ValueError(f"no wire model for {kind!r}")
 
 
-def shard_wire_reckoning(cfg, shape, tokens: int) -> dict:
-    """The bytes one rank of a ``("data", "model")`` mesh of ``shape``
-    receives by the trainer's parameter gathers and hands to its gradient
-    sums in one step of ``tokens`` (the global batch's), one microbatch,
-    from the shapes alone: each leaf's ``spec_for``, the compute dtype, one
-    gather a use (a block's leaves twice with remat, the forward's and the
-    recompute's; a tied embedding at each end), one sum a use in the
-    backward (the whole gradient all-reduced: gloo has no reduce-scatter),
-    and a leaf that no data axis splits summed whole by its ``copy_to``.
-    An MoE layer's ``ffn`` takes the expert-parallel path: its router
-    gathered whole in float32, its expert and dense leaves over the data
-    axes only (their ``model`` piece kept), and the tokens (compute dtype)
-    and gates (float32) entering the expert region summed over ``model``
-    in the backward. ``gather`` is what the ``dist.gather.bytes`` counter
-    reads, ``grad_sum`` what ``dist.grad_sum.bytes`` reads."""
-    from repro_torch.dist.sharding import _is_axes_leaf, spec_for
+def shard_wire_reckoning(cfg, mesh_shape, batch: int, seq: int, microbatches: int = 1) -> dict:
+    """Every collective one rank runs in a train step (``make_train_step``
+    on a mesh) of a ``batch`` x ``seq`` global batch in ``microbatches``,
+    on a ``(data, model)`` or ``(pod, data, model)`` mesh of
+    ``mesh_shape``, from the shapes alone. Returns ``{"collectives":
+    [(kind, payload bytes, ranks in the group)], as
+    :func:`repro_torch.dist.sharding.tally_collectives` records them, "gather":
+    bytes, "grad_sum": bytes}``: the last two what the ``dist.gather.bytes``
+    and ``dist.grad_sum.bytes`` counters read. The rows, each microbatch:
+
+    * each parameter, where it is read (a block's twice with remat, the
+      forward's and the recompute's; a tied embedding at either end): cast
+      to the compute dtype, gathered over the data axes of its spec, one
+      all-gather an entry, ``model`` kept (``gather_param``); in the
+      backward, once, the gathered gradient summed over each entry's data
+      axes and a leaf no data axis splits summed whole (``copy_to``). An
+      MoE's ``ffn`` on its expert-parallel path: the router gathered whole
+      in float32, the expert and dense leaves over the data axes;
+    * where ``model`` splits them, each use: the vocabulary-parallel
+      embedding's sum; each attention's, FFN's, channel mix's (float32) and
+      RG-LRU's output sum, RG-LRU's gate products (float32, both in one
+      sum) and the MoE's expert sum, forward (twice with remat, but the
+      FFN's and the MoE's output sums: the recompute stops at the block's
+      last tensor saved for the backward, which comes before them); in the
+      backward each ``copy_to``'s sum: the input of split query heads, k
+      and v where their kv heads are replicated, of an FFN, a channel mix
+      (float32), RG-LRU (and its biases and ``lam``, float32) and of the
+      head, the MoE's tokens and gates (float32), and RG-LRU's gate
+      products' gradients gathered (float32); the blocked local path's
+      outputs gathered where its blocks are split, forward, and its q, k
+      and v summed, backward;
+    * the MoE's two aux statistics averaged over the data axes (forward)
+      and one again (backward);
+    * the loss: over a split vocabulary the row maxima (max) and two sums
+      (float32); the valid-token count (int64) and the loss summed over the
+      data axes;
+
+    and once a step the clip's sum of squares over the mesh and
+    Adafactor's sums over the ranks that split a leaf."""
+    from repro_torch.dist.sharding import _entry_axes, _is_axes_leaf, spec_for
     from repro_torch.models.lm import lm_axes, lm_meta
+    from repro_torch.optim import optimizer_config_from_model
 
-    sizes = dict(zip(("data", "model"), shape))
-    mesh = type("Shape", (), {"axis_names": tuple(sizes), "shape": tuple(shape)})()
-    itemsize = 4 if cfg.compute_dtype == "float32" else 2
-    got = {"gather": 0, "grad_sum": 0}
+    mesh_shape, axes = _mesh_of(None, mesh_shape)
+    sizes = dict(zip(axes, mesh_shape))
+    mesh = type("Shape", (), {"axis_names": axes, "shape": mesh_shape})()
+    mp = sizes["model"]
+    dp = tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
+    dp_n = math.prod(sizes[a] for a in dp)
+    c = 4 if cfg.compute_dtype == "float32" else 2
+    b = batch // math.prod(sizes[a] for a in _entry_axes(spec_for(("batch",), mesh, (batch,))[0]))
+    b //= microbatches
+    s, d, t = seq, cfg.d_model, b * seq
+    dh, h_all, k_all = cfg.head_dim, max(cfg.n_heads, cfg.pad_heads_to or 0), cfg.n_kv_heads
+    out: list = []
+    got = {"grad_sum": 0}
+    fwd = 2 if cfg.remat else 1
 
-    def add(ax_tree, m_tree, n_fwd, n_bwd, expert=False):
-        for ax, t in zip(tree_flatten(ax_tree, is_leaf=_is_axes_leaf)[0],
+    def rows(kind, payload, ranks, n=1, grad=False):
+        """``n`` collectives; ``grad``: a gradient's sum (``_grad_sum``)."""
+        out.extend([(kind, payload, ranks)] * n)
+        got["grad_sum"] += grad * n * payload
+
+    def param(ax, shape, n_fwd, width=c, keep=("model",)):
+        spec = spec_for(ax, mesh, shape)
+        size = math.prod(shape) * width // math.prod(
+            sizes[a] for e in spec for a in _entry_axes(e))
+        rest = [a for a in dp if a not in [a for e in spec for a in _entry_axes(e)]]
+        if rest:
+            rows("all_reduce", size, math.prod(sizes[a] for a in rest), grad=True)
+        for e in spec:
+            gathered = [a for a in _entry_axes(e) if a not in keep]
+            count = math.prod(sizes[a] for a in gathered)
+            if count == 1:
+                continue
+            rows("all_gather", size * count, count, n_fwd)
+            size *= count
+            summed = [a for a in gathered if a in dp]
+            if summed:
+                rows("all_reduce", size, math.prod(sizes[a] for a in summed), grad=True)
+
+    def tree(ax_tree, m_tree, n_fwd, **kw):
+        for ax, m in zip(tree_flatten(ax_tree, is_leaf=_is_axes_leaf)[0],
                          tree_flatten(m_tree)[0]):
-            spec = spec_for(ax, mesh, t.shape)
-            entries = [(e,) if isinstance(e, str) else tuple(e or ()) for e in spec]
-            width = 4 if expert and ax == ("fsdp", "experts") else itemsize  # router: f32
-            size = t.numel() * width // math.prod(sizes[a] for e in entries for a in e)
-            if sizes["data"] > 1 and not any("data" in e for e in entries):
-                got["grad_sum"] += n_bwd * size  # copy_to over the data axis
-            # One gather a sharded dim, in dim order (``model`` kept on the
-            # expert path); the backward of each sums over its data axes the
-            # gradient of its output, the later gathers' narrowing undone.
-            for e in entries:
-                gathered = [a for a in e if not (expert and a == "model" and ax != (
-                    "fsdp", "experts"))]
-                count = math.prod(sizes[a] for a in gathered)
-                if count == 1:
-                    continue
-                got["gather"] += n_fwd * size * (count - 1)
-                size *= count
-                if "data" in gathered and sizes["data"] > 1:
-                    got["grad_sum"] += n_bwd * size
+            param(ax, tuple(m.shape), n_fwd, **kw)
 
-    axes, meta = lm_axes(cfg), lm_meta(cfg)
-    ends = 2 if cfg.tied_embeddings else 1
-    add(axes["embed"], meta["embed"], ends, ends)
-    add(axes["final_norm"], meta["final_norm"], 1, 1)
-    if "head" in axes:
-        add(axes["head"], meta["head"], 1, 1)
-    n_fwd = 2 if cfg.remat else 1
-    for kind, ax, m in zip(cfg.layer_kinds, axes["blocks"], meta["blocks"]):
-        moe = bool(cfg.n_experts) and kind != "rwkv6"
-        add({k: v for k, v in ax.items() if not (moe and k == "ffn")},
-            {k: v for k, v in m.items() if not (moe and k == "ffn")}, n_fwd, 1)
-        if moe:
-            add(ax["ffn"], m["ffn"], n_fwd, 1, expert=True)
-            if sizes["model"] > 1:
-                t_loc = tokens // sizes["data"]
-                got["grad_sum"] += t_loc * cfg.d_model * itemsize + t_loc * cfg.top_k * 4
-    return got
+    def model_sum(nbytes, n=fwd):
+        """A ``sum_over`` of ``nbytes``, each forward."""
+        rows("all_reduce", nbytes, mp, n)
+
+    def model_copy(nbytes, n=1):
+        """A ``copy_to``'s backward sum of ``nbytes``."""
+        rows("all_reduce", nbytes, mp, n, grad=True)
+
+    split = (lambda n: mp > 1 and n % mp == 0)
+    h_split, k_split = split(h_all), split(k_all)
+    ax, meta = lm_axes(cfg), lm_meta(cfg)
+    head = "embed" if cfg.tied_embeddings else "head"
+    for _ in range(microbatches):
+        if cfg.frontend != "audio":
+            tree(ax["embed"], meta["embed"], 1)
+            if split(cfg.vocab_size):
+                model_sum(t * d * c, 1)
+        for kind, a, m in zip(cfg.layer_kinds, ax["blocks"], meta["blocks"]):
+            moe = bool(cfg.n_experts) and kind != "rwkv6"
+            for part in ("norm1", "mixer", "norm2", "ffn"):
+                if not (part == "ffn" and moe and "model" in sizes):
+                    tree(a[part], m[part], fwd)
+            if kind in ("attn", "local_attn", "cross_attn"):
+                kv_len = cfg.num_media_tokens if kind == "cross_attn" and cfg.frontend == \
+                    "vision" else s
+                if h_split:
+                    model_sum(t * d * c)                      # wo's partial outputs
+                    model_copy(t * d * c)                     # x into the query heads
+                    if not k_split:
+                        model_copy(b * kv_len * k_all * 2 * dh * c)  # k and v
+                bs = (L._pick_block_size(s, cfg.window) if kind != "cross_attn" and cfg.causal
+                      and cfg.window and s > L.FLASH_THRESHOLD else None)
+                if bs and not h_split and split(s // bs):  # the blocked path's blocks
+                    rows("all_gather", t * h_all * dh * c, mp, fwd)
+                    model_copy(t * h_all * dh * c, 3)         # q, k and v
+            elif kind == "rglru" and split(cfg.rnn_width):
+                model_sum(t * 2 * cfg.rnn_width * 4)          # the gate products
+                model_sum(t * d * c)                          # w_out's partial outputs
+                model_copy(t * d * c)                         # x
+                model_copy(3 * cfg.rnn_width * 4)             # b_a, b_x, lam
+                rows("all_gather", t * 2 * cfg.rnn_width * 4, mp)
+            if kind == "rwkv6":
+                if split(cfg.d_ff):
+                    model_sum(t * d * 4)
+                    model_copy(t * d * 4)
+            elif moe:
+                e = cfg.n_experts
+                if "model" in sizes and e % mp == 0:
+                    param(a["ffn"]["router"], tuple(m["ffn"]["router"].shape), fwd, width=4,
+                          keep=())
+                    for n in ("w1", "w3", "w2"):
+                        param(a["ffn"][n], tuple(m["ffn"][n].shape), fwd)
+                    if "dense" in m["ffn"]:
+                        tree(a["ffn"]["dense"], m["ffn"]["dense"], fwd)
+                    model_sum(t * d * c, 1)                   # the experts' outputs
+                    model_copy(t * d * c)                     # the tokens
+                    model_copy(t * cfg.top_k * 4)             # the gates
+                elif "model" in sizes:
+                    tree(a["ffn"], m["ffn"], fwd, keep=())
+                if dp:
+                    rows("all_reduce", e * 4, dp_n, 2 * fwd + 1)
+            elif split(cfg.d_ff):
+                model_sum(t * d * c, 1)
+                model_copy(t * d * c)
+        tree(ax["final_norm"], meta["final_norm"], 1)
+        tree(ax[head], meta[head], 1)
+        if split(cfg.vocab_size):
+            model_copy(t * d * c)                             # x into the head
+            rows("all_reduce", t * 4, mp, 3)                  # the loss's max and two sums
+        if dp:
+            rows("all_reduce", 8, dp_n)                       # the valid-token count
+            rows("all_reduce", 4, dp_n)                       # the loss
+    rows("all_reduce", 4, math.prod(mesh_shape))              # the clip's sum of squares
+    out.extend(_adafactor_rows(cfg, optimizer_config_from_model(cfg), mesh, sizes))
+    gather = sum(p * (r - 1) // r for k, p, r in out if k == "all_gather")
+    return {"collectives": out, "gather": gather, "grad_sum": got["grad_sum"]}
+
+
+def _adafactor_rows(cfg, opt_cfg, mesh, sizes) -> list:
+    """The sums over ranks of one Adafactor update (``optim/optimizers.py``:
+    ``_adafactor_sliced``) on ``mesh``: for each leaf that ranks split or
+    that is past ``SLICE_ELEMENTS``, a factored one's row and column
+    sums of ``g^2`` and the mean of its row statistic over the ranks that
+    split the reduced dim, then every leaf's sum of squares of its update
+    over the ranks that split it (float32). None for AdamW."""
+    from repro_torch.dist.sharding import _entry_axes
+    from repro_torch.optim.optimizers import SLICE_ELEMENTS, make_optimizer
+    from repro_torch.train.loop import _group_shardings, _leaf_groups, train_shardings
+
+    if opt_cfg.name != "adafactor":
+        return []
+    p_sh, o_sh = train_shardings(cfg, mesh, opt_cfg)
+    meta = lm_meta(cfg)
+    state = make_optimizer(opt_cfg)[0](lm_stacked(cfg, meta, stack_meta))
+    vr_sh, vc_sh = tree_leaves(o_sh.vr), tree_leaves(o_sh.vc)
+    vrs, vcs = tree_leaves(state.vr), tree_leaves(state.vc)
+    out = []
+
+    def total(*entries):
+        return math.prod(sizes[a] for e in entries for a in _entry_axes(e))
+
+    def add(nbytes, ranks):
+        if ranks > 1:
+            out.append(("all_reduce", nbytes, ranks))
+
+    for i, ((ps, stacked), sh) in enumerate(zip(_leaf_groups(cfg, opt_cfg, meta),
+                                                _group_shardings(cfg, opt_cfg, p_sh))):
+        if sh.replicas == math.prod(sizes.values()):
+            continue  # whole on every rank: sliced, if at all, with no sums
+        shape = ((len(ps),) if stacked else ()) + tuple(ps[0].shape)
+        spec, nd = sh.spec, len(shape)
+        if (nd >= 2 and shape[-1] >= 2 and shape[-2] >= 2
+                and math.prod(shape) >= opt_cfg.factored_threshold):
+            vr = vr_sh[i].piece_shape(vrs[i].shape)
+            vc = vc_sh[i].piece_shape(vcs[i].shape)
+            add(math.prod(vr) * 4, total(spec[nd - 1]))
+            add(math.prod(vc) * 4, total(spec[nd - 2]))
+            add(math.prod(vr[:-1]) * 4, total(spec[nd - 2]))
+        add(4, total(*spec))
+    return out
 
 
 def serve_wire_reckoning(cfg, kind: str, mesh_shape, batch: int, seq: int, length: int) -> list:
@@ -465,10 +611,15 @@ def _rank_step(cfg, shape, mesh: Mesh):
     """``(spec, args, labels, note)``: the cell's step, the arguments this
     rank hands it with a category for each, and how a serving cell runs."""
     spec = make_lowering_spec(cfg, shape, mesh)
+    experts = "; the experts split over model (expert-parallel)" if cfg.n_experts else ""
     if shape.kind == "train":
         params, state = (shard_tree(a, s) for a, s in zip(spec.args[:2], spec.in_shardings[:2]))
+        note = ("tensor-parallel training: the rank's pieces of the weights and the optimizer "
+                "state under the train-mode placements (heads, kv heads, mlp and vocab over "
+                "model, fsdp over the data axes), its rows of the global batch, its model "
+                "share of each block and a vocabulary-parallel loss" + experts)
         return spec, (params, state, spec.args[2]), ("parameters", "optimizer_state",
-                                                     "batch"), None
+                                                     "batch"), note
     spec.meta["rank_rows"] = spec.in_shardings[1].piece_shape((shape.global_batch,))[0]
     args = tuple(a if sh is None else shard_tree(a, sh)
                  for a, sh in zip(spec.args, spec.in_shardings))
@@ -477,8 +628,7 @@ def _rank_step(cfg, shape, mesh: Mesh):
         labels = ("parameters", "batch", "cache", None)
     note = ("tensor-parallel serving: the rank's pieces of the weights and the cache under "
             "the decode-mode placements (heads, kv heads, mlp, vocab and the cache's kv_seq "
-            "over model, fsdp over the data axes) and its rows of the batch"
-            + ("; the experts split over model (expert-parallel)" if cfg.n_experts else ""))
+            "over model, fsdp over the data axes) and its rows of the batch" + experts)
     return spec, args, labels, note
 
 

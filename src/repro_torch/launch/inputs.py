@@ -20,10 +20,11 @@ allocated. For each cell:
 
 ``mesh`` is a :class:`~repro_torch.dist.sharding.Mesh`, or anything with
 ``axis_names`` and ``shape`` (enough for placements). Every step is built
-for ``mesh`` when it is a ``Mesh`` of several ranks: each rank then passes
-its pieces of the parameters and the state and the global batch (train),
-or its pieces of the parameters, the cache and the batch's rows (prefill
-and decode, which run tensor-parallel under the mesh), each argument's
+for ``mesh`` when it is a ``Mesh`` of several ranks, and runs
+tensor-parallel there: each rank passes its pieces of the parameters and
+the state and the global batch (train: the step takes the rows its
+``in_shardings`` place on the rank), or its pieces of the parameters, the
+cache and the batch's rows (prefill and decode), each argument's
 ``in_shardings`` ``piece``. Nothing here allocates device memory.
 """
 

@@ -29,15 +29,19 @@ there:
   same output (zero) on a row with no visible key. The JAX package's
   sharding constraints are dropped: there is no partitioner to steer.
 
-* Tensor-parallel serving (``mesh=``, which ``lm_prefill`` and
-  ``lm_decode`` pass under an ambient mesh): the layers take this rank's
-  pieces of their weights under the JAX package's decode-mode placements
-  and carry out the ``model`` splits themselves. A dim split over
-  ``model`` shows as a local size below the config's (the data axes are
-  gathered before a block runs); a dim the rules replicate stays whole
-  and its branch is computed whole on every model rank, never summed over
-  ``model``. Query heads, kv heads and the FFN's hidden dim take their
-  local slice; ``wo`` and ``w2`` contract over it and
+* Tensor-parallel serving and training (``mesh=``, which ``lm_prefill``,
+  ``lm_decode`` and the sharded trainer's ``lm_forward_train`` pass): the
+  layers take this rank's pieces of their weights under the JAX package's
+  placements (train and decode mode place every parameter alike) and
+  carry out the ``model`` splits themselves. A dim split over ``model``
+  shows as a local size below the config's (the data axes are gathered
+  before a block runs); a dim the rules replicate stays whole and its
+  branch is computed whole on every model rank, never summed over
+  ``model``, so its weights' gradients come out equal there. Query heads,
+  kv heads and the FFN's hidden dim take their local slice: a replicated
+  activation enters through :func:`~repro_torch.dist.sharding.copy_to`
+  (Megatron's f: identity forward, its gradient summed over ``model``),
+  ``wo`` and ``w2`` contract over the slice and
   :func:`~repro_torch.dist.sharding.sum_over` combines the partial
   outputs (Megatron's g). The caches split by the same rules
   (:func:`cache_split`): ``kv_seq`` takes ``model`` before ``kv_heads``,
@@ -73,7 +77,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import all_reduce, gather_dim, spec_for, sum_over
+from repro_torch.dist.sharding import all_reduce, copy_to, gather_dim, spec_for, sum_over
 from repro_torch.tree import tree_map
 
 Tensor = torch.Tensor
@@ -245,19 +249,33 @@ def init_attention(cfg: ModelConfig, ini: Init, *, cross: bool = False) -> dict[
     return p
 
 
-def _project_qkv(cfg: ModelConfig, p, x: Tensor, memory: Tensor | None = None):
+def _project_qkv(cfg: ModelConfig, p, x: Tensor, memory: Tensor | None = None, mesh=None):
     """q from ``x``; k and v from ``memory`` when given (cross-attention),
-    else from ``x``."""
+    else from ``x``. Where ``model`` splits the query heads (``p`` this
+    rank's pieces), the projections enter the split region through
+    :func:`~repro_torch.dist.sharding.copy_to` (Megatron's f): the input of
+    the query heads and, where the kv heads split too, of the kv heads;
+    where they do not, k and v are projected whole, a replicated branch,
+    and enter the region after it (each rank's query heads read some of
+    them, so their gradients sum over ``model``)."""
     cdt = dt(cfg, "compute")
     x = x.to(cdt)
     src = x if memory is None else memory.to(cdt)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
+    h_split = p["wq"].shape[1] < max(cfg.n_heads, cfg.pad_heads_to or 0)
+    k_split = p["wk"].shape[1] < cfg.n_kv_heads
+    xq = copy_to(x, mesh, ("model",)) if h_split else x
+    if k_split:
+        src = xq if memory is None else copy_to(src, mesh, ("model",))
+    q = torch.einsum("bsd,dhk->bshk", xq, p["wq"].to(cdt))
     k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(cdt))
     v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(cdt))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
+    if h_split and not k_split:
+        kv = copy_to(torch.cat([k, v], dim=-1), mesh, ("model",))
+        k, v = kv[..., :k.shape[-1]], kv[..., k.shape[-1]:]
     return q, k, v
 
 
@@ -466,6 +484,10 @@ def _local_attention_blocked(q: Tensor, k: Tensor, v: Tensor, *, window: int,
     if blocks_split(mesh, nb):
         mp, j = model_split(mesh)
         lo, hi = j * nb // mp, (j + 1) * nb // mp
+        # Each rank's blocks read a part of q, k and v: they enter the
+        # split region through copy_to, and the gather below returns each
+        # rank its blocks' gradient.
+        qb, kb, vb = (copy_to(t, mesh, ("model",)) for t in (qb, kb, vb))
 
     def shift(x, by):
         """Blocks ``[lo - by, hi - by)`` of ``x``, zeros before the start."""
@@ -512,7 +534,7 @@ def attention_apply(cfg: ModelConfig, p, x: Tensor, *, window: int = 0,
     cdt = dt(cfg, "compute")
     _, s, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    q, k, v = _project_qkv(cfg, p, x, memory if cross else None)
+    q, k, v = _project_qkv(cfg, p, x, memory if cross else None, mesh)
     h_off, h_all, k_off, k_all = _heads(cfg, p, mesh)
     group = h_all // k_all
     h_n = q.shape[2]
@@ -575,10 +597,10 @@ def attention_out(cfg: ModelConfig, p, out: Tensor, *, h_off: int = 0, mesh=None
         head_mask = ((heads % g_new) < g_real).to(out.dtype)
         out = out * head_mask[None, None, :, None]
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
-    if cross and "gate" in p:
-        y = torch.tanh(p["gate"].to(torch.float32)).to(cdt) * y
     if out.shape[2] < h_all:
         y = sum_over(y, mesh, ("model",))
+    if cross and "gate" in p:  # after the sum: the gate's gradient reads the whole output
+        y = torch.tanh(p["gate"].to(torch.float32)).to(cdt) * y
     return y
 
 
@@ -766,10 +788,13 @@ def init_ffn(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
 
 def apply_ffn(cfg: ModelConfig, p, x: Tensor, mesh=None) -> Tensor:
     """The dense FFN; with ``mesh``, ``w1``/``w3`` this rank's columns and
-    ``w2`` its rows where ``model`` splits the hidden dim, the partial
-    outputs summed over ``model``."""
+    ``w2`` its rows where ``model`` splits the hidden dim: ``x`` enters
+    through ``copy_to`` and the partial outputs are summed over
+    ``model``."""
     cdt = dt(cfg, "compute")
     x = x.to(cdt)
+    if p["w2"].shape[0] < cfg.d_ff:
+        x = copy_to(x, mesh, ("model",))
     h = x @ p["w1"].to(cdt)
     if cfg.activation == "swiglu":
         h = F.silu(h) * (x @ p["w3"].to(cdt))

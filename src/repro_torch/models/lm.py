@@ -13,7 +13,8 @@ JAX package; the trainer gives it a zero gradient). :func:`build_lm` returns an
 :class:`LM` module whose blocks stand in layer order, the block pattern
 cycled to ``n_layers``; the JAX package's scan over stacked superblocks
 becomes a plain loop over an ``nn.ModuleList``, and its sharding
-constraints are dropped (the port has no partitioner to steer).
+constraints are dropped: the port has no partitioner to steer, and on a
+mesh its layers carry out the placements themselves.
 
 Logical axes and shapes: :func:`lm_axes` gives every parameter's JAX
 logical axes in the per-layer layout (from each block kind's table beside
@@ -44,6 +45,14 @@ their own) and computes its ``model`` share (``layers`` and
 ``model``, the head gives this rank's vocabulary columns, gathered into
 the ``(B, V)`` logits both steps return. The logits equal the one-process
 path's; each rank stores and computes its share.
+
+**Tensor-parallel training** runs the same blocks (:func:`_run_blocks`,
+one block function for both) on the trainer's pieces
+(:func:`lm_forward_train` with ``shardings``), under autograd: each
+replicated activation enters a split region through ``copy_to``, and the
+logits stay this rank's vocabulary columns, which
+:func:`token_nll_sharded` turns into the loss without a ``(B, S, V)``
+tensor on any rank.
 
 A cache (:func:`build_cache`) is a list with one entry per layer; a
 ``cross_attn`` layer's holds the media keys and values ``{"k", "v"}``
@@ -83,6 +92,8 @@ from repro_torch.dist.sharding import (
     NamedSharding,
     _ambient_mesh,
     _is_axes_leaf,
+    all_reduce,
+    copy_to,
     gather_dim,
     gather_param,
     spec_for,
@@ -418,7 +429,7 @@ def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill, memory=No
         else:
             y, _ = L.attention_apply(cfg, p["mixer"], h, window=cfg.window, mesh=mesh)
             if prefill:
-                _, k, v = L._project_qkv(cfg, p["mixer"], h)
+                _, k, v = L._project_qkv(cfg, p["mixer"], h, mesh=mesh)
                 if cfg.rope:
                     k = L.rope_rotate(k, torch.arange(h.shape[1], device=h.device),
                                       cfg.rope_theta)
@@ -431,7 +442,7 @@ def _apply_block(cfg, kind: str, p, x: Tensor, *, cache, pos, prefill, memory=No
             if prefill:
                 # Without memory the keys and values are the prompt's: the
                 # entry is replaced, shape and all, as in the JAX package.
-                _, k, v = L._project_qkv(cfg, p["mixer"], h, memory)
+                _, k, v = L._project_qkv(cfg, p["mixer"], h, memory, mesh)
                 new_cache = L.cross_cache_fill(cfg, cache, k, v, mesh=mesh)
     elif kind == "rglru":
         y, c2 = R.apply_rglru(cfg, p["mixer"], h, cache=None if prefill else cache, mesh=mesh)
@@ -470,38 +481,58 @@ def _cross_attn_cached(cfg, p, x: Tensor, cache: dict, mesh=None) -> Tensor:
     return L.attention_out(cfg, p, out, h_off=h_off, mesh=mesh, cross=True)
 
 
-def _rank_block(cfg, kind: str, p, shardings: dict, mesh) -> dict:
+def _gathered(tree, shardings, dtype=None):
+    """``tree`` (this rank's pieces: a tensor or a dict of them) with its
+    data-axis pieces gathered and its ``model`` pieces kept
+    (:func:`~repro_torch.dist.sharding.gather_param`, cast to ``dtype``
+    first where given)."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [gather_param(t, sh, dtype, keep=("model",))
+                                    for t, sh in zip(leaves, tree_leaves(shardings))])
+
+
+def _rank_block(cfg, kind: str, p, shardings: dict, mesh, dtype=None) -> dict:
     """Block ``p`` (this rank's pieces) with its data-axis pieces gathered
-    and its ``model`` pieces kept: what the block computes with. Under a
-    ``model`` axis an MoE's parameters stay pieces (``apply_moe`` gathers
-    them on its expert-parallel path)."""
+    and its ``model`` pieces kept: what the block computes with (cast to
+    ``dtype`` before the wire where given: the trainer's compute dtype).
+    Under a ``model`` axis an MoE's parameters stay pieces (``apply_moe``
+    gathers them on its expert-parallel path)."""
     out = {}
     for part in Block.PARTS:
         tree = p[part].tree() if isinstance(p[part], L.Params) else p[part]
         if part == "ffn" and cfg.n_experts and kind != "rwkv6" and "model" in mesh.axis_names:
-            out[part] = tree
-            continue
-        leaves, treedef = tree_flatten(tree)
-        shs = tree_leaves(shardings[part])
-        out[part] = tree_unflatten(treedef, [gather_param(t, sh, keep=("model",))
-                                             for t, sh in zip(leaves, shs)])
+            out[part] = tree if dtype is None else tree_map(lambda t: t.to(dtype), tree)
+        else:
+            out[part] = _gathered(tree, shardings[part], dtype)
     return out
 
 
 def _run_blocks(cfg, params, x: Tensor, *, memory=None, cache=None, pos=None, prefill=False,
-                shardings=None):
+                shardings=None, dtype=None, remat=False):
     """Every block in layer order -> ``(x, new cache, aux summed over
-    layers)``; with ``shardings`` (:func:`serving_shardings` on the
-    ambient mesh), tensor-parallel on this rank's pieces."""
+    layers)``; with ``shardings`` (:func:`serving_shardings`, or the
+    trainer's placements) tensor-parallel on this rank's pieces, each
+    block's gathered inside its own function (:func:`_rank_block`, cast to
+    ``dtype``), so the remat recompute gathers again and no gathered block
+    outlives its use. ``remat``: each block under ``torch.utils.checkpoint``
+    (:func:`lm_forward_train`)."""
     mesh = shardings["embed"].mesh if shardings is not None else None
+    # The backward's recompute runs after the caller's ``use_mesh`` block
+    # has exited: each block re-installs the mesh it ran under.
+    ambient = _ambient_mesh()
+    context = _remat_context(cfg) if remat else None
     new_cache = [] if cache is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["blocks"])):
-        if mesh is not None:
-            p = _rank_block(cfg, kind, p, shardings["blocks"][i], mesh)
-        x, c, aux = _apply_block(cfg, kind, p, x, cache=None if cache is None else cache[i],
-                                 pos=pos, prefill=prefill, memory=memory, mesh=mesh)
-        del p
+        def block(x, memory, i=i, kind=kind, p=p):
+            with use_mesh(ambient):
+                if mesh is not None:
+                    p = _rank_block(cfg, kind, p, shardings["blocks"][i], mesh, dtype)
+                return _apply_block(cfg, kind, p, x, cache=None if cache is None else cache[i],
+                                    pos=pos, prefill=prefill, memory=memory, mesh=mesh)
+
+        x, c, aux = (checkpoint(block, x, memory, use_reentrant=False, context_fn=context)
+                     if remat else block(x, memory))
         if aux is not None:
             aux_total = aux_total + aux
         if cache is not None:
@@ -509,17 +540,17 @@ def _run_blocks(cfg, params, x: Tensor, *, memory=None, cache=None, pos=None, pr
     return x, new_cache, aux_total
 
 
-def _table(params, name: str, shardings):
+def _table(params, name: str, shardings, dtype=None):
     """``params[name]``, its data-axis pieces gathered under ``shardings``."""
     t = params[name]
-    return t if shardings is None else gather_param(t, shardings[name], keep=("model",))
+    return t if shardings is None else _gathered(t, shardings[name], dtype)
 
 
-def _embed(cfg, params, tokens: Tensor, shardings=None) -> Tensor:
+def _embed(cfg, params, tokens: Tensor, shardings=None, dtype=None) -> Tensor:
     if cfg.frontend == "audio":
         # Precomputed frame embeddings (the conv feature extractor is a stub).
         return tokens.to(L.dt(cfg, "compute"))
-    table = _table(params, "embed", shardings)
+    table = _table(params, "embed", shardings, dtype)
     n = table.shape[0]
     if n == cfg.vocab_size:
         # Gather, then cast: the same values as casting the table first.
@@ -533,15 +564,25 @@ def _embed(cfg, params, tokens: Tensor, shardings=None) -> Tensor:
     return sum_over(torch.where(mine[..., None], rows, 0), mesh, ("model",))
 
 
-def _logits(cfg, params, x: Tensor, shardings=None) -> Tensor:
+def _logits(cfg, params, x: Tensor, shardings=None, dtype=None) -> Tensor:
+    """The logits of ``x``: this rank's vocabulary columns where ``model``
+    splits the head (``x`` entering through ``copy_to``)."""
     cdt = L.dt(cfg, "compute")
+    name = "embed" if cfg.tied_embeddings else "head"
+    w = _table(params, name, shardings, dtype).to(cdt)
+    if shardings is not None and w.numel() < cfg.vocab_size * cfg.d_model:
+        x = copy_to(x, shardings[name].mesh, ("model",))
     if cfg.tied_embeddings:
-        out = torch.einsum("bsd,vd->bsv", x, _table(params, "embed", shardings).to(cdt))
-    else:
-        out = torch.einsum("bsd,dv->bsv", x, _table(params, "head", shardings).to(cdt))
-    if out.shape[-1] < cfg.vocab_size:  # this rank's vocabulary columns
-        out = gather_dim(out, shardings["embed"].mesh, ("model",), 2)
-    return out
+        return torch.einsum("bsd,vd->bsv", x, w)
+    return torch.einsum("bsd,dv->bsv", x, w)
+
+
+def _whole_vocab(cfg, logits: Tensor, shardings) -> Tensor:
+    """Serving's logits over the whole vocabulary: this rank's columns
+    gathered over ``model`` where they are a share."""
+    if logits.shape[-1] < cfg.vocab_size:
+        return gather_dim(logits, shardings["embed"].mesh, ("model",), logits.ndim - 1)
+    return logits
 
 
 def _serving(cfg):
@@ -575,7 +616,7 @@ def lm_prefill(cfg: ModelConfig, model: LM, tokens: Tensor, cache: list, *,
     x, cache, _ = _run_blocks(cfg, model, x, memory=memory, cache=cache, prefill=True,
                               shardings=sh)
     x = L.apply_norm(cfg, model["final_norm"], x)
-    return _logits(cfg, model, x[:, -1:, :], sh)[:, 0], cache
+    return _whole_vocab(cfg, _logits(cfg, model, x[:, -1:, :], sh)[:, 0], sh), cache
 
 
 @torch.no_grad()
@@ -591,7 +632,7 @@ def lm_decode(cfg: ModelConfig, model: LM, token: Tensor, cache: list, pos: int,
     x, cache, _ = _run_blocks(cfg, model, x, memory=memory, cache=cache, pos=int(pos),
                               shardings=sh)
     x = L.apply_norm(cfg, model["final_norm"], x)
-    return _logits(cfg, model, x, sh)[:, 0], cache
+    return _whole_vocab(cfg, _logits(cfg, model, x, sh)[:, 0], sh), cache
 
 
 # ---------------------------------------------------------------------------
@@ -621,45 +662,31 @@ def _remat_context(cfg: ModelConfig):
 
 
 def lm_forward_train(cfg: ModelConfig, params, tokens: Tensor, *, memory: Tensor | None = None,
-                     whole=None):
+                     shardings=None):
     """The forward under autograd: ``(logits (B, S, V), aux)``, gradients
     flowing to every tensor of ``params`` (a tree, :func:`lm_params`) that
     requires them (the audio frontend never reads ``embed``: no gradient
     reaches it). With ``cfg.remat`` each block runs under
     ``torch.utils.checkpoint`` (its activations recomputed in the backward,
-    the expert-parallel MoE's collectives with them, on every rank in one
-    order); ``remat_policy="dots"`` keeps the outputs of its matmuls and
-    recomputes the rest (:func:`_remat_context`).
+    the collectives with them, on every rank in one order);
+    ``remat_policy="dots"`` keeps the outputs of its matmuls and recomputes
+    the rest (:func:`_remat_context`).
 
-    ``whole(key, tree)`` (the sharded trainer's) turns the pieces of
-    ``params[key]`` (``key``: ``"embed"``, ``"head"``, ``"final_norm"`` or a
-    block's index) into the parameters the computation reads. It is called
-    inside each block's checkpointed function, so the remat recompute
-    gathers again and no whole block outlives its use, and at either end
-    for the embedding (never for the audio frontend, on every rank alike),
-    the final norm and the head."""
-    get = whole if whole is not None else (lambda key, tree: tree)
-    context = _remat_context(cfg)
-    embed = None if cfg.frontend == "audio" else get("embed", params["embed"])
-    x = _embed(cfg, {"embed": embed}, tokens)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    # The backward's recompute runs after the caller's ``use_mesh`` block
-    # has exited: each block re-installs the mesh it ran under.
-    mesh = _ambient_mesh()
-    for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["blocks"])):
-        def block(x, memory, i=i, kind=kind, p=p):
-            with use_mesh(mesh):
-                x, _, aux = _apply_block(cfg, kind, get(i, p), x, cache=None, pos=None,
-                                         prefill=False, memory=memory)
-            return x, aux
-
-        x, aux = (checkpoint(block, x, memory, use_reentrant=False, context_fn=context)
-                  if cfg.remat else block(x, memory))
-        if aux is not None:
-            aux_total = aux_total + aux
-    x = L.apply_norm(cfg, get("final_norm", params["final_norm"]), x)
-    key = "embed" if cfg.tied_embeddings else "head"
-    return _logits(cfg, {key: get(key, params[key])}, x), aux_total
+    ``shardings`` (the sharded trainer's placements of ``params``, which
+    then holds this rank's pieces, under the ambient mesh): tensor-parallel
+    on the pieces, as serving runs (the module docstring). Each piece is
+    cast to the compute dtype and its data-axis pieces gathered where it is
+    read (a block's inside its checkpointed function, a tied embedding at
+    either end); the logits are this rank's vocabulary columns where
+    ``model`` splits them (:func:`token_nll_sharded` takes them)."""
+    dtype = L.dt(cfg, "compute") if shardings is not None else None
+    x = _embed(cfg, params, tokens, shardings, dtype)
+    x, _, aux = _run_blocks(cfg, params, x, memory=memory, shardings=shardings, dtype=dtype,
+                            remat=cfg.remat)
+    norm = params["final_norm"]
+    x = L.apply_norm(cfg, norm if shardings is None else
+                     _gathered(norm, shardings["final_norm"], dtype), x)
+    return _logits(cfg, params, x, shardings, dtype), aux
 
 
 def token_nll(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
@@ -674,6 +701,28 @@ def token_nll(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
     onehot = torch.zeros_like(logits).scatter_(-1, labels_safe[..., None], 1.0)
     label_logit = torch.einsum("bsv,bsv->bs", logits32, onehot.to(torch.float32))
     nll = torch.where(valid, lse - label_logit, 0.0)
+    return nll.sum(), valid.sum()
+
+
+def token_nll_sharded(logits: Tensor, labels: Tensor, mesh) -> tuple[Tensor, Tensor]:
+    """:func:`token_nll` of logits whose vocabulary ``model`` splits:
+    ``logits`` (B, S, V/mp) this rank's columns, ``labels`` (B, S) the same
+    on every model rank. The row maximum is all-reduced (max, no
+    gradient), the sums of ``exp(l - max)`` and the label's logit (from the
+    rank that holds its column, zero elsewhere) through ``sum_over``; no
+    rank builds a (B, S, V) tensor. The result is the same on every model
+    rank, its gradient this rank's columns'."""
+    valid = labels >= 0
+    n = logits.shape[-1]
+    ids = labels.to(torch.long) - L.model_split(mesh)[1] * n
+    mine = valid & (ids >= 0) & (ids < n)
+    logits32 = logits.to(torch.float32)
+    m = all_reduce(logits32.detach().amax(-1), torch.distributed.ReduceOp.MAX, mesh,
+                   mesh.axis_group(("model",)))
+    sums = sum_over(torch.exp(logits32 - m[..., None]).sum(-1), mesh, ("model",))
+    picked = torch.gather(logits32, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    label_logit = sum_over(torch.where(mine, picked, 0.0), mesh, ("model",))
+    nll = torch.where(valid, m + torch.log(sums) - label_logit, 0.0)
     return nll.sum(), valid.sum()
 
 

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import sum_over
+from repro_torch.dist.sharding import copy_to, sum_over, sum_scatter
 from repro_torch.kernels.rglru import rglru_scan
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models.layers import Init, dt, gelu, make_buf, model_split
@@ -74,21 +74,25 @@ def _rglru_gates(p, bx: Tensor, mesh=None):
     """``(a, b)`` of the recurrence from the conv output ``bx`` (this rank's
     channels: with ``model`` splitting the width, the gate products
     contract over it, so they are summed over ``model`` (both in one
-    all-reduce) and this rank keeps its columns)."""
+    all-reduce) and this rank keeps its columns (:func:`sum_scatter`,
+    whose backward gathers the columns' gradients); the biases and
+    ``lam``, whole on every rank, enter through ``copy_to``, as each rank
+    reads its columns of them)."""
     bx32 = bx.to(F32)
     w, width = bx.shape[-1], p["w_a"].shape[1]
+    vecs = torch.stack([p["b_a"].to(F32), p["b_x"].to(F32), p["lam"].to(F32)])
     if w < width:
         lo = model_split(mesh)[1] * w
-        both = sum_over(torch.cat([bx32 @ p["w_a"].to(F32), bx32 @ p["w_x"].to(F32)], dim=-1),
-                        mesh, ("model",))
-        ga, gx = both[..., lo:lo + w], both[..., width + lo:width + lo + w]
-        cols = slice(lo, lo + w)
+        both = sum_scatter(torch.cat([bx32 @ p["w_a"].to(F32), bx32 @ p["w_x"].to(F32)], dim=-1),
+                           mesh, ("model",), blocks=2)
+        ga, gx = both[..., :w], both[..., w:]
+        b_a, b_x, lam = copy_to(vecs, mesh, ("model",))[:, lo:lo + w]
     else:
         ga, gx = bx32 @ p["w_a"].to(F32), bx32 @ p["w_x"].to(F32)
-        cols = slice(None)
-    r = torch.sigmoid(ga + p["b_a"][cols].to(F32))
-    i = torch.sigmoid(gx + p["b_x"][cols].to(F32))
-    log_a = -_RGLRU_C * r * F.softplus(p["lam"][cols].to(F32))
+        b_a, b_x, lam = vecs
+    r = torch.sigmoid(ga + b_a)
+    i = torch.sigmoid(gx + b_x)
+    log_a = -_RGLRU_C * r * F.softplus(lam)
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
     return a, mult * (i * bx32)
@@ -98,13 +102,15 @@ def apply_rglru(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None, me
     """x: (B, S, D). cache = {"h": (B, W), "conv": (B, conv_width-1, W)}
     for decode; prefill (``cache=None``) starts from zeros. Returns
     ``(y, new cache)``. With ``mesh`` and ``model`` splitting the width,
-    ``W`` is this rank's channels: the gates, the conv, K6 and the state
-    run on them, and ``w_out``'s partial outputs are summed over
-    ``model``."""
+    ``W`` is this rank's channels: ``x`` enters through ``copy_to``, the
+    gates, the conv, K6 and the state run on them, and ``w_out``'s partial
+    outputs are summed over ``model``."""
     cdt = dt(cfg, "compute")
     x = x.to(cdt)
     b, s, _ = x.shape
     cw = cfg.conv_width
+    if p["w_out"].shape[0] < cfg.rnn_width:
+        x = copy_to(x, mesh, ("model",))
     gate = gelu(x @ p["w_gate"].to(cdt))
     bx = x @ p["w_branch"].to(cdt)  # (B, S, W)
     width = bx.shape[-1]
@@ -247,7 +253,8 @@ def init_rwkv_cmix(cfg: ModelConfig, ini: Init) -> dict[str, Tensor]:
 def apply_rwkv_cmix(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None, mesh=None):
     """RWKV channel mix (the FFN analogue). cache = {"x_prev": (B, D)}.
     With ``mesh``: ``wk`` this rank's columns and ``wv`` its rows where
-    ``model`` splits the hidden dim (``wr`` is whole)."""
+    ``model`` splits the hidden dim, ``xk`` entering through ``copy_to``
+    (``wr`` is whole)."""
     b, _, d = x.shape
     x32 = x.to(F32)
     if cache is None:
@@ -257,9 +264,12 @@ def apply_rwkv_cmix(cfg: ModelConfig, p, x: Tensor, *, cache: dict | None = None
         xprev = cache["x_prev"].to(F32)[:, None, :]
     xk = x32 + (xprev - x32) * p["mu_k"].to(F32)
     xr = x32 + (xprev - x32) * p["mu_r"].to(F32)
+    split = p["wv"].shape[0] < cfg.d_ff  # this rank's hidden units: partial sums
+    if split:
+        xk = copy_to(xk, mesh, ("model",))
     kk = torch.square(F.relu(xk @ p["wk"].to(F32)))
     kv = kk @ p["wv"].to(F32)
-    if p["wv"].shape[0] < cfg.d_ff:  # this rank's hidden units: partial sums
+    if split:
         kv = sum_over(kv, mesh, ("model",))
     y = torch.sigmoid(xr @ p["wr"].to(F32)) * kv
     return y.to(x.dtype), {"x_prev": x32[:, -1]}

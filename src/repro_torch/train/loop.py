@@ -16,18 +16,24 @@ the JAX loop runs ``jit`` with shardings on a device mesh.
     state, not two, and no float32 copy of a bfloat16 leaf. A caller that
     keeps a reference to a parameter across a step sees it change; the
     loss monitor therefore snapshots to the host (``snapshot_state=True``).
-  * On a mesh (ZeRO-3 / FSDP storage, data-parallel compute): a rank holds
-    its piece of every parameter, gradient and moment, placed by the JAX
-    logical-axis rules (:func:`train_shardings`: ``fsdp`` and ``batch``
-    fold the data axes, ``heads``/``mlp``/``experts``/``vocab`` take
-    ``model``), and computes its rows of the GLOBAL batch with whole
-    weights: each block gathers its leaves inside its checkpointed
+  * On a mesh (ZeRO-3 / FSDP storage; data-, tensor- and expert-parallel
+    compute): a rank holds its piece of every parameter, gradient and
+    moment, placed by the JAX logical-axis rules (:func:`train_shardings`:
+    ``fsdp`` and ``batch`` fold the data axes,
+    ``heads``/``kv_heads``/``mlp``/``experts``/``vocab`` take ``model``;
+    no parameter has a ``kv_seq`` axis, so these are serving's decode-mode
+    placements too), and computes its rows of the GLOBAL batch and its
+    ``model`` share of them, as the JAX package's GSPMD step does: each
+    block gathers its leaves' data-axis pieces inside its checkpointed
     function (``gather_param``: cast first, so the wire carries the compute
-    dtype), the MoE's expert leaves keep their expert-parallel path, and
+    dtype) and computes its heads, kv heads, ``mlp``, RG-LRU width and
+    experts where ``model`` splits them, a replicated branch whole
+    (``models/lm.py``, as serving runs); the logits stay split by
+    vocabulary into a vocabulary-parallel loss (``token_nll_sharded``);
     the backward sums each gradient over the data axes. The loss is the
-    global batch's: the valid-token count is summed over the data ranks,
-    and each rank back-propagates ``nll_r / count + 0.01 * aux / dp``.
-    ``model`` only stores the other leaves: no tensor parallelism.
+    global batch's: the valid-token count is summed over the data ranks
+    (never over ``model``), and each rank back-propagates ``nll_r / count
+    + 0.01 * aux / dp``.
   * :func:`train` — resume from the latest COMMITted checkpoint
     (:class:`~repro_torch.checkpoint.CheckpointManager`; on a mesh,
     re-sharded onto whatever mesh this run built), async saves every
@@ -60,7 +66,6 @@ from repro_torch.dist.sharding import (
     _is_axes_leaf,
     all_reduce,
     data_axes_of,
-    gather_param,
     shard_param,
     spec_for,
     tree_shardings,
@@ -81,6 +86,7 @@ from repro_torch.models.lm import (
     stack_axes,
     stack_meta,
     token_nll,
+    token_nll_sharded,
 )
 from repro_torch.obs import events, metrics
 from repro_torch.obs.health import HealthMonitor
@@ -202,27 +208,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     ``batch`` is the GLOBAL batch: each rank takes its rows (dim 1 of a
     microbatched one), and the metrics are the global batch's."""
     cdt = getattr(torch, cfg.compute_dtype)
-    sh_leaves = group_sh = None  # one device: whole tensors
+    p_sh = sh_leaves = group_sh = None  # one device: whole tensors
     if mesh is not None:
         p_sh = train_shardings(cfg, mesh, opt_cfg)[0]
         sh_leaves = tree_leaves(p_sh)
         group_sh = _group_shardings(cfg, opt_cfg, p_sh)
         dp = math.prod(mesh.axis_size(a) for a in data_axes_of(mesh))
-        moe_ffn = [bool(cfg.n_experts) and kind != "rwkv6" and "model" in mesh.axis_names
-                   for kind in cfg.layer_kinds]
-
-        def whole(key, tree):
-            """The compute-ready parameters of ``params[key]`` from this
-            rank's pieces (:func:`~repro_torch.dist.sharding.gather_param`);
-            an MoE block's ``ffn`` stays pieces, cast, for the expert-parallel
-            path to gather (``apply_moe_sharded``)."""
-            sh = p_sh["blocks"][key] if isinstance(key, int) else p_sh[key]
-            if not (isinstance(key, int) and moe_ffn[key]):
-                return tree_map(lambda t, s: gather_param(t, s, cdt), tree, sh)
-            out = {k: tree_map(lambda t, s: gather_param(t, s, cdt), tree[k], sh[k])
-                   for k in tree if k != "ffn"}
-            out["ffn"] = tree_map(lambda t: t.to(cdt), tree["ffn"])
-            return out
 
     def value_and_grad(leaves, treedef, mb):
         work = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
@@ -237,8 +228,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
             with use_mesh(mesh):
                 logits, moe_aux = lm_forward_train(cfg, tree_unflatten(treedef, work),
                                                    mb["tokens"], memory=mb.get("memory"),
-                                                   whole=whole)
-            nll, count = token_nll(logits, mb["labels"])
+                                                   shardings=p_sh)
+            if logits.shape[-1] < cfg.vocab_size:  # this rank's vocabulary columns
+                nll, count = token_nll_sharded(logits, mb["labels"], mesh)
+            else:
+                nll, count = token_nll(logits, mb["labels"])
             denom = _data_sum(count, mesh).clamp_min(1)
             mine = nll / denom
             # mean_over's backward takes the objective as the SUM of every

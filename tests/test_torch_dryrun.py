@@ -10,7 +10,10 @@ rank inside a ``"fake"`` process group, and no test leaves a group behind.
   the train cells.
 * (b) Those train cells' (one microbatch) gathered and summed bytes equal
   ``shard_wire_reckoning`` exactly, and the gathers' ring wire bytes the
-  ``dist.gather.bytes`` counter.
+  ``dist.gather.bytes`` counter; every arch's train step (remat on, two
+  blocked local paths past ``FLASH_THRESHOLD``) on ``(2, 4)``, ``(1, 4)``,
+  ``(4, 1)`` and ``(2, 2, 2)``: its collectives, tensor-parallel ones
+  included, equal the reckoning by kind, calls and bytes.
 * (c) The bytes a rank is handed equal JAX's, byte for byte, but for the
   leaves named below with their reasons: on one device against XLA's
   ``argument_size_in_bytes`` of the compiled JAX step; on ``(2, 4)``
@@ -25,7 +28,9 @@ rank inside a ``"fake"`` process group, and no test leaves a group behind.
   run) equal ``bincount``'s.
 * (f) The counted FLOPs over the analytic model, on one device, in the
   band :data:`FLOPS_BAND` (derived below).
-* (g) ``qwen1.5-0.5b`` ``train_4k`` on the production ``(16, 16)`` mesh.
+* (g) ``qwen1.5-0.5b`` ``train_4k`` on the production ``(16, 16)`` mesh:
+  its counted FLOPs over all ranks within :data:`FLOPS_BAND` of the
+  analytic model's, and it fits a rank.
 * (h) The CLI writes its JSON.
 """
 
@@ -115,6 +120,7 @@ def test_reference_cases_trace_on_eight_fake_ranks(arch, kind, rank):
     if kind == "train":
         assert calls > 0 and r["collectives"]["wire_bytes_per_device"] > 0
         assert mem["peak_bytes_by_category"]["activations"] > 0
+        assert "tensor-parallel training" in r["note"] and "whole weights" not in r["note"]
     else:
         # Tensor-parallel serving: the rank's pieces, and collectives over
         # ``model`` in every serving step.
@@ -129,13 +135,50 @@ def test_reference_cases_trace_on_eight_fake_ranks(arch, kind, rank):
 def test_collective_bytes_equal_the_reckoning(arch):
     r = _traced(arch, "train", MESH, 5)
     assert r["meta"]["microbatches"] == 1
-    want = dryrun.shard_wire_reckoning(_cfg(arch), MESH, 4 * 64)
+    want = dryrun.shard_wire_reckoning(_cfg(arch), MESH, 4, 64)
     coll = r["collectives"]
     assert coll["counters"]["dist.gather.bytes"] == want["gather"]
     assert coll["counters"]["dist.grad_sum.bytes"] == want["grad_sum"]
     assert coll["by_kind"]["all_gather"]["wire_bytes"] == want["gather"]
-    # Beside the gradient sums: the loss's, the norm's and aux's sums.
+    # Beside the gradient sums: the loss's, the norm's, aux's and the
+    # tensor-parallel layers' sums.
     assert coll["by_kind"]["all_reduce"]["payload_bytes"] > want["grad_sum"]
+
+
+def _by_kind(rows) -> dict:
+    out: dict = {}
+    for kind_c, payload, ranks in rows:
+        row = out.setdefault(kind_c, {"calls": 0, "payload_bytes": 0, "wire_bytes": 0.0})
+        row["calls"] += 1
+        row["payload_bytes"] += payload
+        row["wire_bytes"] += dryrun.ring_wire_bytes(kind_c, payload, ranks)
+    return out
+
+
+TRAIN_MESHES = [(2, 4), (1, 4), (4, 1), (2, 2, 2)]
+# (arch, seq, config overrides): every arch with remat (the recompute's
+# collectives), and past FLASH_THRESHOLD the blocked local path with its
+# blocks split over model (recurrentgemma's 2 heads, starcoder2 at 6).
+TRAIN_CELLS = [(a, 64, {"remat": True}) for a in ARCH_IDS]
+TRAIN_CELLS += [("recurrentgemma-2b", 4096, {"remat": True}),
+                ("starcoder2-3b", 4096, {"remat": True, "n_heads": 6})]
+
+
+@pytest.mark.parametrize("mesh", TRAIN_MESHES)
+@pytest.mark.parametrize("arch,seq,over", TRAIN_CELLS)
+def test_train_collectives_equal_the_reckoning(arch, seq, over, mesh):
+    """A train step's every collective (its gathers and gradient sums, the
+    tensor-parallel layers' sums and gathers, the vocabulary-parallel
+    loss's, the clip's and Adafactor's) equals
+    ``shard_wire_reckoning`` by kind, calls and bytes, and its byte
+    counters the reckoning's."""
+    cfg = dataclasses.replace(_cfg(arch), **over)
+    r = dryrun.trace_step(cfg, _shape("train", seq), mesh, rank=math.prod(mesh) - 1)
+    want = dryrun.shard_wire_reckoning(cfg, mesh, 4, seq, r["meta"]["microbatches"])
+    coll = r["collectives"]
+    assert coll["by_kind"] == _by_kind(want["collectives"])
+    assert coll["counters"].get("dist.gather.bytes", 0) == want["gather"]
+    assert coll["counters"].get("dist.grad_sum.bytes", 0) == want["grad_sum"]
 
 
 SERVE_MESHES = [(2, 4), (1, 4), (2, 2), (2, 2, 2)]
@@ -352,11 +395,13 @@ def test_production_cell_traces(tmp_path):
     assert r["meta"]["mesh"] == {"data": 16, "model": 16} and r["meta"]["microbatches"] == 1
     mem = r["memory_analysis"]
     assert isinstance(mem["fits"], bool) and mem["peak_bytes"] > mem["argument_bytes"]
-    # The model axis stores and does not split the compute: each of its 16
-    # ranks runs its data rank's 16 rows, so all ranks count 16 times the
-    # cell's FLOPs.
-    ratio = r["analytic"]["counted_over_analytic"] / 16
+    # The model axis splits the compute (tensor-parallel training): each of
+    # its 16 ranks computes its share of its data rank's 16 rows, so all
+    # ranks count the cell's FLOPs once, and the logits stay split by
+    # vocabulary: the cell fits a rank.
+    ratio = r["analytic"]["counted_over_analytic"]
     assert FLOPS_BAND[0] <= ratio <= FLOPS_BAND[1], ratio
+    assert mem["fits"]
     assert json.loads((tmp_path / f"{r['cell']}.json").read_text())["status"] == "ok"
     assert set(r) >= {"meta", "memory_analysis", "cost_analysis", "collectives", "analytic",
                       "roofline", "kernels", "device"}

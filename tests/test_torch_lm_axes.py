@@ -20,6 +20,10 @@ against the JAX package, on the CPU.
   16)`` and ``(2, 16, 16)`` production meshes, for the 10 architectures at
   published shapes (the cache of a ``prefill_32k`` and a ``decode_32k``
   cell).
+* The trainer's parameter placements (train mode) equal serving's
+  (decode mode) for the 10 architectures on those two meshes, and the JAX
+  ``spec_for`` gives every parameter the same spec in both modes (no
+  parameter has a ``kv_seq`` axis).
 * Without a process group ``make_host_mesh`` is ``None`` (one device) and
   ``make_production_mesh`` raises; ``data_axes`` folds pod into data.
 """
@@ -46,6 +50,7 @@ from repro_torch.launch import mesh as M
 from repro_torch.models.lm import (build_cache, cache_shardings, lm_axes, lm_meta, lm_stacked,
                                    serving_shardings, stack_axes, stack_meta)
 from repro_torch.optim import make_optimizer, opt_state_axes, optimizer_config_from_model
+from repro_torch.train.loop import train_shardings
 from repro_torch.tree import tree_flatten, tree_map
 
 ARCHS = ["qwen1.5-0.5b", "starcoder2-3b", "nemotron-4-15b", "glm4-9b", "recurrentgemma-2b",
@@ -196,6 +201,24 @@ def test_serving_param_pieces_are_the_jax_decode_partition(arch, mesh):
                          is_leaf=_is_shape)
     params, axes = _jax_tree(arch, "published")
     assert tree_flatten(stacked, is_leaf=_is_shape)[0] == _jax_pieces(params, axes, fake)
+
+
+@pytest.mark.parametrize("mesh", list(SERVE_MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_param_specs_equal_the_decode_ones(arch, mesh):
+    """No parameter has a ``kv_seq`` axis, so the trainer's pieces
+    (``train_shardings``: train mode) are serving's (decode mode), in the
+    port and in JAX: one set of splits serves both paths."""
+    fake = FakeMesh(*SERVE_MESHES[mesh])
+    cfg = get_config(arch)
+    train = tree_flatten(train_shardings(cfg, fake)[0], is_leaf=lambda x: hasattr(x, "spec"))[0]
+    serve = tree_flatten(serving_shardings(cfg, fake), is_leaf=lambda x: hasattr(x, "spec"))[0]
+    assert [sh.spec for sh in train] == [sh.spec for sh in serve]
+    params, axes = _jax_tree(arch, "published")
+    for ax, t in zip(_leaves(axes)[0], jax.tree.leaves(params)):
+        assert "kv_seq" not in ax
+        assert (tuple(jax_spec_for(ax, fake, t.shape, mode="train"))
+                == tuple(jax_spec_for(ax, fake, t.shape, mode="decode")))
 
 
 @pytest.mark.parametrize("cell", ["prefill_32k", "decode_32k"])

@@ -1,6 +1,7 @@
-"""The LM trainer sharded over gloo ranks (ZeRO-3 / FSDP storage,
-data-parallel compute) against the port on one device and against the
-JAX package's ``make_train_step``, on the CPU.
+"""The LM trainer sharded over gloo ranks (ZeRO-3 / FSDP storage;
+data-parallel compute, tensor-parallel where ``model`` has more than one
+rank) against the port on one device and against the JAX package's
+``make_train_step``, on the CPU.
 
 One spawn of four ranks through ``tests/torch_dist_harness.py``
 (``train_suite``; the children import no JAX) runs every case while the
@@ -27,7 +28,9 @@ parent computes the references:
   gradients into parameter differences, so RWKV-6's second grad norm
   differs by 1.6e-4 between the port on one device and JAX. Against the
   port on one device, where the readings reach 2.4e-5, it is held to
-  5e-5, so a fault of the sharded path alone shows there.
+  5e-5, so a fault of the sharded path alone shows there; where ``model``
+  splits the step (tensor-parallel), RWKV-6's to 1e-4 (readings 5.9e-5
+  and 6.3e-5).
 * **Data-only mesh.** The same steps on a ``("data",)`` mesh of 4, with
   no ``model`` axis: the MoE runs its local path on each rank's rows,
   and its ``aux`` must still be the whole batch's.
@@ -89,6 +92,11 @@ BATCH, SEQ, STEPS = 8, 16, 2
 LOSS_REL = 1e-5
 NORM2_REL = 2e-4  # the second step's grad norm against JAX (see the module docstring)
 SHARDED_NORM2_REL = 5e-5  # ... and the ranks' against one device
+# ... where ``model`` splits the step (tensor-parallel: sums in another
+# order), RWKV-6's, whose float32 gradients move ~1e-4 relative when its
+# residual stream moves by a rounding step: it reads 6.3e-5 on (2, 2) and
+# 5.9e-5 on (2, 2) with two microbatches.
+RWKV_TP_NORM2_REL = 1e-4
 TOL = 2e-4
 BF16_REL = 2.0**-8
 OPT = {"warmup_steps": 1}  # the first step moves at the full learning rate
@@ -226,9 +234,12 @@ def test_sharded_steps_match_one_device_and_jax(ranks, arch, mesh):
     got = found[0][(arch, mesh)]
     mb = dict((m[0], m[4]) for m in MESHES)[mesh]
     one, jx = refs[(arch, mb)]
+    shape = dict((m[0], m[1]) for m in MESHES)[mesh]
+    tp = len(shape) > 1 and shape[-1] > 1
     for r, res in enumerate(found):
         mine = res[(arch, mesh)]
-        _metrics_close(mine, one, SHARDED_NORM2_REL)
+        _metrics_close(mine, one, RWKV_TP_NORM2_REL if tp and arch == "rwkv6-3b"
+                       else SHARDED_NORM2_REL)
         assert mine["loss"] == got["loss"] and mine["grad_norm"] == got["grad_norm"], r
     _metrics_close(got, jx, NORM2_REL)
     if arch in MOE and mb == 1:

@@ -856,3 +856,82 @@ def serve_tp_suite(rank, world, cases):
             for t, sh in zip(leaves, shs)])
         found[key] = out
     return found
+
+
+def train_tp_suite(rank, world, cases, nll_case):
+    """The LM trainer tensor-parallel over ``model`` on gloo ranks (no JAX
+    here).
+
+    ``cases``: ``{key: (arch, config overrides, optimizer overrides, mesh
+    shape, microbatches, [global batch of each step], flash threshold or
+    None)}``: each rank of a ``("data", "model")`` mesh of that shape (over
+    the whole world, or over its block of ranks) builds
+    ``init_train_state`` on the mesh from the seed, runs
+    ``make_train_step`` on the global batches (``layers.FLASH_THRESHOLD``
+    set to the case's threshold, where given, while it runs) and returns
+    each step's loss and grad norm, after each step a digest of every
+    parameter and moment piece that ``model`` does not split (with its
+    mesh coordinates), and (the mesh's first rank) the parameters and
+    moments gathered whole. ``nll_case``: ``(logits (B, S, V), labels (B,
+    S))`` numpy: each rank of the ``(1, world)`` mesh takes its
+    vocabulary columns and returns ``token_nll_sharded``'s sum and count
+    and the gradient of the sum on its columns."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+    from repro_torch.models.lm import token_nll_sharded
+    from repro_torch.optim import optimizer_config_from_model
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.loop import train_shardings
+    from repro_torch.tree import tree_flatten, tree_map
+
+    def digests(tree, shardings):
+        pieces, _ = tree_flatten(tree)
+        shs, _ = tree_flatten(shardings)
+        return [hashlib.sha1(t.detach().reshape(-1).view(torch.uint8).numpy()).hexdigest()
+                if "model" not in sh.axes else None for t, sh in zip(pieces, shs)]
+
+    meshes, found = {}, {}
+    threshold = layers.FLASH_THRESHOLD
+    for key, (arch, over, opt_over, shape, mb, batches, flash) in cases.items():
+        shape = tuple(shape)
+        if shape not in meshes:
+            meshes[shape] = _serve_mesh(shape, rank, world)
+        mesh = meshes[shape]
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
+        opt_cfg = dataclasses.replace(optimizer_config_from_model(cfg), **opt_over)
+        params, state = init_train_state(cfg, seed=SEED_TRAIN, mesh=mesh)
+        p_sh, o_sh = train_shardings(cfg, mesh, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, microbatches=mb, mesh=mesh)
+        out = {"loss": [], "grad_norm": [], "replicated": [], "coords": mesh.coords}
+        layers.FLASH_THRESHOLD = flash or threshold
+        try:
+            for batch in batches:
+                if mb > 1:
+                    batch = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])
+                             for k, v in batch.items()}
+                params, state, m = step(params, state, batch)
+                out["loss"].append(float(m["loss"]))
+                out["grad_norm"].append(float(m["grad_norm"]))
+                out["replicated"].append(digests((params, state), (p_sh, o_sh)))
+        finally:
+            layers.FLASH_THRESHOLD = threshold
+        wholes = tree_map(lambda t, sh: sh.whole(t), (params, state), (p_sh, o_sh))
+        first = not any(mesh.coords)
+        out["params"], out["state"] = (_numpy_tree(wholes[0]), _numpy_tree(wholes[1])) \
+            if first else (None, None)
+        found[key] = out
+
+    logits, labels = nll_case
+    mesh = make_mesh((1, world), ("data", "model"), backend="gloo", device="cpu")
+    n = logits.shape[-1] // world
+    mine = torch.from_numpy(logits[..., rank * n:(rank + 1) * n].copy()).requires_grad_()
+    nll, count = token_nll_sharded(mine, torch.from_numpy(labels.copy()), mesh)
+    (grad,) = torch.autograd.grad(nll, mine)
+    found["nll"] = {"nll": float(nll.detach()), "count": int(count), "grad": grad.numpy()}
+    return found
