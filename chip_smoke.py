@@ -3759,7 +3759,8 @@ def main() -> int:
                          monitor=HealthMonitor(policy="abort"))
     rids = [srv.submit(fprog, poisoned if i == 3 else m) for i, m in enumerate(clean)]
     done = {r.rid: r for r in srv.run_until_idle()}
-    check(srv.stats == {"batches": 1, "members": 8, "completed": 7, "failed": 1},
+    check(srv.stats == {"batches": 1, "members": 8, "completed": 7, "failed": 1,
+                        "syncs": 1},
           f"NaN drill: {srv.stats}")
     check(isinstance(done[rids[3]].error, NumericsError) and done[rids[3]].result is None,
           "the poisoned member did not fail with NumericsError")

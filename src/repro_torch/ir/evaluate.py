@@ -138,14 +138,10 @@ def interior_eval_multi(
     margins = program.margins()
 
     env: dict[str, Tensor] = dict(arrays)
-    traced = profile.tracing()
     for op in program.ops:
-        if traced:
-            # Per-op label, so a port trace (repro_torch.obs.profile) names
-            # stencil ops; entered only while a trace is capturing.
-            with torch.profiler.record_function(f"ir/{program.name}/{op.name}"):
-                env[op.name] = op.compute(*op_views(op, env, margins, grid, nd))
-        else:
+        # Per-op label, so a trace names stencil ops (a flag check while no
+        # profiler captures).
+        with profile.span(f"ir/{program.name}/{op.name}"):
             env[op.name] = op.compute(*op_views(op, env, margins, grid, nd))
     return {f: env[op_name] for f, op_name in program.outputs.items()}
 

@@ -18,8 +18,9 @@ The port's copy of ``repro.obs``, seven small pieces:
   * :mod:`repro_torch.obs.drift`   — model-vs-measured drift detection.
   * :mod:`repro_torch.obs.report`  — structured JSON run reports + the
     ``runtime_metadata()`` stamp (torch / CUDA, the card, its power limit).
-  * :mod:`repro_torch.obs.profile` — env-gated ``torch.profiler`` capture
-    (``REPRO_TRACE_DIR``), with per-IR-op ``record_function`` labels.
+  * :mod:`repro_torch.obs.profile` — ``span(name)``, the port's labels in
+    any ``torch.profiler`` trace (a flag check with no profiler running),
+    and env-gated capture (``REPRO_TRACE_DIR``).
 
 The port's IR lowerings report through this package. Importing it
 initialises no CUDA context.

@@ -25,10 +25,13 @@ watches the *numbers*:
     forbids.
 
 Probes report through both observability channels when they are enabled:
-``health.<field>.<stat>`` gauges + ``health.probes``/``health.blowups``
-counters in the metrics registry, and ``health.probe`` / ``health.blowup``
-/ ``health.checkpoint`` events in the flight recorder. Neither channel is
-required: the monitor functions (and aborts) with both disabled.
+``health.<field>.<stat>`` gauges + ``health.probes``/``health.blowups``/
+``health.reads`` counters in the metrics registry, and ``health.probe`` /
+``health.blowup`` / ``health.checkpoint`` events in the flight recorder.
+Neither channel is required: the monitor functions (and aborts) with both
+disabled, and counts its probes and host reads (``probes``, ``reads``) in
+plain integers. While a ``torch.profiler`` captures, a probe that runs is
+the span ``health.probe`` (:func:`repro_torch.obs.profile.span`).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
-from repro_torch.obs import events, metrics
+from repro_torch.obs import events, metrics, profile
 from repro_torch.tree import tree_map
 
 STAT_KEYS = ("size", "nan_count", "inf_count", "min", "max", "mean", "l2")
@@ -203,6 +206,7 @@ class HealthMonitor:
         self.axis_names = tuple(axis_names)
         self.mesh = mesh
         self.probes = 0
+        self.reads = 0  # scalars read to the host, each one wait on the device
         self.blowups = 0
         self.last_healthy: tuple[int, Any] | None = None
         self._auto_step = 0  # wrap()'s call counter
@@ -220,9 +224,12 @@ class HealthMonitor:
         if not force and not self.due(step):
             return None
         name = name or self.name
-        stats = host_stats(field_stats(x, axis_names=self.axis_names, mesh=self.mesh))
+        with profile.span("health.probe"):
+            stats = host_stats(field_stats(x, axis_names=self.axis_names, mesh=self.mesh))
         self.probes += 1
+        self.reads += len(stats)
         metrics.inc("health.probes")
+        metrics.inc("health.reads", len(stats))
         for k, v in stats.items():
             metrics.set_gauge(f"health.{name}.{k}", v)
         events.record("health.probe", step=step, field=name, **stats)

@@ -35,6 +35,8 @@ from typing import Any, Callable, Mapping
 
 import torch
 
+from repro_torch.obs import profile
+
 METRICS_ENV = "REPRO_METRICS"
 
 _TRUTHY = ("1", "true", "yes", "on")
@@ -233,20 +235,23 @@ def observe(name: str, dt: float) -> None:
 
 
 def instrument_call(fn: Callable, name: str) -> Callable:
-    """Wraps a lowered step function with a per-call timer + counter.
+    """Wraps a lowered step function with a per-call timer + counter, and
+    a :func:`repro_torch.obs.profile.span` of the same name.
 
     When metrics are disabled the wrapper is a single attribute check and
     calls straight through; while a CUDA graph is being captured it also
     steps aside, so captured launches never land in wall-clock stats and
-    the captured work is identical to the uninstrumented one.
+    the captured work is identical to the uninstrumented one. The span is
+    a flag check unless a profiler captures.
     """
 
     def wrapped(*args, **kwargs):
-        reg = _REGISTRY
-        if reg is None or capturing():
-            return fn(*args, **kwargs)
-        reg.inc(f"{name}.calls")
-        return reg.time_call(name, fn, *args, **kwargs)
+        with profile.span(name):
+            reg = _REGISTRY
+            if reg is None or capturing():
+                return fn(*args, **kwargs)
+            reg.inc(f"{name}.calls")
+            return reg.time_call(name, fn, *args, **kwargs)
 
     wrapped.__name__ = getattr(fn, "__name__", "wrapped")
     wrapped.__wrapped__ = fn

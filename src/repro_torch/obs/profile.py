@@ -1,13 +1,29 @@
-"""Optional ``torch.profiler`` trace capture, env-gated.
+"""``torch.profiler`` spans and trace capture.
 
-The port's counterpart of ``repro/obs/profile.py``. Set
-``REPRO_TRACE_DIR=/some/dir`` and every entry point that wraps its work in
-:func:`maybe_trace` writes a Chrome trace there (one subdirectory per
+The port's counterpart of ``repro/obs/profile.py``. :func:`span` is the one
+way the port labels its work in a trace: while any ``torch.profiler`` is
+capturing (the port's own :func:`profiler_trace`, a benchmark's profiler,
+an operator's), it returns ``torch.profiler.record_function(name)``, so the
+label is a ``user_annotation`` event in the same Chrome trace as the
+CUPTI kernel, copy and runtime events, on one clock; otherwise it returns
+one shared no-op context manager (a flag check, no allocation, no
+synchronise). The spans the port opens:
+
+  * ``serve.forecast.step`` around a :class:`ForecastServer` step, with
+    ``serve.forecast.admit``, ``.stack``, ``.call``, ``.wait`` and
+    ``.retire`` inside it, in that order;
+  * ``health.probe`` around a probe that runs (``field_stats`` and its
+    host reads), inside ``serve.forecast.retire`` when the server probes;
+  * every lowered call, named as its metric (``ir.lower_cuda.<program>``,
+    ``ir.lower_batched.<program>.<backend>``, ...;
+    :func:`repro_torch.obs.metrics.instrument_call`);
+  * ``kernels.hdiff_fused`` around a K1 call;
+  * ``ir/<program>/<op>`` around every op the IR evaluator computes.
+
+Set ``REPRO_TRACE_DIR=/some/dir`` and every entry point that wraps its work
+in :func:`maybe_trace` writes a Chrome trace there (one subdirectory per
 label, ``trace.json``), viewable in ``ui.perfetto.dev`` or
-``chrome://tracing``. While a trace is being captured,
-:mod:`repro_torch.ir.evaluate` labels every IR op with
-``torch.profiler.record_function("ir/<program>/<op>")``, so the timelines
-carry stencil-op names; outside a trace it enters no label at all.
+``chrome://tracing``.
 
 :func:`profiler_trace` records CPU activity always and CUDA activity when
 PyTorch sees a card; the profile object it yields answers
@@ -24,10 +40,12 @@ import sys
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
+import torch
+
 TRACE_DIR_ENV = "REPRO_TRACE_DIR"
 TRACE_FILE = "trace.json"
 
-_ACTIVE = 0  # number of profiler_trace blocks currently capturing
+_NULL_SPAN = nullcontext()  # reusable: the span while no profiler captures
 
 
 def trace_dir_from_env() -> str | None:
@@ -37,8 +55,17 @@ def trace_dir_from_env() -> str | None:
 
 
 def tracing() -> bool:
-    """True while a :func:`profiler_trace` block is capturing."""
-    return _ACTIVE > 0
+    """True while any ``torch.profiler`` is capturing (the flag the
+    profiler sets on start and clears on stop)."""
+    return getattr(torch.autograd.profiler, "_is_profiler_enabled", False)
+
+
+def span(name: str):
+    """A ``record_function(name)`` span while a profiler captures, else the
+    shared no-op context manager."""
+    if not tracing():
+        return _NULL_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextmanager
@@ -47,9 +74,6 @@ def profiler_trace(trace_dir: str | Path):
     exports it to ``trace_dir/trace.json`` (the directory is created if
     needed). Yields the ``torch.profiler.profile`` object, or None when
     capture could not start."""
-    global _ACTIVE
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -63,13 +87,10 @@ def profiler_trace(trace_dir: str | Path):
         print(f"repro_torch.obs.profile: trace capture unavailable ({e!r}); "
               f"continuing without", file=sys.stderr)
         prof = None
-    if prof is not None:
-        _ACTIVE += 1
     try:
         yield prof
     finally:
         if prof is not None:
-            _ACTIVE -= 1
             try:
                 prof.__exit__(None, None, None)
                 prof.export_chrome_trace(str(path / TRACE_FILE))

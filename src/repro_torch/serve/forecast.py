@@ -32,7 +32,21 @@ Telemetry carries the JAX package's names:
   * ``serve.forecast.step`` — the batched call, synchronised on a CUDA
     batch (``jax.block_until_ready``'s stand-in);
   * counters ``serve.forecast.{requests_submitted,batches,members,
-    completed,failed}``.
+    completed,failed,syncs}``.
+
+Host waits are counted always, in plain integers that never synchronise:
+``stats["syncs"]`` is each ``torch.cuda.synchronize`` a step makes (one a
+step on the card, none on the CPU), and the monitor's ``reads`` the
+scalars its probes read to the host (:class:`HealthMonitor`).
+
+While a ``torch.profiler`` captures, a step is the span
+``serve.forecast.step`` holding, in order, ``serve.forecast.admit`` (the
+group and the compile cache's lookup), ``.stack``, ``.call`` (the batched
+call's enqueue), ``.wait`` (the synchronise) and ``.retire`` (the unstack
+and each member's probe, ``health.probe``, and stamps);
+:func:`repro_torch.obs.profile.span`. A span carries no request id: every
+request of a step rides that one span, so the step's order in the trace
+identifies it, and each request keeps its ``dispatch_ts`` and ``done_ts``.
 """
 
 from __future__ import annotations
@@ -45,7 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.obs import events, metrics
+from repro_torch.obs import events, metrics, profile
 from repro_torch.obs.health import HealthMonitor, NumericsError
 from repro_torch.serve.cache import CompileCache, CompileKey, compile_key
 
@@ -56,10 +70,9 @@ Tensor = torch.Tensor
 class ForecastRequest:
     """One tenant's forecast: a program and its initial-condition fields.
 
-    The server stamps the telemetry the token server stamps on
-    :class:`repro_torch.serve.engine.Request`: submit / dispatch / done
-    timestamps, queue latency, and per-request throughput
-    (``items_per_sec``, where the item is one completed forecast)."""
+    The server stamps submit / dispatch / done timestamps and the queue
+    latency, as the token server stamps
+    :class:`repro_torch.serve.engine.Request`."""
 
     rid: int
     program: Any                      # StencilProgram
@@ -71,7 +84,6 @@ class ForecastRequest:
     dispatch_ts: float | None = None
     done_ts: float | None = None
     queue_latency_s: float | None = None
-    items_per_sec: float | None = None
 
     @property
     def failed(self) -> bool:
@@ -133,7 +145,7 @@ class ForecastServer:
         self._queue: list[ForecastRequest] = []
         self._next_rid = 0
         self.completed: list[ForecastRequest] = []
-        self.stats = {"batches": 0, "members": 0, "completed": 0, "failed": 0}
+        self.stats = {"batches": 0, "members": 0, "completed": 0, "failed": 0, "syncs": 0}
 
     def _tensor(self, name: str, a) -> Tensor:
         """``a`` on the server's device: a tensor must already be there; an
@@ -221,67 +233,76 @@ class ForecastServer:
         if not self._queue:
             metrics.set_gauge("serve.forecast.member_occupancy", 0.0)
             return False
-        group = self._admit_group()
-        now = time.perf_counter()
-        for req in group:
-            req.dispatch_ts = now
-            if req.submitted_ts is not None:
-                req.queue_latency_s = now - req.submitted_ts
-                metrics.observe("serve.forecast.queue_latency", req.queue_latency_s)
-        key = group[0].group_key
-        program = group[0].program
-        n = len(group)
-        metrics.set_gauge("serve.forecast.member_occupancy", n / self.max_batch)
-        fn = self.cache.get(
-            program,
-            grid=key.grid,
-            dtype=key.dtype,
-            backend=key.backend,
-            mesh_shape=key.mesh,
-            batch=n,
-            **self.lower_kwargs,
-        )
-        batched = {f: torch.stack([req.fields[f] for req in group]) for f in program.inputs}
-        with metrics.timer("serve.forecast.step"):
-            out = fn(batched)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        self.stats["batches"] += 1
-        self.stats["members"] += n
-        metrics.inc("serve.forecast.batches")
-        metrics.inc("serve.forecast.members", n)
-        done = time.perf_counter()
-        for i, req in enumerate(group):
-            member = (
-                {f: v[i] for f, v in out.items()}
-                if isinstance(out, Mapping)
-                else out[i]
-            )
-            req.done_ts = done
-            if req.dispatch_ts is not None and done > req.dispatch_ts:
-                req.items_per_sec = 1.0 / (done - req.dispatch_ts)
-            try:
-                self._check_member(req, member)
-            except NumericsError as err:
-                req.error = err
-                self.stats["failed"] += 1
-                metrics.inc("serve.forecast.failed")
-                events.record(
-                    "serve.forecast.fail", rid=req.rid,
-                    program=program.name, field=err.field,
-                )
-            else:
-                req.result = member
-                self.stats["completed"] += 1
-                metrics.inc("serve.forecast.completed")
-            req.done = True
-            self.completed.append(req)
-            events.record(
-                "serve.forecast.retire", rid=req.rid, batch=n,
-                failed=req.failed, queue_latency_s=req.queue_latency_s,
-                items_per_sec=req.items_per_sec,
-            )
+        with profile.span("serve.forecast.step"):
+            self._step()
         return True
+
+    def _step(self) -> None:
+        with profile.span("serve.forecast.admit"):
+            group = self._admit_group()
+            now = time.perf_counter()
+            for req in group:
+                req.dispatch_ts = now
+                if req.submitted_ts is not None:
+                    req.queue_latency_s = now - req.submitted_ts
+                    metrics.observe("serve.forecast.queue_latency", req.queue_latency_s)
+            key = group[0].group_key
+            program = group[0].program
+            n = len(group)
+            metrics.set_gauge("serve.forecast.member_occupancy", n / self.max_batch)
+            fn = self.cache.get(
+                program,
+                grid=key.grid,
+                dtype=key.dtype,
+                backend=key.backend,
+                mesh_shape=key.mesh,
+                batch=n,
+                **self.lower_kwargs,
+            )
+        with profile.span("serve.forecast.stack"):
+            batched = {f: torch.stack([req.fields[f] for req in group])
+                       for f in program.inputs}
+        with metrics.timer("serve.forecast.step"):
+            with profile.span("serve.forecast.call"):
+                out = fn(batched)
+            with profile.span("serve.forecast.wait"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                    self.stats["syncs"] += 1
+                    metrics.inc("serve.forecast.syncs")
+        with profile.span("serve.forecast.retire"):
+            self.stats["batches"] += 1
+            self.stats["members"] += n
+            metrics.inc("serve.forecast.batches")
+            metrics.inc("serve.forecast.members", n)
+            done = time.perf_counter()
+            for i, req in enumerate(group):
+                member = (
+                    {f: v[i] for f, v in out.items()}
+                    if isinstance(out, Mapping)
+                    else out[i]
+                )
+                req.done_ts = done
+                try:
+                    self._check_member(req, member)
+                except NumericsError as err:
+                    req.error = err
+                    self.stats["failed"] += 1
+                    metrics.inc("serve.forecast.failed")
+                    events.record(
+                        "serve.forecast.fail", rid=req.rid,
+                        program=program.name, field=err.field,
+                    )
+                else:
+                    req.result = member
+                    self.stats["completed"] += 1
+                    metrics.inc("serve.forecast.completed")
+                req.done = True
+                self.completed.append(req)
+                events.record(
+                    "serve.forecast.retire", rid=req.rid, batch=n,
+                    failed=req.failed, queue_latency_s=req.queue_latency_s,
+                )
 
     def _check_member(self, req: ForecastRequest, member) -> None:
         """Force-check every output field of ONE member's result against

@@ -354,7 +354,9 @@ def test_monitor_reports_through_metrics_and_events():
         m.check(0, torch.ones(4))
         m.check(1, torch.tensor([float("nan")]))
     snap = reg.snapshot()
-    assert snap["counters"] == {"health.probes": 2.0, "health.blowups": 1.0}
+    assert snap["counters"] == {"health.probes": 2.0, "health.reads": 14.0,
+                                "health.blowups": 1.0}
+    assert m.reads == 14  # seven scalars a probe
     assert snap["gauges"]["health.psi.nan_count"] == 1.0
     kinds = [e.kind for e in rec.events()]
     assert kinds.count("health.probe") == 2 and kinds.count("health.blowup") == 1
@@ -506,3 +508,101 @@ def test_maybe_trace_is_env_gated(tmp_path, monkeypatch):
     with maybe_trace("unit"):
         tir.lower_reference(tir.laplacian_program())(torch.ones(1, 8, 8))
     assert '"ir/laplacian/out"' in (tmp_path / "unit" / "trace.json").read_text()
+
+
+# -- spans on any profiler's clock ----------------------------------------------
+
+
+def _cpu_profile():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def _annotations(prof, tmp_path):
+    """The ``user_annotation`` spans of a finished profile, by start time."""
+    path = tmp_path / "annotations.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return sorted((e for e in events
+                   if e.get("cat") == "user_annotation" and e.get("ph") == "X"),
+                  key=lambda e: float(e["ts"]))
+
+
+def test_span_is_the_shared_no_op_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) called with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert not port_profile.tracing()
+    first, second = port_profile.span("a"), port_profile.span("b")
+    assert first is second is port_profile._NULL_SPAN
+    with first as entered:
+        assert entered is None
+    fn = metrics.instrument_call(lambda x: x + 1, "test.span.off")
+    assert torch.equal(fn(torch.ones(2)), torch.full((2,), 2.0))
+    tir.lower_reference(tir.hdiff_program())(torch.from_numpy(_rand((1, 16, 16))))
+
+
+def test_span_is_a_user_annotation_under_any_torch_profiler(tmp_path):
+    with _cpu_profile() as prof:
+        assert port_profile.tracing()
+        with port_profile.span("test.outer"):
+            with port_profile.span("test.inner"):
+                torch.ones(4).sum()
+    assert not port_profile.tracing()
+    spans = {e["name"]: e for e in _annotations(prof, tmp_path)}
+    outer, inner = spans["test.outer"], spans["test.inner"]
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+
+
+def test_lowered_calls_and_k1_open_spans_named_as_their_metrics(tmp_path):
+    from repro_torch.kernels.hdiff.ops import hdiff_fused
+
+    x = torch.from_numpy(_rand((1, 16, 16)))
+    hd = tir.hdiff_program()
+    ref, cuda = tir.lower_reference(hd), tir.lower_cuda(hd)
+    batched = tir.lower_batched(hd, backend="cuda")
+    with _cpu_profile() as prof:
+        ref(x)
+        cuda(x)
+        batched(x[None])
+        hdiff_fused(x)
+    names = [e["name"] for e in _annotations(prof, tmp_path)]
+    for name in (ref.metric_name, "ir.lower_cuda.hdiff", "ir.lower_batched.hdiff.cuda",
+                 "kernels.hdiff_fused"):
+        assert name in names
+    # The batched call's unbatched lowering is a lowered call of its own.
+    assert names.count("ir.lower_cuda.hdiff") == 2
+
+
+def test_monitor_counts_host_reads_and_spans_each_probe(tmp_path):
+    m = HealthMonitor(cadence=2, policy="warn", log_fn=lambda _: None)
+    with _cpu_profile() as prof:
+        for step in range(5):
+            m.check(step, torch.ones(8))
+    assert m.probes == 3 and m.reads == 3 * len(STAT_KEYS) == 21
+    probes = [e for e in _annotations(prof, tmp_path) if e["name"] == "health.probe"]
+    assert len(probes) == 3
+
+
+def test_instrumented_call_spans_with_the_registry_on_too(tmp_path):
+    fn = tir.lower_cuda(tir.hdiff_program())
+    x = torch.from_numpy(_rand((1, 16, 16)))
+    with metrics.using() as reg, _cpu_profile() as prof:
+        fn(x)
+        fn(x)
+    assert reg.counters["ir.lower_cuda.hdiff.calls"] == 2.0
+    assert reg.timers["ir.lower_cuda.hdiff"].count == 2
+    names = [e["name"] for e in _annotations(prof, tmp_path)]
+    assert names.count("ir.lower_cuda.hdiff") == 2
+
+
+def test_skipped_probes_read_nothing_and_an_abort_counts_its_reads(tmp_path):
+    m = HealthMonitor(cadence=10, policy="abort")
+    with _cpu_profile() as prof:
+        assert m.check(3, torch.ones(4)) is None  # off cadence: no device work
+        with pytest.raises(NumericsError):
+            m.check(10, torch.tensor([1.0, float("inf")]))
+    assert m.probes == 1 and m.reads == len(STAT_KEYS) and m.blowups == 1
+    probes = [e for e in _annotations(prof, tmp_path) if e["name"] == "health.probe"]
+    assert len(probes) == 1

@@ -220,7 +220,7 @@ def test_telemetry_stamped_per_request_and_server():
     done = srv.run_until_idle()
     for r in done:
         assert r.queue_latency_s is not None and r.queue_latency_s >= 0
-        assert r.items_per_sec is not None and r.items_per_sec > 0
+    assert srv.stats["syncs"] == 0  # a CPU step waits on no device
     snap = metrics.current().snapshot()
     assert snap["gauges"]["serve.forecast.steps_per_sec"] > 0
     assert snap["gauges"]["serve.forecast.members_per_sec"] > 0
@@ -233,9 +233,94 @@ def test_telemetry_stamped_per_request_and_server():
     assert snap["timers"]["serve.forecast.step"]["count"] == 3
     retires = events.current().events("serve.forecast.retire")
     assert len(retires) == len(done)
-    assert all(e.data["items_per_sec"] > 0 for e in retires)
+    # Each retire names its request and its batch: hdiff on 16x16 (rids 0, 2,
+    # 5, 6), shallow_water (1, 4, 7), hdiff on 24x24 (3).
+    assert {e.data["rid"]: e.data["batch"] for e in retires} == {
+        0: 4, 2: 4, 5: 4, 6: 4, 1: 3, 4: 3, 7: 3, 3: 1}
+    assert all(e.data["failed"] is False for e in retires)
     assert len(events.current().events("serve.forecast.submit")) == len(done)
     assert f"repro_serve_forecast_completed_total {float(len(done))}" in srv.metrics_text()
+
+
+STEP_CHILDREN = ["serve.forecast.admit", "serve.forecast.stack", "serve.forecast.call",
+                 "serve.forecast.wait", "serve.forecast.retire"]
+
+
+def test_step_spans_and_host_wait_counters_under_a_profiler(tmp_path):
+    import json
+
+    srv = _server(max_batch=4, backend="cuda", monitor=HealthMonitor(policy="abort"))
+    for i in range(3):
+        srv.submit(tir.repeat(tir.hdiff_program(), 2), _noise((2, 16, 16), SEED + i))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        done = srv.run_until_idle()
+    assert len(done) == 3 and not any(r.failed for r in done)
+    assert srv.monitor.reads == 21 and srv.monitor.probes == 3
+    assert srv.stats["syncs"] == 0
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                    if e.get("cat") == "user_annotation" and e.get("ph") == "X"),
+                   key=lambda e: float(e["ts"]))
+
+    def inside(outer, names):
+        a, b = float(outer["ts"]), float(outer["ts"]) + float(outer["dur"])
+        return [e for e in spans if e["name"] in names and e is not outer
+                and a <= float(e["ts"]) and float(e["ts"]) + float(e["dur"]) <= b]
+
+    steps = [e for e in spans if e["name"] == "serve.forecast.step"]
+    assert len(steps) == 1  # one step for the three members, none for the idle call
+    assert [e["name"] for e in inside(steps[0], STEP_CHILDREN)] == STEP_CHILDREN
+    retire = inside(steps[0], ["serve.forecast.retire"])[0]
+    assert len(inside(retire, ["health.probe"])) == 3
+    assert len([e for e in spans if e["name"] == "health.probe"]) == 3
+    call = inside(steps[0], ["serve.forecast.call"])[0]
+    assert [e["name"] for e in inside(call, ["ir.lower_batched.hdiff_x2.cuda"])] == [
+        "ir.lower_batched.hdiff_x2.cuda"]
+
+
+def test_every_batch_is_one_step_span_with_its_children(tmp_path):
+    import json
+
+    srv = _server(max_batch=4)
+    _submit_interleaved(srv)  # three batches, one of them multi-output
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        srv.run_until_idle()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = sorted(((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+                    for e in json.loads(path.read_text())["traceEvents"]
+                    if e.get("cat") == "user_annotation" and e.get("ph") == "X"
+                    and e["name"].startswith("serve.forecast.")))
+    steps = [(a, b) for a, b, n in spans if n == "serve.forecast.step"]
+    assert len(steps) == srv.stats["batches"] == 3
+    for a, b in steps:
+        inner = [n for s, e, n in spans if a <= s and e <= b and n != "serve.forecast.step"]
+        assert inner == STEP_CHILDREN
+    assert len(spans) == 3 * (1 + len(STEP_CHILDREN))
+
+
+def test_forecast_request_carries_no_throughput_stamp():
+    import dataclasses
+
+    assert "items_per_sec" not in {f.name for f in dataclasses.fields(ForecastRequest)}
+    srv = _server(max_batch=2)
+    srv.submit(tir.hdiff_program(), _noise((2, 16, 16), SEED))
+    (req,) = srv.run_until_idle()
+    (retire,) = events.current().events("serve.forecast.retire")
+    assert retire.data == {"rid": req.rid, "batch": 1, "failed": False,
+                           "queue_latency_s": req.queue_latency_s}
+    assert req.dispatch_ts <= req.done_ts
+
+
+def test_host_wait_counters_reach_the_registry():
+    srv = _server(max_batch=4, monitor=HealthMonitor(policy="warn"))
+    for i in range(3):
+        srv.submit(tir.hdiff_program(), _noise((2, 16, 16), SEED + i))
+    srv.run_until_idle()
+    counters = metrics.current().snapshot()["counters"]
+    assert counters["health.reads"] == srv.monitor.reads == 21
+    assert "serve.forecast.syncs" not in counters  # a CPU step never waits
 
 
 def test_member_occupancy_gauge_tracks_last_batch():
@@ -263,7 +348,8 @@ def test_nan_injected_request_fails_alone(backend):
     rid2 = srv.submit(tir.hdiff_program(), clean[2])
     done = {r.rid: r for r in srv.run_until_idle()}
 
-    assert srv.stats == {"batches": 1, "members": 3, "completed": 2, "failed": 1}
+    assert srv.stats == {"batches": 1, "members": 3, "completed": 2, "failed": 1,
+                         "syncs": 0}
     bad = done[rid_bad]
     assert bad.done and bad.failed and bad.result is None
     assert isinstance(bad.error, NumericsError)
@@ -435,7 +521,7 @@ def test_same_schedule_through_both_packages():
     assert tsrv.cache.stats() == jsrv.cache.stats()
     assert tsrv.cache.stats()["evictions"] > 0
     assert tsrv.cache.total_traces() == jsrv.cache.total_traces()
-    assert tsrv.stats == jsrv.stats
+    assert tsrv.stats == {**jsrv.stats, "syncs": 0}  # the port counts its waits too
     for rid, jr in jdone.items():
         want = ({f: np.asarray(a) for f, a in jr.result.items()}
                 if isinstance(jr.result, dict) else np.asarray(jr.result))
