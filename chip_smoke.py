@@ -253,7 +253,14 @@ script's seconds so far when it was printed):
               fig14's cache schedule on a fresh cache: 4 misses, 4 hits,
               rate 0.5, 4 signatures, no kernel loaded or built in the warm
               wave. (d) 8 members, one NaN-poisoned: it fails alone with
-              NumericsError, the other 7 bit-equal to a run without it
+              NumericsError, the other 7 bit-equal to a run without it;
+              the probes make one field_stats launch and read seven
+              scalars each. (e) The probe's kernel (field_stats) on a
+              served COSMO-E member, (301, 390, 582) float32 as batch[1]:
+              counts, min and max equal to its plain version's on the
+              CPU, mean and L2 within 1e-6, two launches bit-equal; warm (graph
+              replays) and cold µs beside its one-read bound, the plain
+              version's ms; it joins the kernels line
   driver      the shallow-water weather driver
               (``examples/torch_weather_simulation.py``, M12) at 64x256x256,
               50 steps: (a) ``--devices 1 --inner cuda`` through its
@@ -515,6 +522,9 @@ NOWCAST_GRID = (1, 64, 64)  # fig14's nowcast tile: (1, rows / 4, cols / 4) of t
 DEEP_GRID = (65537, 12, 12)  # past the grid's 65535 planes: two launches of K1-K4
 FORECAST_K = 2  # fig14 serves repeat(hdiff, 2)
 N_FORECASTS = 8
+# A served COSMO-E member (portbench's cosmo-e-hdiff-ens: 60 levels x five
+# fields, 390 x 582), where the probe's field_stats kernel is timed.
+ENSEMBLE_MEMBER = (301, 390, 582)
 BATCH_SIZES = (1, 2, 4, 8)
 FORECAST_WARMUP, FORECAST_ROUNDS = 2, 20  # fig14: rounds interleave the batch sizes
 FORECAST_MEMBERS = (1, 3, 8)  # the batched parity cells at the paper grid
@@ -2273,7 +2283,8 @@ def main() -> int:
     from repro_torch.models import build_cache, build_lm, lm_decode, lm_forward, lm_prefill
     from repro_torch.obs import MetricsRegistry, metrics, profiler_trace, runtime_metadata
     from repro_torch.ir.lower_cuda import _KERNELS
-    from repro_torch.obs.health import HealthMonitor, NumericsError
+    from repro_torch.obs.health import HealthMonitor, NumericsError, field_stats, host_stats
+    from repro_torch.kernels.stats import field_stats_cuda, field_stats_plain
     from repro_torch.serve import BatchedServer, CompileCache, ForecastServer
     from repro_torch.train import (AssimilationConfig, fit_coefficient_field, forward_model,
                                    synthetic_observations, true_coefficients)
@@ -3751,17 +3762,23 @@ def main() -> int:
     check(waves[1] == {"kernels_loaded": 0, "nvcc_builds": 0}, f"warm wave built {waves[1]}")
 
     # (d) The NaN drill: 8 members, one poisoned; it fails alone and the
-    # other 7 equal a run without it.
+    # other 7 equal a run without it. Each member's probe is one field_stats
+    # launch and one read of its seven scalars.
     clean = [randn(PAPER_GRID) for _ in range(N_FORECASTS)]
     poisoned = clean[3].clone()
     poisoned[0, 100, 100] = float("nan")
     srv = ForecastServer(backend="cuda", max_batch=N_FORECASTS,
                          monitor=HealthMonitor(policy="abort"))
     rids = [srv.submit(fprog, poisoned if i == 3 else m) for i, m in enumerate(clean)]
-    done = {r.rid: r for r in srv.run_until_idle()}
+    done, drill_launches = counted(srv.run_until_idle)
+    done = {r.rid: r for r in done}
     check(srv.stats == {"batches": 1, "members": 8, "completed": 7, "failed": 1,
                         "syncs": 1},
           f"NaN drill: {srv.stats}")
+    check(drill_launches == {"stencil_program_cuda": 1, "field_stats": N_FORECASTS}
+          and srv.monitor.reads == 7 * srv.monitor.probes == 7 * N_FORECASTS,
+          f"NaN drill: launches {drill_launches}, {srv.monitor.reads} reads in "
+          f"{srv.monitor.probes} probes")
     check(isinstance(done[rids[3]].error, NumericsError) and done[rids[3]].result is None,
           "the poisoned member did not fail with NumericsError")
     _, ref, ref_rids, _ = drain(ForecastServer(backend="cuda", max_batch=N_FORECASTS), fprog,
@@ -3769,6 +3786,27 @@ def main() -> int:
     for rid, ref_rid in zip([r for i, r in enumerate(rids) if i != 3], ref_rids):
         check(torch.equal(done[rid].result, ref[ref_rid].result),
               f"NaN drill: member {rid} differs from the run without the poison")
+    # (e) The probe's kernel at a served COSMO-E member (batch[i], contiguous),
+    # against its plain version, warm (CUDA-graph replays: 273 MB leaves
+    # nothing in L2 between launches) and cold, beside its one-read bound.
+    batch = randn((3, *ENSEMBLE_MEMBER))
+    member = batch[1]
+    member.view(-1)[4_000_000] = float("nan")
+    check(torch.equal(field_stats_cuda(member), field_stats_cuda(member)),
+          f"field_stats at {ENSEMBLE_MEMBER}: two launches differ")
+    got_s, want_s = host_stats(field_stats(member)), host_stats(field_stats(member.cpu()))
+    fs_err = max(abs(got_s[k] - want_s[k]) for k in ("mean", "l2"))
+    check(all(got_s[k] == want_s[k] for k in ("size", "nan_count", "inf_count", "min", "max"))
+          and all(abs(got_s[k] - want_s[k]) <= 1e-6 * abs(want_s[k]) for k in ("mean", "l2")),
+          f"field_stats at {ENSEMBLE_MEMBER}: {got_s} against the plain version's {want_s}")
+    fs_bytes = member.numel() * member.element_size()
+    fs_timing = {"ms": graph_ms(lambda: field_stats_cuda(member)),
+                 "cold_ms": cold_ms(lambda: field_stats_cuda(member)),
+                 "plain_ms": event_ms(lambda: field_stats_plain(member), reps=5),
+                 "bound_ms": fs_bytes / H100_SXM.hbm_bw * 1e3, "bound_by": "bytes",
+                 "grid": "x".join(map(str, ENSEMBLE_MEMBER))}
+    del batch, member
+    torch.cuda.empty_cache()
     emit({"phase": "forecast", "program": f"repeat(hdiff, {FORECAST_K})",
           "parity": {"cells": len(cells), "checks_bit_equal": fc_checks,
                      "max_abs_err": fc_err, "deep": {"grid": list(DEEP_GRID), **deep}},
@@ -3777,7 +3815,9 @@ def main() -> int:
           "cache": {**stats, "hit_rate": cache.hit_rate, "signatures": cache.total_traces(),
                     "waves": waves},
           "nan_drill": {"failed": [r for r in rids if done[r].failed], "completed": 7,
-                        "bit_equal_to_clean_run": True},
+                        "bit_equal_to_clean_run": True, "launches": drill_launches,
+                        "reads": srv.monitor.reads},
+          "field_stats": {**fs_timing, "max_abs_err": fs_err},
           "seconds": time.perf_counter() - t_phase})
 
     # -- driver: the shallow-water weather driver (M12) -----------------------------
@@ -4763,6 +4803,15 @@ def main() -> int:
         kernels.append({"name": site, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": rwkv_launches[site] + sharded_train_launches.get(site, 0),
                         "max_abs_err": max(worst[site], tp_worst.get(site, 0.0)), **t})
+    # The health probe's kernel, which replaces no Pallas kernel: the JAX
+    # package leaves field_stats to XLA's fused reductions. Its launches are
+    # the NaN drill's probes; timed at a served COSMO-E member.
+    kernels.append({"name": "field_stats", "route": "cuda",
+                    "source": "src/repro_torch/csrc/field_stats.cu",
+                    "replaces": "src/repro/obs/health.py:60", "launches": drill_launches[
+                        "field_stats"], "max_abs_err": fs_err,
+                    **{k: v for k, v in fs_timing.items() if k != "grid"},
+                    "library_ms": None})
     for k in kernels:  # a time under its bound would make the bound no bound
         check(k["ms"] >= k["bound_ms"],
               f"{k['name']} ({k['replaces']}): {k['ms']} ms under its bound {k['bound_ms']} ms")

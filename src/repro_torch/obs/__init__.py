@@ -7,9 +7,10 @@ The port's copy of ``repro.obs``, seven small pieces:
     no-op when disabled, enabled via ``enable()`` / ``using()`` /
     ``REPRO_METRICS=1``; ``instrument_call`` steps aside during CUDA graph
     capture.
-  * :mod:`repro_torch.obs.health`  — field probes with torch reductions
-    (``field_stats``: int32 NaN/Inf counts, finite min/max/mean, L2) and
-    the cadence/policy ``HealthMonitor``.
+  * :mod:`repro_torch.obs.health`  — field probes (``field_stats``: int32
+    NaN/Inf counts, finite min/max/mean, L2; on the card one launch of the
+    ``field_stats`` kernel and one host read a probe) and the
+    cadence/policy ``HealthMonitor``.
   * :mod:`repro_torch.obs.events`  — the flight recorder: bounded ring of
     structured events, span helpers, ``REPRO_EVENT_LOG`` JSONL sink and a
     crash dump that flushes the ring on abort.

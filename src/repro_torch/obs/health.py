@@ -6,10 +6,12 @@ telemetry (:mod:`repro_torch.obs.metrics`) never notices. This module
 watches the *numbers*:
 
   * :func:`field_stats` — NaN/Inf counts, finite min/max/mean and the
-    global L2 norm, computed with torch reductions where the tensor lives
-    (only scalars ever cross to the host, and only when the caller asks).
-    With ``axis_names`` the stats are mesh-global: one all-reduce per
-    statistic over the named axes' group of ranks.
+    global L2 norm, computed where the tensor lives from seven accumulators
+    of one pass over it: on the card one launch of the hand-written
+    ``field_stats`` kernel (:mod:`repro_torch.kernels.stats`), on the CPU
+    its plain version (only scalars ever cross to the host, and only when
+    the caller asks). With ``axis_names`` the stats are mesh-global: the
+    accumulators are all-reduced over the named axes' group of ranks.
   * :class:`HealthMonitor` — cadence-gated probing with one of three
     policies when a probe is unhealthy:
 
@@ -36,10 +38,13 @@ the span ``health.probe`` (:func:`repro_torch.obs.profile.span`).
 
 from __future__ import annotations
 
+import math
+import struct
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
+from repro_torch.kernels.stats.kernel import field_stats_cuda
 from repro_torch.obs import events, metrics, profile
 from repro_torch.tree import tree_map
 
@@ -56,66 +61,90 @@ def _host_snapshot(tree: Any) -> Any:
                     tree)
 
 
-def field_stats(x, *, axis_names: Sequence[str] = (), mesh=None) -> dict[str, Any]:
-    """Health statistics of one tensor (any shape/dtype), where it lives.
+def _accumulate(x, axis_names: Sequence[str], mesh) -> tuple[torch.Tensor, int | None]:
+    """The accumulators of ``x`` (:data:`~repro_torch.kernels.stats.kernel.ACC_KEYS`,
+    float64, where ``x`` lives) and its size, ``x.numel()`` read on the host.
+    Over ``axis_names`` of more than one shard they are the whole field's,
+    all-reduced, and the size is None: every element is NaN, infinite or
+    finite, so the field's size is the sum of the three reduced counts."""
+    if axis_names and mesh is None:
+        raise ValueError(
+            f"field_stats(axis_names={tuple(axis_names)}) needs the mesh those axes "
+            "belong to: pass mesh=..."
+        )
+    x = torch.as_tensor(x)
+    acc = field_stats_cuda(x)
+    # Axes of one shard reduce nothing (and need no process group).
+    if not axis_names or not any(mesh.axis_size(a) > 1 for a in axis_names):
+        return acc, x.numel()
+    import torch.distributed as dist
 
-    Returns a dict of 0-d tensors: ``size``, ``nan_count``, ``inf_count``,
-    ``min``, ``max``, ``mean``, ``l2``. Counts are ``torch.int32`` sums, so
-    they are exact up to 2^31-1 elements — a float32 accumulator would
+    from repro_torch.dist.sharding import all_reduce
+
+    group = mesh.axis_group(tuple(axis_names))
+    sums = all_reduce(acc[:5], dist.ReduceOp.SUM, mesh, group)
+    lo = all_reduce(acc[5:6], dist.ReduceOp.MIN, mesh, group)
+    hi = all_reduce(acc[6:], dist.ReduceOp.MAX, mesh, group)
+    return torch.cat([sums, lo, hi]), None
+
+
+def _stats(acc: torch.Tensor, size: int | None) -> dict[str, torch.Tensor]:
+    """:func:`field_stats`'s dict from the accumulators, on their device."""
+    total = (acc[:3].sum() if size is None
+             else torch.full((), size, dtype=torch.float64, device=acc.device))
+    counts = torch.stack([total, acc[0], acc[1]]).to(torch.int32)
+    moments = torch.stack([acc[5], acc[6], acc[3] / acc[2].clamp(min=1),
+                           acc[4].sqrt()]).to(torch.float32)
+    return dict(zip(STAT_KEYS, (*counts.unbind(), *moments.unbind())))
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32, to nearest as ``.to(torch.float32)`` rounds:
+    past float32's range an infinity (where ``struct`` raises instead)."""
+    try:
+        return struct.unpack("f", struct.pack("f", v))[0]
+    except OverflowError:
+        return math.copysign(math.inf, v)
+
+
+def _host_stats(acc: Sequence[float], size: int | None) -> dict[str, float]:
+    """``host_stats(_stats(acc, size))`` from accumulators already on the
+    host: the same float64 operations, each result rounded once to float32,
+    in Python (microseconds where the tensor route costs tens)."""
+    nan, inf, fin, total, sumsq, lo, hi = acc
+    return {"size": float(nan + inf + fin if size is None else size), "nan_count": nan,
+            "inf_count": inf, "min": lo, "max": hi, "mean": _f32(total / max(fin, 1.0)),
+            "l2": _f32(math.sqrt(sumsq))}
+
+
+def field_stats(x, *, axis_names: Sequence[str] = (), mesh=None) -> dict[str, Any]:
+    """Health statistics of one tensor (any shape; a floating, integer or
+    bool dtype), where it lives.
+
+    Returns a dict of 0-d tensors: ``size``, ``nan_count``, ``inf_count``
+    (``torch.int32``, exact up to 2^31-1 elements — a float32 count would
     silently lose exactness past 2^24 (~16.7M), below a full ERA5-scale
-    field. Min/max/mean/L2 are over the FINITE values only; with no finite
-    values min/max are +/-inf and mean/L2 are 0 — ``nan_count`` /
-    ``inf_count`` carry the alarm. Nothing synchronises: convert with
-    :func:`host_stats` when a Python-side decision is needed.
+    field), ``min``, ``max``, ``mean``, ``l2`` (``torch.float32``).
+    Min/max/mean/L2 are over the FINITE values only, each rounded to float32
+    first; with no finite values min/max are +/-inf and mean/L2 are 0 —
+    ``nan_count`` / ``inf_count`` carry the alarm. All of them come from one
+    pass over ``x`` (:func:`~repro_torch.kernels.stats.kernel.field_stats_cuda`):
+    on the card one launch of the hand-written ``field_stats`` kernel, which
+    reads each element once and sums in float64; on the CPU its plain
+    version. ``size`` is ``x.numel()``, from the host: nothing is copied to
+    the card. Nothing synchronises: convert with :func:`host_stats` when a
+    Python-side decision is needed (:class:`HealthMonitor` reads all seven
+    in one copy).
 
     ``axis_names`` names mesh axes to reduce across, as in a ``shard_map``
     body of the JAX package: every rank of ``mesh`` (required with
-    ``axis_names``) calls this with its block, and the counts and moments
-    are all-reduced by sum (the int32 counts exactly), min and max by min
-    and max, over the group of ranks that differ only on those axes — so
-    GLOBAL statistics of the sharded field come back on every rank. This synchronises (it is a collective).
+    ``axis_names``) calls this with its block, and the counts and sums are
+    all-reduced by sum, min and max by min and max (three collectives),
+    over the group of ranks that differ only on those axes — so GLOBAL
+    statistics of the sharded field come back on every rank. This
+    synchronises (it is a collective).
     """
-    x = torch.as_tensor(x)
-    finite = torch.isfinite(x)
-    nan_count = torch.isnan(x).sum(dtype=torch.int32)
-    inf_count = torch.isinf(x).sum(dtype=torch.int32)
-    n_finite = finite.sum(dtype=torch.int32)
-    xf = torch.where(finite, x, 0).to(torch.float32)
-    total = xf.sum()
-    sumsq = (xf * xf).sum()
-    mn = torch.where(finite, x, float("inf")).to(torch.float32).min()
-    mx = torch.where(finite, x, float("-inf")).to(torch.float32).max()
-    size = torch.tensor(x.numel(), dtype=torch.int32, device=x.device)
-    if axis_names:
-        import torch.distributed as dist
-
-        from repro_torch.dist.sharding import all_reduce
-
-        if mesh is None:
-            raise ValueError(
-                f"field_stats(axis_names={tuple(axis_names)}) needs the mesh those axes "
-                "belong to: pass mesh=..."
-            )
-        # Axes of one shard reduce nothing (and need no process group).
-        if any(mesh.axis_size(a) > 1 for a in axis_names):
-            group = mesh.axis_group(tuple(axis_names))
-            sums = all_reduce(torch.stack([nan_count, inf_count, n_finite, size]),
-                              dist.ReduceOp.SUM, mesh, group)
-            nan_count, inf_count, n_finite, size = sums.unbind()
-            total, sumsq = all_reduce(torch.stack([total, sumsq]), dist.ReduceOp.SUM, mesh,
-                                      group).unbind()
-            mn = all_reduce(mn, dist.ReduceOp.MIN, mesh, group)
-            mx = all_reduce(mx, dist.ReduceOp.MAX, mesh, group)
-    mean = total / n_finite.clamp(min=1).to(torch.float32)
-    return {
-        "size": size,
-        "nan_count": nan_count,
-        "inf_count": inf_count,
-        "min": mn,
-        "max": mx,
-        "mean": mean,
-        "l2": torch.sqrt(sumsq),
-    }
+    return _stats(*_accumulate(x, axis_names, mesh))
 
 
 def host_stats(stats: Mapping[str, Any]) -> dict[str, float]:
@@ -206,7 +235,7 @@ class HealthMonitor:
         self.axis_names = tuple(axis_names)
         self.mesh = mesh
         self.probes = 0
-        self.reads = 0  # scalars read to the host, each one wait on the device
+        self.reads = 0  # scalars read to the host: seven a probe, in one copy and one wait
         self.blowups = 0
         self.last_healthy: tuple[int, Any] | None = None
         self._auto_step = 0  # wrap()'s call counter
@@ -218,14 +247,19 @@ class HealthMonitor:
               state: Any = None, force: bool = False) -> dict[str, float] | None:
         """Probe ``x`` if due. Returns the host stats dict when a probe ran
         (healthy or not, under ``warn``), None when skipped. Raises
-        :class:`NumericsError` on a blow-up under the abort policies."""
+        :class:`NumericsError` on a blow-up under the abort policies.
+
+        A probe computes ``x``'s accumulators (on the card one kernel launch)
+        and waits once: one device-to-host copy of all seven, from which it
+        builds the dict ``host_stats(field_stats(x))`` would give."""
         if metrics.capturing():
             return None
         if not force and not self.due(step):
             return None
         name = name or self.name
         with profile.span("health.probe"):
-            stats = host_stats(field_stats(x, axis_names=self.axis_names, mesh=self.mesh))
+            acc, size = _accumulate(x, self.axis_names, self.mesh)
+            stats = _host_stats(acc.tolist(), size)  # one copy, one wait
         self.probes += 1
         self.reads += len(stats)
         metrics.inc("health.probes")

@@ -12,8 +12,9 @@ synchronise). The spans the port opens:
   * ``serve.forecast.step`` around a :class:`ForecastServer` step, with
     ``serve.forecast.admit``, ``.stack``, ``.call``, ``.wait`` and
     ``.retire`` inside it, in that order;
-  * ``health.probe`` around a probe that runs (``field_stats`` and its
-    host reads), inside ``serve.forecast.retire`` when the server probes;
+  * ``health.probe`` around a probe that runs (on the card one
+    ``field_stats`` kernel and one read of its seven scalars), inside
+    ``serve.forecast.retire`` when the server probes;
   * every lowered call, named as its metric (``ir.lower_cuda.<program>``,
     ``ir.lower_batched.<program>.<backend>``, ...;
     :func:`repro_torch.obs.metrics.instrument_call`);
